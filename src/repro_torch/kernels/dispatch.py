@@ -1,0 +1,191 @@
+"""Kernel dispatch for the serving path: routes each op to its hand-written
+CUDA kernel or to its plain PyTorch version.
+
+Counterpart of ``repro.kernels.dispatch`` (serving subset). The resolver
+has one rule: a tensor on the card goes to the kernel, a tensor on the CPU
+to the plain version. The only override is ``backend="ref"`` (an argument,
+or ``use_backend("ref")`` around a whole model call), which runs the plain
+version on any device; the tests and ``chip_smoke.py``'s cross-check use
+it. There is no fallback from the kernel to the plain version: the kernels
+bounds-check every tile, so every shape runs unpadded, and a kernel that
+cannot run raises. Every call is recorded in ``STATS`` under the backend
+that actually ran.
+"""
+from __future__ import annotations
+
+import collections
+import contextlib
+import threading
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from ..core import floatsd
+from .floatsd_matmul import ops as fm_ops
+from .floatsd_matmul.ref import ordered_matmul
+from .lstm_cell import ops as lc_ops
+from .lstm_cell.ref import lstm_cell_ref
+
+__all__ = [
+    "BACKENDS", "ZERO_CODE", "PackedTensor", "is_packed", "Decision",
+    "DispatchStats", "STATS", "use_backend", "matmul", "lstm_cell",
+    "packed_einsum", "hoist_packed",
+]
+
+BACKENDS = ("ref", "cuda")
+
+# uint8 code that decodes to exactly 0.0 at any bias: e=0, mantissa index of
+# 0.0 in the symmetric 31-entry grid.
+ZERO_CODE = int(np.searchsorted(floatsd.MANTISSA_VALUES, 0.0))
+
+
+class PackedTensor(NamedTuple):
+    """A FloatSD8-packed tensor: uint8 codes + the per-tensor exponent bias,
+    kept on the host so no launch waits on a device read."""
+
+    codes: torch.Tensor  # uint8, same shape as the dense tensor
+    bias: int
+    # f32 decode of the codes, set by hoist_packed when the plain version runs
+    dense: torch.Tensor | None = None
+
+
+def is_packed(x: Any) -> bool:
+    return isinstance(x, PackedTensor)
+
+
+class Decision(NamedTuple):
+    op: str
+    backend: str  # "ref" | "cuda"
+    reason: str
+
+
+class DispatchStats:
+    """Per-(op, backend) call counters and the last Decision per op."""
+
+    def __init__(self):
+        self.counts: collections.Counter = collections.Counter()
+        self.last: dict[str, Decision] = {}
+        self._lock = threading.Lock()
+
+    def record(self, d: Decision) -> None:
+        with self._lock:
+            self.counts[(d.op, d.backend)] += 1
+            self.last[d.op] = d
+
+    def count(self, op: str | None = None, backend: str | None = None) -> int:
+        with self._lock:
+            return sum(
+                n for (o, b), n in self.counts.items()
+                if (op is None or o == op) and (backend is None or b == backend)
+            )
+
+    def reset(self) -> None:
+        with self._lock:
+            self.counts.clear()
+            self.last.clear()
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return dict(self.counts)
+
+
+STATS = DispatchStats()
+
+_OVERRIDE: list[str] = []  # use_backend() stack
+
+
+def _check(backend: str | None) -> None:
+    if backend not in (None, "ref"):
+        raise ValueError(f"backend must be None or 'ref', got {backend!r}")
+
+
+@contextlib.contextmanager
+def use_backend(name: str | None):
+    """Force ``"ref"`` for every resolution inside the block (``None``
+    leaves the device rule in charge)."""
+    _check(name)
+    _OVERRIDE.append(name)
+    try:
+        yield
+    finally:
+        _OVERRIDE.pop()
+
+
+def _decide(op: str, t: torch.Tensor, backend: str | None) -> Decision:
+    _check(backend)
+    if (backend or (_OVERRIDE[-1] if _OVERRIDE else None)) == "ref":
+        return Decision(op, "ref", "policy:ref")
+    if t.device.type == "cuda":
+        return Decision(op, "cuda", "cuda tensor")
+    return Decision(op, "ref", f"{t.device.type} tensor")
+
+
+def matmul(x: torch.Tensor, codes: torch.Tensor, bias, *, transposed: bool = False,
+           dense: torch.Tensor | None = None, backend: str | None = None) -> torch.Tensor:
+    """x [..., K] @ decode(codes) -> [..., N] f32, codes [K, N] or, when
+    ``transposed``, [N, K]. x is taken in f32 (exact from bf16/fp16, and
+    decoded FloatSD8 weights are exact in bf16, so a bf16 policy's product
+    is its bf16-issue product with f32 accumulation). ``dense`` is the
+    codes' decode from ``hoist_packed``: the plain version then skips its
+    own decode and sums in the same order."""
+    k = x.shape[-1]
+    n = codes.shape[0] if transposed else codes.shape[1]
+    x2 = x.reshape(-1, k).to(torch.float32).contiguous()
+    dec = _decide("floatsd_matmul", x2, backend)
+    if dec.backend == "ref":
+        w = floatsd.decode(codes, bias, dtype=torch.float32) if dense is None else dense
+        y = ordered_matmul(x2, w.t() if transposed else w)
+    else:
+        y = fm_ops.floatsd_matmul(x2, codes, bias, transposed=transposed)
+    STATS.record(dec)
+    return y.reshape(*x.shape[:-1], n)
+
+
+def lstm_cell(z: torch.Tensor, c_prev: torch.Tensor, *, quantized: bool = True,
+              c_dtype=torch.float16, backend: str | None = None):
+    """Fused gates -> (h, c). z: [B, 4H] (i|f|g|o), c_prev: [B, H]."""
+    dec = _decide("lstm_cell", z, backend)
+    if dec.backend == "ref":
+        out = lstm_cell_ref(z, c_prev, quantized, c_dtype=c_dtype)
+    else:
+        out = lc_ops.lstm_cell(
+            z.contiguous(), c_prev.contiguous(), quantized=quantized, c_dtype=c_dtype
+        )
+    STATS.record(dec)
+    return out
+
+
+def packed_einsum(eq: str, x: torch.Tensor, packed: PackedTensor, *,
+                  backend: str | None = None) -> torch.Tensor:
+    """The weight-site einsums over a PackedTensor: ``...d,df->...f`` /
+    ``bd,dk->bk`` (contract w's first axis) and ``...d,vd->...v``
+    (contract w's second axis: the tied logits head, whose codes the kernel
+    reads in place). Returns f32."""
+    ins, out = eq.replace(" ", "").split("->")
+    xl, wl = ins.split(",")
+    cl = xl[-1]
+    if len(wl) != 2 or cl not in wl:
+        raise NotImplementedError(f"packed_einsum does not support {eq!r}")
+    transposed = wl[1] == cl  # w stored [free, contract], e.g. "vd"
+    wf = wl[0] if transposed else wl[1]
+    if out != xl[:-1] + wf:
+        raise NotImplementedError(f"packed_einsum does not support {eq!r}")
+    return matmul(x, packed.codes, packed.bias, transposed=transposed, dense=packed.dense,
+                  backend=backend)
+
+
+def hoist_packed(w, *, backend: str | None = None):
+    """Loop-hoist hint for packed weights used inside a time loop.
+
+    When the plain version will run the matmuls, decoding the codes once
+    outside the loop beats a decode at every step: the returned
+    PackedTensor carries the decode in ``dense``. On the card the codes
+    stay as they are, since decoding in the tile is the kernel's point.
+    Anything else passes through.
+    """
+    if not is_packed(w) or w.dense is not None:
+        return w
+    if _decide("floatsd_matmul", w.codes, backend).backend != "ref":
+        return w
+    return w._replace(dense=floatsd.decode(w.codes, w.bias, dtype=torch.float32))
