@@ -10,12 +10,13 @@ Phases, in order; the first failure exits non-zero:
 
   1. device     a CUDA device is present; prints nvidia-smi's name and
                 power limit.
-  2. build      builds both hand-written kernels from the checkout's
+  2. build      builds every hand-written kernel from the checkout's
                 sources (one nvcc per source, started together).
   3. kernels    each kernel against its plain PyTorch version on the card,
-                at the serving path's shapes: error, mismatches, median
-                time beside the plain version, the library call and the
-                bound (bytes or operations over the card's peak rates).
+                at the serving and training paths' shapes: error,
+                mismatches, median time beside the plain version, the
+                library call and the bound (bytes or operations over the
+                card's peak rates).
   4. main path  the full-width WikiText-2 FloatSD8 LM (vocab 33278 padded
                 to 33280, 1024 wide, 2 layers, tied embeddings, seeded
                 random weights) packed to 1-byte codes and served by
@@ -26,6 +27,21 @@ Phases, in order; the first failure exits non-zero:
   5. cross      the same requests served with backend="ref" (the plain
                 versions) on the card; greedy tokens must agree over each
                 request's margin-decisive prefix.
+  6. train      the same full-width model trained through the training
+                CLI's entry point (`repro_torch.launch.train --full`: B 64,
+                S 48, sgd(0.9), lr 0.5, floatsd8_table6, static loss scale
+                1024) for a few steps from a seeded init. Counters and
+                dispatch records are zeroed before and read after: every
+                forward matmul, cell, cell backward, matmul_dx and matmul_dw
+                ran on its kernel, as often as the fused BPTT implies, none
+                on the plain path; every loss is finite and no step was
+                skipped. Then one more step under torch.profiler: device
+                time by kernel, and the device's busy share of a step.
+  7. train-x    the same init and batches trained with backend="ref" on
+                the card: losses within 1e-3 relative at every step, and
+                each trained master leaf within 1e-3 of its change (L2)
+                from a second kernel-path run, whose losses must be
+                bit-identical to the first's.
 
 The second-to-last line is nvidia-smi's name/power-limit line, the line
 before it the kernels' JSON record, and the last line the result JSON.
@@ -34,6 +50,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -44,6 +61,10 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 LANES, CHUNK, REQUESTS, MAX_NEW = 8, 8, 16, 16
 MARGIN_FLOOR = 1e-5  # top-2 logit gap below which a greedy choice is a near-tie
+TRAIN_STEPS, XCHECK_STEPS = 5, 3  # the first train step is the warm-up
+TRAIN_ARGS = ["--task", "wikitext2", "--full", "--log-every", "1", "--seed", str(SEED)]
+LOSS_RTOL = 1e-3  # kernel vs plain losses: the JAX package's kernel-vs-reference bound
+PARAM_RTOL = 1e-3  # kernel vs plain masters, per leaf, relative to the plain run's change
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bandwidth, and
 # FP32 FMA rate outside the tensor cores (both kernels run on the FP32 units)
 HBM_BYTES_PER_S = 3.35e12
@@ -51,6 +72,9 @@ FP32_OPS_PER_S = 67e12
 # operations of one (b, j) of the cell: 3 gates x (exp, add, divide, 42
 # compares, select) + 2 tanh + 2 e5m2 conversions + 3 multiplies + 1 add
 CELL_OPS = 3 * 46 + 8
+# the backward recomputes that (146 ops), adds 3 smooth sigmoids and a tanh
+# (10) and 22 multiplies and adds of the derivative products
+CELL_BWD_OPS = 146 + 10 + 22
 SPIN_CYCLES = 40_000_000  # ~20 ms of device time: longer than the host needs to enqueue a timing loop
 
 
@@ -90,21 +114,26 @@ def timed_ms(torch, fn, reps: int, flush) -> float:
 def kernel_phase(torch, dev, flush):
     from repro_torch.core import floatsd
     from repro_torch.core.fp8 import FP16, quantize_fp8
-    from repro_torch.kernels.floatsd_matmul.ops import floatsd_matmul
-    from repro_torch.kernels.floatsd_matmul.ref import floatsd_matmul_ref, no_tf32
-    from repro_torch.kernels.lstm_cell.ops import lstm_cell
-    from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
+    from repro_torch.kernels.floatsd_matmul.ops import floatsd_matmul, matmul_dw, matmul_dx
+    from repro_torch.kernels.floatsd_matmul.ref import (
+        floatsd_matmul_ref, matmul_dw_ref, matmul_dx_ref, no_tf32,
+    )
+    from repro_torch.kernels.lstm_cell.ops import lstm_cell, lstm_cell_grad
+    from repro_torch.kernels.lstm_cell.ref import lstm_cell_bwd_ref, lstm_cell_ref
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     mm = {}
     # (site, M, K, N, codes stored [N, K], activation quantizer): the gate
-    # matmul (M = lanes, every time step; and at 64 rows), the tied head at
-    # decode (M = lanes) and prefill (M = lanes * chunk), and a ragged shape
+    # matmul (M = lanes, every time step; and at 64 rows, the training
+    # batch), the tied head at decode (M = lanes) and prefill (M = lanes *
+    # chunk), the training backward's recompute of all zs (M = S * B), and a
+    # ragged shape
     shapes = [
         ("gate", 8, 1024, 4096, False, "fp8"),
         ("gate", 64, 1024, 4096, False, "fp8"),
         ("head", 8, 1024, 33280, True, "fp16"),
         ("head", 64, 1024, 33280, True, "fp16"),
+        ("remat", 3072, 1024, 4096, False, "fp8"),
         ("ragged", 3, 100, 130, False, None),
     ]
     print("kernels: floatsd_matmul vs plain version (tolerance |err| <= 1e-5 * (|x| @ |W|))")
@@ -140,7 +169,7 @@ def kernel_phase(torch, dev, flush):
 
     print("kernels: lstm_cell vs plain version (at most 0.1% flipped, |dh| <= 2^-3)")
     cell = {}
-    for b, h in [(8, 1024), (5, 200)]:
+    for b, h in [(8, 1024), (64, 1024), (5, 200)]:
         z = torch.randn((b, 4 * h), device=dev, generator=g) * 2
         c = torch.randn((b, h), device=dev, generator=g).to(torch.float16)
         h_k, c_k = lstm_cell(z, c)
@@ -157,7 +186,78 @@ def kernel_phase(torch, dev, flush):
         cell[(b, h)] = dict(ms=t, plain_ms=t_plain, err=err, **bd)
         print(f"  [{b},{4 * h}] -> h,c [{b},{h}]: max_abs_err {err:.3e}, {flips} of {b * h} flipped | "
               f"kernel {t:.4f} ms, plain {t_plain:.3f} ms, bound {b_ms:.5f} ms ({b_by})")
-    return mm, cell
+
+    print("kernels: matmul_dx (floatsd_matmul.cu on codes [K,N] read as [out, contraction]) vs plain "
+          "version (tolerance |err| <= 1e-5 * (|g| @ |W|^T))")
+    dx = {}
+    for m, k, n in [(64, 1024, 4096), (3072, 1024, 4096)]:  # g [M, N], codes [K, N]
+        gr = torch.randn((m, n), device=dev, generator=g) * 1e-2
+        codes, bias = floatsd.encode(torch.randn((k, n), device=dev, generator=g) * 0.03)
+        bias = int(bias)
+        wd = floatsd.decode(codes, bias)
+        y, y_ref = matmul_dx(gr, codes, bias), matmul_dx_ref(gr, codes, bias)
+        torch.cuda.synchronize()
+        err = (y.double() - y_ref.double()).abs()
+        check(bool((err <= 1e-5 * (gr.double().abs() @ wd.double().abs().t()) + 1e-30).all()),
+              f"matmul_dx {m}x{n} -> {k} exceeds 1e-5")
+        mism = int((y != y_ref).sum())
+        with no_tf32():
+            t = timed_ms(torch, lambda: matmul_dx(gr, codes, bias), 20, flush)
+            t_plain = timed_ms(torch, lambda: matmul_dx_ref(gr, codes, bias), 3, flush)
+            t_lib = timed_ms(torch, lambda: torch.matmul(gr, wd.t()), 20, flush)
+        bd = bound(gr.numel() * 4 + codes.numel() + 4 + m * k * 4, 2.0 * m * n * k)
+        dx[m] = dict(ms=t, plain_ms=t_plain, library_ms=t_lib, err=float(err.max()), **bd)
+        print(f"  [{m},{n}] x codes[{k},{n}]^T: max_abs_err {float(err.max()):.3e}, {mism} of {m * k} "
+              f"not bit-identical | kernel {t:.4f} ms, plain {t_plain:.3f} ms, torch.matmul {t_lib:.4f} ms, "
+              f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+
+    print("kernels: matmul_dw vs plain version (quant=False: |err| <= 1e-5 * (|x|^T @ |g|); quant=True: "
+          "at most 0.1% of outputs differ, each by at most one e5m2 step)")
+    dw = {}
+    m, k, n = 3072, 1024, 4096  # S*B rows; dWx and dWh at the full width
+    x = quantize_fp8(torch.randn((m, k), device=dev, generator=g))
+    gr = torch.randn((m, n), device=dev, generator=g) * 1e-2
+    with no_tf32():
+        t_lib = timed_ms(torch, lambda: torch.matmul(x.t(), gr), 10, flush)
+    for quant in (True, False):
+        y, y_ref = matmul_dw(x, gr, quant=quant), matmul_dw_ref(x, gr, quant)
+        torch.cuda.synchronize()
+        err = (y.double() - y_ref.double()).abs()
+        off = y != y_ref
+        if quant:
+            step = torch.exp2(torch.floor(torch.log2(torch.maximum(y.abs(), y_ref.abs()).clamp(min=2.0**-14))) - 2)
+            check(int(off.sum()) <= 1e-3 * y.numel() and bool((err[off] <= step[off]).all()),
+                  f"matmul_dw quant: {int(off.sum())} outputs differ")
+        else:
+            check(bool((err <= 1e-5 * (x.double().abs().t() @ gr.double().abs()) + 1e-30).all()),
+                  "matmul_dw exceeds 1e-5")
+        t = timed_ms(torch, lambda: matmul_dw(x, gr, quant=quant), 10, flush)
+        t_plain = timed_ms(torch, lambda: matmul_dw_ref(x, gr, quant), 3, flush)
+        bd = bound(4.0 * (m * k + m * n + k * n), 2.0 * m * k * n)
+        dw[quant] = dict(ms=t, plain_ms=t_plain, library_ms=t_lib, err=float(err.max()), **bd)
+        print(f"  quant={quant} [{m},{k}]^T x [{m},{n}]: max_abs_err {float(err.max()):.3e}, {int(off.sum())} of "
+              f"{k * n} not bit-identical | kernel {t:.4f} ms, plain {t_plain:.3f} ms, torch.matmul(x.t(), g) "
+              f"(no FP8 snap) {t_lib:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+
+    print("kernels: lstm_cell_grad vs plain version (bit for bit)")
+    cell_bwd = {}
+    for b, h in [(64, 1024), (5, 200)]:
+        z = torch.randn((b, 4 * h), device=dev, generator=g) * 2
+        c = torch.randn((b, h), device=dev, generator=g).to(torch.float16)  # fp16 storage, as trained
+        dh, dc = (torch.randn((b, h), device=dev, generator=g) for _ in range(2))
+        dz, dcp = lstm_cell_grad(z, c, dh, dc)
+        dz_r, dcp_r = lstm_cell_bwd_ref(z, c.float(), dh, dc)
+        torch.cuda.synchronize()
+        flips = int((dz != dz_r).sum()) + int((dcp != dcp_r).sum())
+        err = max(float((dz - dz_r).abs().max()), float((dcp - dcp_r).abs().max()))
+        check(flips == 0, f"lstm_cell_grad {b}x{h}: {flips} outputs differ, max err {err}")
+        t = timed_ms(torch, lambda: lstm_cell_grad(z, c, dh, dc), 50, flush)
+        t_plain = timed_ms(torch, lambda: lstm_cell_bwd_ref(z, c.float(), dh, dc), 10, flush)
+        bd = bound(46.0 * b * h, float(b * h * CELL_BWD_OPS))
+        cell_bwd[(b, h)] = dict(ms=t, plain_ms=t_plain, err=err, **bd)
+        print(f"  [{b},{4 * h}] + 3 x [{b},{h}] -> dz, dc_prev: max_abs_err {err:.3e}, {flips} differ | "
+              f"kernel {t:.4f} ms, plain {t_plain:.3f} ms, bound {bd['bound_ms']:.5f} ms ({bd['bound_by']})")
+    return mm, cell, dx, dw, cell_bwd
 
 
 def serve(torch, model, params, policy, prompts, backend=None, step_times=None):
@@ -175,6 +275,121 @@ def serve(torch, model, params, policy, prompts, backend=None, step_times=None):
             step_times.append(time.perf_counter() - t0)
     eng.metrics.stop()
     return eng, sorted(reqs, key=lambda r: r.rid)
+
+
+def composite(parts) -> dict:
+    """Times and bound of a sequence of launches, from (count, row) pairs:
+    the sums of count x each row's time, and the larger of the summed byte
+    and operation bounds."""
+    tot = lambda key: sum(n * r[key] for n, r in parts)  # noqa: E731
+    lib = [r.get("library_ms") for _, r in parts]
+    b, o = tot("bytes_ms"), tot("ops_ms")
+    return {"ms": tot("ms"), "plain_ms": tot("plain_ms"), "bound_ms": max(b, o),
+            "bound_by": "bytes" if b >= o else "operations",
+            "library_ms": None if None in lib else tot("library_ms")}
+
+
+def train_counts(n_layers: int, seq: int) -> dict:
+    """Kernel calls per training step of the fused BPTT, per the code: per
+    layer, 2 gate matmuls a step + the backward's recompute pair, a cell
+    and a cell backward a step, a matmul_dx a step + the batched dXs, and
+    dWx + dWh."""
+    L, S = n_layers, seq
+    return {"floatsd_matmul": 2 * L * S + 2 * L, "lstm_cell": L * S, "lstm_cell_grad": L * S,
+            "floatsd_matmul_dx": L * S + L, "floatsd_matmul_dw": 2 * L}
+
+
+def profile_step(torch, step_fn, state, batch):
+    """One train step under torch.profiler: device time (ms) and launches
+    by kernel group."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, m = step_fn(state, batch)
+        float(m["loss"])
+    names = [("floatsd_matmul_kernel<false", "floatsd_matmul"),
+             ("floatsd_matmul_kernel<true", "floatsd_matmul_dx"),
+             ("matmul_dw_kernel", "floatsd_matmul_dw"), ("lstm_cell_bwd_kernel", "lstm_cell_grad"),
+             ("lstm_cell_kernel", "lstm_cell"), ("gemm", "library GEMM (tied head)")]
+    groups = {g: [0.0, 0] for _, g in names + [("", "other torch ops")]}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue
+        g = next((g for k, g in names if k in e.key.lower()), "other torch ops")
+        groups[g][0] += e.self_device_time_total / 1e3
+        groups[g][1] += e.count
+    return groups
+
+
+def train_phase(torch, smi):
+    """Phases 6 and 7: the full-width model through the training CLI."""
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import dispatch as kd
+    from repro_torch.kernels.floatsd_matmul.ops import floatsd_matmul, matmul_dw, matmul_dx
+    from repro_torch.kernels.lstm_cell.ops import lstm_cell, lstm_cell_grad
+    from repro_torch.launch import train
+    from repro_torch.models.task_zoo import make_task
+    from repro_torch.optim.train_state import batch_to_device, init_state, make_train_step
+
+    wrappers = {"floatsd_matmul": floatsd_matmul, "floatsd_matmul_dx": matmul_dx,
+                "floatsd_matmul_dw": matmul_dw, "lstm_cell": lstm_cell, "lstm_cell_grad": lstm_cell_grad}
+    kd.STATS.reset()
+    for w in wrappers.values():
+        w.launches = 0
+    out = train.main([*TRAIN_ARGS, "--steps", str(TRAIN_STEPS)])
+    launches = {op: w.launches for op, w in wrappers.items()}
+    stats = kd.STATS.snapshot()
+    model, data, opt, lr, _ = make_task("wikitext2", full=True)
+    batch = next(data.batches)
+    want = {op: TRAIN_STEPS * n
+            for op, n in train_counts(model.n_layers, batch["tokens"].shape[1]).items()}
+    check(launches == want, f"train launches {launches} != expected {want}")
+    check(all(stats.get((op, "cuda"), 0) == n for op, n in want.items())
+          and sum(n for (_, b), n in stats.items() if b == "ref") == 0, f"train dispatch records {stats}")
+    check(all(math.isfinite(v) for v in out["losses"]), f"nonfinite train loss {out['losses']}")
+    check(all(out["finite"]), f"a train step was skipped: grads_finite {out['finite']}")
+    warm = out["step_s"][1:]
+    step_ms = statistics.median(warm) * 1e3
+    tok_s = out["tokens_per_step"] / statistics.median(warm)
+    print(f"train: {TRAIN_STEPS} steps (first excluded as warm-up): median step {step_ms:.2f} ms, "
+          f"{tok_s:.0f} tok/s ({smi}); losses {out['losses']}; launches {launches}", flush=True)
+
+    # one more step under the profiler: where the device time goes
+    step_fn = make_train_step(model.loss, opt, get_policy("floatsd8_table6"), lr=lr)
+    groups = profile_step(torch, step_fn, out["state"], batch_to_device(batch, "cuda"))
+    busy = sum(ms for ms, _ in groups.values())
+    print(f"train step device time (torch.profiler, one warm step): busy {busy:.2f} ms of the "
+          f"{step_ms:.2f} ms median step (idle share {max(0.0, 1 - busy / step_ms):.1%}) in "
+          f"{sum(n for _, n in groups.values())} device operations; "
+          + ", ".join(f"{k} {ms:.3f} ms ({n})" for k, (ms, n) in groups.items()), flush=True)
+
+    # 7. the same init and batches on the plain versions, then the kernels again
+    with kd.use_backend("ref"):
+        ref = train.main([*TRAIN_ARGS, "--steps", str(XCHECK_STEPS)])
+    rel = [abs(a - b) / abs(b) for a, b in zip(out["losses"], ref["losses"])]
+    check(max(rel) <= LOSS_RTOL, f"kernel vs plain losses differ by {rel} relative")
+    again = train.main([*TRAIN_ARGS, "--steps", str(XCHECK_STEPS)])
+    check(again["losses"] == out["losses"][:XCHECK_STEPS],
+          f"two kernel runs differ: {again['losses']} vs {out['losses'][:XCHECK_STEPS]}")
+    # the loss barely moves in a few steps, so the trained masters are held
+    # too: each leaf's kernel-vs-plain distance against its plain change
+    init = init_state(model.init(torch.Generator(device="cuda").manual_seed(SEED)), opt,
+                      get_policy("floatsd8_table6")).params
+    drift = {}
+    for mod, leaves in ref["state"].params.items():
+        for name, p_ref in leaves.items():
+            p_ref, p_k = p_ref.float(), again["state"].params[mod][name].float()
+            moved = float(torch.linalg.vector_norm(p_ref - init[mod][name].float()))
+            drift[f"{mod}/{name}"] = float(torch.linalg.vector_norm(p_k - p_ref)) / max(moved, 1e-30)
+            check(moved > 0 and drift[f"{mod}/{name}"] <= PARAM_RTOL,
+                  f"{mod}/{name}: kernel vs plain masters {drift[f'{mod}/{name}']:.3e} of their change "
+                  f"{moved:.3e} (bound {PARAM_RTOL})")
+    print(f"train cross-check: {XCHECK_STEPS} steps, kernel vs plain losses within {max(rel):.3e} relative "
+          f"(bound {LOSS_RTOL}); plain {ref['losses']}; masters within {max(drift.values()):.3e} of their "
+          f"change (bound {PARAM_RTOL}; per leaf {drift}); a second kernel run bit-identical; plain step "
+          f"{statistics.median(ref['step_s']):.2f} s", flush=True)
+    return dict(launches=launches, step_ms=step_ms, tok_s=tok_s, groups=groups, busy_ms=busy)
 
 
 def main() -> int:
@@ -217,7 +432,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev)  # > 50 MB L2
-    mm, cell = kernel_phase(torch, dev, flush)
+    mm, cell, dx, dw, cell_bwd = kernel_phase(torch, dev, flush)
     del flush
 
     # 4. the main path at full width
@@ -268,33 +483,44 @@ def main() -> int:
           f"and equal; {agree} of {REQUESTS} streams equal in full; top-2 margin median "
           f"{np.median(margins):.3e}, min {margins.min():.3e}", flush=True)
 
-    # result lines
-    gate, head = mm[("gate", 8)], mm[("head", 8)]
-    c8 = cell[(8, 1024)]
-    per_step = lambda key: 2 * cfg.n_layers * gate[key] + head[key]  # noqa: E731
-    mm_bound = bound(0, 0)
-    mm_bound.update(bytes_ms=per_step("bytes_ms"), ops_ms=per_step("ops_ms"))
-    mm_bound.update(bound_ms=max(mm_bound["bytes_ms"], mm_bound["ops_ms"]),
-                    bound_by="bytes" if mm_bound["bytes_ms"] >= mm_bound["ops_ms"] else "operations")
-    record = {"kernels": [
-        {"name": "floatsd_matmul", "route": "cuda",
-         "source": "src/repro_torch/kernels/floatsd_matmul/floatsd_matmul.cu",
-         "replaces": "src/repro/kernels/floatsd_matmul/kernel.py:34",
-         "launches": launches["floatsd_matmul"],
-         "max_abs_err": max(v["err"] for v in mm.values()),
-         "ms": per_step("ms"), "plain_ms": per_step("plain_ms"),
-         "bound_ms": mm_bound["bound_ms"], "bound_by": mm_bound["bound_by"],
-         "library_ms": per_step("library_ms"),
-         "per": "decode step at 8 lanes: 4 x [8,1024]@[1024,4096] + [8,1024]@[33280,1024]^T"},
-        {"name": "lstm_cell", "route": "cuda",
-         "source": "src/repro_torch/kernels/lstm_cell/lstm_cell.cu",
-         "replaces": "src/repro/kernels/lstm_cell/kernel.py:45",
-         "launches": launches["lstm_cell"],
-         "max_abs_err": max(v["err"] for v in cell.values()),
-         "ms": cfg.n_layers * c8["ms"], "plain_ms": cfg.n_layers * c8["plain_ms"],
-         "bound_ms": cfg.n_layers * c8["bound_ms"], "bound_by": c8["bound_by"], "library_ms": None,
-         "per": "decode step at 8 lanes: 2 x z [8,4096], c [8,1024] fp16"},
-    ]}
+    # 6-7. training
+    tr = train_phase(torch, smi)
+
+    # result lines: each kernel's time per decode step (serving) or per train
+    # step, from the kernel phase's per-launch times and the launch counts
+    # of each path
+    L, S = cfg.n_layers, 48
+    serve_mm = [(2 * L, mm[("gate", 8)]), (1, mm[("head", 8)])]
+    train_mm = [(2 * L * S, mm[("gate", 64)]), (2 * L, mm[("remat", 3072)])]
+    entries = [
+        ("floatsd_matmul", "floatsd_matmul/floatsd_matmul.cu", "floatsd_matmul/kernel.py:34",
+         mm.values(), serve_mm,
+         "decode step at 8 lanes: 4 x [8,1024]@[1024,4096] + [8,1024]@[33280,1024]^T",
+         train_mm, "train step: 192 x [64,1024]@[1024,4096] + 4 x [3072,1024]@[1024,4096]"),
+        ("lstm_cell", "lstm_cell/lstm_cell.cu", "lstm_cell/kernel.py:45", cell.values(),
+         [(L, cell[(8, 1024)])], "decode step at 8 lanes: 2 x z [8,4096], c [8,1024] fp16",
+         [(L * S, cell[(64, 1024)])], "train step: 96 x z [64,4096], c [64,1024] fp16"),
+        ("floatsd_matmul_dx", "floatsd_matmul/floatsd_matmul.cu", "floatsd_matmul/bwd.py:48",
+         dx.values(), None, None, [(L * S, dx[64]), (L, dx[3072])],
+         "train step: 96 x [64,4096]@codes[1024,4096]^T + 2 x [3072,4096]@codes[1024,4096]^T"),
+        ("floatsd_matmul_dw", "floatsd_matmul/floatsd_matmul_dw.cu", "floatsd_matmul/bwd.py:74",
+         dw.values(), None, None, [(2 * L, dw[True])],
+         "train step: 4 x e5m2([3072,1024]^T @ [3072,4096]); library: torch.matmul(x.t(), g), no snap"),
+        ("lstm_cell_grad", "lstm_cell/lstm_cell_bwd.cu", "lstm_cell/bwd.py:75", cell_bwd.values(),
+         None, None, [(L * S, cell_bwd[(64, 1024)])],
+         "train step: 96 x z [64,4096], c_prev/dh/dc [64,1024] -> dz, dc_prev"),
+    ]
+    record = {"kernels": []}
+    for name, src, repl, rows, serve_parts, serve_per, train_parts, train_per in entries:
+        n_serve, n_train = launches.get(name, 0), tr["launches"][name]
+        parts, per = (serve_parts, serve_per) if serve_parts else (train_parts, train_per)
+        rec = {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/{src}",
+               "replaces": f"src/repro/kernels/{repl}", "launches": n_serve + n_train,
+               "launches_by_path": {"serve": n_serve, "train": n_train},
+               "max_abs_err": max(v["err"] for v in rows), **composite(parts), "per": per}
+        if serve_parts:
+            rec["train_step"] = {**composite(train_parts), "per": train_per}
+        record["kernels"].append(rec)
     check(all(k["launches"] > 0 for k in record["kernels"]), "a kernel never launched on the main path")
     print(json.dumps(record))
     print(smi)

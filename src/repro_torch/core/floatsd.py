@@ -22,7 +22,7 @@ import torch
 
 __all__ = [
     "MANTISSA_VALUES", "EXP_LEVELS", "exp2i", "fit_bias", "quantize",
-    "encode", "decode",
+    "quantize_ste", "encode", "decode",
 ]
 
 EXP_BITS = 3
@@ -141,3 +141,19 @@ def decode(codes: torch.Tensor, bias, dtype=torch.float32) -> torch.Tensor:
     m = _table(MANTISSA_VALUES, c)[torch.clamp(c & 0x1F, 0, 30)]
     bias = _clamp_bias(bias).to(c.device)
     return (m * exp2i((c >> 5) + bias)).to(dtype)
+
+
+class _QuantizeSTE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, bias):
+        return quantize(x, bias)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None  # straight-through: identity gradient, none to the bias
+
+
+def quantize_ste(x: torch.Tensor, bias) -> torch.Tensor:
+    """``quantize(x, bias).values`` forward, identity gradient (the weight
+    quantizer of training). Keeps x's dtype, so an fp16 master stays fp16."""
+    return _QuantizeSTE.apply(x, bias)

@@ -32,7 +32,7 @@ def _dt(name: str | None):
 class Policy:
     name: str = "fp32"
     weight_quant: str = "none"  # "floatsd8" | "none"
-    grad_quant: str = "none"  # "fp8" | "none"
+    grad_quant: str = "none"  # "fp8" | "none" ("fp8_kernel": fused BPTT, set by the train step)
     act_fwd: str = "none"  # inter-layer activations, forward
     act_bwd: str = "none"  # inter-layer activation-gradients, backward
     first_layer_act: str = "none"  # embedding output
@@ -45,6 +45,10 @@ class Policy:
 
     def cdt(self):
         return _dt(self.compute_dtype)
+
+    def mdt(self):
+        """The optimizer master copy's dtype."""
+        return _dt(self.master_dtype)
 
     def cell_dtype(self):
         """Cell-state storage dtype: fp16 under an fp16 master, else f32."""

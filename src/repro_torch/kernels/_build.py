@@ -1,11 +1,13 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel directory ``kernels/<op>/`` holds one ``<op>.cu`` with a plain C
-interface. At first use, ``load(op)`` compiles it with ``nvcc`` into a
-shared library under ``build/kernels/`` at the repository root (listed in
-``.gitignore``) and opens it with ``ctypes``; the library's name carries a
-hash of the source and flags, so an edited source is rebuilt and an
-unchanged one is reused. A build that fails raises with nvcc's log.
+Each kernel is one ``kernels/<dir>/<op>.cu`` with a plain C interface
+(``KERNELS`` names its directory and its extra flags). At first use,
+``load(op)`` compiles it with ``nvcc`` into a shared library under
+``build/kernels/`` at the repository root (listed in ``.gitignore``) and
+opens it with ``ctypes``; the library's name carries a hash of the source,
+the headers (``*.cuh``) of its directory and the flags, so an edited source
+is rebuilt and an unchanged one is reused. A build that fails raises with
+nvcc's log.
 
 The sources include no PyTorch headers, so each compiles in seconds; the
 wrappers pass ``data_ptr()`` pointers and the current stream. Nothing here
@@ -31,11 +33,14 @@ _COMMON_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-#: op -> extra nvcc flags. The cell's plain version rounds every product
-#: and sum on its own, so its kernel must not contract them into FMAs.
+#: op -> (directory, extra nvcc flags). The cell's plain versions round
+#: every product and sum on their own, so its kernels must not contract them
+#: into FMAs.
 KERNELS = {
-    "floatsd_matmul": (),
-    "lstm_cell": ("--fmad=false",),
+    "floatsd_matmul": ("floatsd_matmul", ()),
+    "floatsd_matmul_dw": ("floatsd_matmul", ()),
+    "lstm_cell": ("lstm_cell", ("--fmad=false",)),
+    "lstm_cell_bwd": ("lstm_cell", ("--fmad=false",)),
 }
 
 _LOCK = threading.Lock()
@@ -55,9 +60,13 @@ def _nvcc() -> str:
 
 
 def _target(op: str) -> tuple[Path, list[str]]:
-    src = _KERNELS_DIR / op / f"{op}.cu"
-    flags = [*_COMMON_FLAGS, *KERNELS[op]]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    folder, extra = KERNELS[op]
+    src = _KERNELS_DIR / folder / f"{op}.cu"
+    flags = [*_COMMON_FLAGS, *extra]
+    h = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{op}-{digest}.so", [str(src), *flags]
 
 

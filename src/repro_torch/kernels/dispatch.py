@@ -1,7 +1,8 @@
-"""Kernel dispatch for the serving path: routes each op to its hand-written
-CUDA kernel or to its plain PyTorch version.
+"""Kernel dispatch: routes each op to its hand-written CUDA kernel or to its
+plain PyTorch version.
 
-Counterpart of ``repro.kernels.dispatch`` (serving subset). The resolver
+Counterpart of ``repro.kernels.dispatch`` (the serving ops, and the
+backward ops and weight hoists of the fused quantized-BPTT training path). The resolver
 has one rule: a tensor on the card goes to the kernel, a tensor on the CPU
 to the plain version. The only override is ``backend="ref"`` (an argument,
 or ``use_backend("ref")`` around a whole model call), which runs the plain
@@ -23,14 +24,15 @@ import torch
 
 from ..core import floatsd
 from .floatsd_matmul import ops as fm_ops
-from .floatsd_matmul.ref import ordered_matmul
+from .floatsd_matmul.ref import matmul_dw_ref, ordered_matmul
 from .lstm_cell import ops as lc_ops
-from .lstm_cell.ref import lstm_cell_ref
+from .lstm_cell.ref import lstm_cell_bwd_ref, lstm_cell_ref
 
 __all__ = [
     "BACKENDS", "ZERO_CODE", "PackedTensor", "is_packed", "Decision",
     "DispatchStats", "STATS", "use_backend", "matmul", "lstm_cell",
-    "packed_einsum", "hoist_packed",
+    "packed_einsum", "hoist_packed", "matmul_dx", "matmul_dw", "lstm_cell_grad",
+    "pack_train", "hoist_train",
 ]
 
 BACKENDS = ("ref", "cuda")
@@ -46,7 +48,8 @@ class PackedTensor(NamedTuple):
 
     codes: torch.Tensor  # uint8, same shape as the dense tensor
     bias: int
-    # f32 decode of the codes, set by hoist_packed when the plain version runs
+    # f32 decode of the codes, set by hoist_packed / hoist_train when the
+    # plain version runs
     dense: torch.Tensor | None = None
 
 
@@ -189,3 +192,80 @@ def hoist_packed(w, *, backend: str | None = None):
     if _decide("floatsd_matmul", w.codes, backend).backend != "ref":
         return w
     return w._replace(dense=floatsd.decode(w.codes, w.bias, dtype=torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# backward ops and weight hoists of the fused quantized-BPTT training path
+# ---------------------------------------------------------------------------
+
+
+def matmul_dx(g: torch.Tensor, codes: torch.Tensor, bias, *, dense: torch.Tensor | None = None,
+              backend: str | None = None) -> torch.Tensor:
+    """Activation gradient of the FloatSD8 matmul: g [..., N] @
+    decode(codes [K, N])^T -> [..., K] f32 (the precise datapath: FP8
+    activation-gradient quantization lives at the act_quant nodes). The
+    kernel is ``floatsd_matmul`` on the codes read in place as [K, N] =
+    [out, contraction]; ``dense`` is the codes' decode from ``hoist_train``."""
+    k, n = codes.shape
+    g2 = g.reshape(-1, n).to(torch.float32).contiguous()
+    dec = _decide("floatsd_matmul_dx", g2, backend)
+    if dec.backend == "ref":
+        w = floatsd.decode(codes, bias, dtype=torch.float32) if dense is None else dense
+        y = ordered_matmul(g2, w.t())
+    else:
+        y = fm_ops.matmul_dx(g2, codes, bias)
+    STATS.record(dec)
+    return y.reshape(*g.shape[:-1], k)
+
+
+def matmul_dw(x: torch.Tensor, g: torch.Tensor, *, quant: bool = True,
+              backend: str | None = None) -> torch.Tensor:
+    """Weight gradient of the FloatSD8 matmul: x [..., K]^T @ g [..., N] ->
+    [K, N] f32, f32 accumulation over all leading rows, snapped to the FP8
+    e5m2 grid at the flush (``quant=False``: the raw sum, for parity
+    oracles)."""
+    k, n = x.shape[-1], g.shape[-1]
+    x2 = x.reshape(-1, k).to(torch.float32).contiguous()
+    g2 = g.reshape(-1, n).to(torch.float32).contiguous()
+    if x2.shape[0] != g2.shape[0]:
+        raise ValueError(f"matmul_dw: x {tuple(x.shape)} vs g {tuple(g.shape)}")
+    dec = _decide("floatsd_matmul_dw", x2, backend)
+    if dec.backend == "ref":
+        dw = matmul_dw_ref(x2, g2, quant)
+    else:
+        dw = fm_ops.matmul_dw(x2, g2, quant=quant)
+    STATS.record(dec)
+    return dw
+
+
+def lstm_cell_grad(z: torch.Tensor, c_prev: torch.Tensor, dh: torch.Tensor, dc: torch.Tensor, *,
+                   quantized: bool = True, c_dtype=torch.float16, backend: str | None = None):
+    """Recompute-gates backward of the fused cell. z: [B, 4H], c_prev: [B, H]
+    in ``c_dtype`` (as the forward stored it), dh, dc: [B, H] -> (dz [B, 4H]
+    f32, dc_prev [B, H] f32). Its only residuals are (z, c_prev)."""
+    dec = _decide("lstm_cell_grad", z, backend)
+    if dec.backend == "ref":
+        out = lstm_cell_bwd_ref(z, c_prev.to(torch.float32), dh, dc, quantized, c_dtype=c_dtype)
+    else:
+        out = lc_ops.lstm_cell_grad(
+            z.contiguous(), c_prev.contiguous(), dh.to(torch.float32).contiguous(),
+            dc.to(torch.float32).contiguous(), quantized=quantized, c_dtype=c_dtype,
+        )
+    STATS.record(dec)
+    return out
+
+
+def pack_train(w: torch.Tensor) -> PackedTensor:
+    """Encode a dense master weight to FloatSD8 codes for the fused training
+    path, once per step (the encode is time-invariant). decode(codes) equals
+    ``quantize(w).values`` bit for bit. The bias becomes a host int, which
+    reads it from the device: one synchronisation per packed weight."""
+    codes, bias = floatsd.encode(w.detach())
+    return PackedTensor(codes, int(bias))
+
+
+def hoist_train(w: torch.Tensor, *, backend: str | None = None) -> PackedTensor:
+    """The fused training path's weight hoist, the gradient-side twin of
+    ``hoist_packed``: the packed codes, plus their decode in ``dense`` when
+    the plain versions will run (so neither scan decodes per step)."""
+    return hoist_packed(pack_train(w), backend=backend)

@@ -1,8 +1,10 @@
-"""Wrapper of the FloatSD8 matmul kernel (``floatsd_matmul.cu``).
+"""Wrappers of the FloatSD8 matmul kernels: ``floatsd_matmul`` and its
+``matmul_dx`` use (``floatsd_matmul.cu``, the latter on the codes read in
+place as [out, contraction]), and ``matmul_dw`` (``floatsd_matmul_dw.cu``).
 
-``floatsd_matmul`` takes the plain version for tensors on the CPU and
-launches the CUDA kernel for tensors on the card; there is no fallback
-between the two. ``floatsd_matmul.launches`` counts kernel launches.
+Each takes its plain version for tensors on the CPU and launches its CUDA
+kernel for tensors on the card; there is no fallback between the two. Each
+counts its own launches in ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
@@ -12,9 +14,9 @@ import torch
 
 from .. import _build
 from ...core.floatsd import EXP_LEVELS
-from .ref import floatsd_matmul_ref
+from .ref import floatsd_matmul_ref, matmul_dw_ref, matmul_dx_ref
 
-__all__ = ["floatsd_matmul", "clamp_bias"]
+__all__ = ["floatsd_matmul", "matmul_dx", "matmul_dw", "clamp_bias"]
 
 
 def clamp_bias(bias) -> int:
@@ -32,12 +34,34 @@ def _launcher():
     return fn
 
 
+def _dw_launcher():
+    fn = _build.load("floatsd_matmul_dw").matmul_dw_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, i, i, i, i, p]
+        fn.restype = i
+    return fn
+
+
 def floatsd_matmul(x: torch.Tensor, codes: torch.Tensor, bias, *,
                    transposed: bool = False) -> torch.Tensor:
     """x [M, K] f32 @ decode(codes) -> y [M, N] f32, with codes uint8 [K, N]
     or, when ``transposed``, [N, K] (read in place)."""
     if x.device.type == "cpu":
         return floatsd_matmul_ref(x, codes, bias, transposed=transposed)
+    return _launch(x, codes, bias, transposed, floatsd_matmul)
+
+
+def matmul_dx(g: torch.Tensor, codes: torch.Tensor, bias) -> torch.Tensor:
+    """g [M, N] f32 @ decode(codes [K, N])^T -> [M, K] f32: the forward
+    kernel on the codes read in place as [out = K, contraction = N]."""
+    if g.device.type == "cpu":
+        return matmul_dx_ref(g, codes, bias)
+    return _launch(g, codes, bias, True, matmul_dx)
+
+
+def _launch(x: torch.Tensor, codes: torch.Tensor, bias, transposed: bool, owner) -> torch.Tensor:
+    """Launch floatsd_matmul.cu; counts the launch on ``owner``."""
     if x.device.type != "cuda" or codes.device != x.device:
         raise ValueError(f"floatsd_matmul: x on {x.device}, codes on {codes.device}")
     if x.dtype != torch.float32 or codes.dtype != torch.uint8:
@@ -59,8 +83,38 @@ def floatsd_matmul(x: torch.Tensor, codes: torch.Tensor, bias, *,
         )
     if err != 0:
         raise RuntimeError(f"floatsd_matmul launch failed: cudaError {err}")
-    floatsd_matmul.launches += 1
+    owner.launches += 1
     return y
 
 
+def matmul_dw(x: torch.Tensor, g: torch.Tensor, *, quant: bool = True) -> torch.Tensor:
+    """x [M, K] f32 ^T @ g [M, N] f32 -> dw [K, N] f32, snapped to the FP8
+    e5m2 grid at the flush unless ``quant=False``."""
+    if x.device.type == "cpu":
+        return matmul_dw_ref(x, g, quant)
+    if x.device.type != "cuda" or g.device != x.device:
+        raise ValueError(f"matmul_dw: x on {x.device}, g on {g.device}")
+    if x.dtype != torch.float32 or g.dtype != torch.float32:
+        raise ValueError(f"matmul_dw: needs f32 x and g, got {x.dtype}, {g.dtype}")
+    if x.dim() != 2 or g.dim() != 2 or not (x.is_contiguous() and g.is_contiguous()):
+        raise ValueError("matmul_dw: needs contiguous 2-D x and g")
+    (m, k), (m2, n) = x.shape, g.shape
+    if m != m2:
+        raise ValueError(f"matmul_dw: x {tuple(x.shape)} vs g {tuple(g.shape)}")
+    dw = torch.empty((k, n), dtype=torch.float32, device=x.device)
+    if k == 0 or n == 0:
+        return dw
+    if m == 0:
+        return dw.zero_()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _dw_launcher()(x.data_ptr(), g.data_ptr(), dw.data_ptr(), m, k, n, int(quant), stream)
+    if err != 0:
+        raise RuntimeError(f"matmul_dw launch failed: cudaError {err}")
+    matmul_dw.launches += 1
+    return dw
+
+
 floatsd_matmul.launches = 0
+matmul_dx.launches = 0
+matmul_dw.launches = 0

@@ -1,7 +1,8 @@
 """The paper's WikiText-2 language model (§IV-A, Table III):
 embed -> 2-layer LSTM -> tied FC decoder.
 
-Counterpart of ``repro.models.lstm_models.WikiText2LM`` (inference half).
+Counterpart of ``repro.models.lstm_models.WikiText2LM``: the training loss
+(through the fused quantized BPTT) and the serving step.
 Parameters are a nested dict of tensors with the reference's keys
 (``embed/table``, ``lstm<i>/wx``, ``lstm<i>/wh``, ``lstm<i>/b``), so
 ``repro_torch.bridge`` carries a JAX model across unchanged. The packed
@@ -16,6 +17,7 @@ import torch
 from ..core.policy import Policy
 from ..nn.linear import QuantEmbedding
 from ..nn.lstm import LSTMLayer, LSTMState
+from .lm import cross_entropy, mask_padded_vocab
 
 __all__ = ["WikiText2LM"]
 
@@ -55,7 +57,9 @@ class WikiText2LM:
         return p
 
     def logits(self, p, tokens: torch.Tensor, policy: Policy, states=None, lengths=None):
-        """tokens [B, S] -> (logits [B, S, vocab padded], new states)."""
+        """tokens [B, S] -> (logits [B, S, vocab padded], new states).
+        Under the train step's policy every layer runs the fused quantized
+        BPTT."""
         emb, layers = self._mods()
         x = emb.apply(p["embed"], tokens, policy)
         new_states = []
@@ -66,6 +70,13 @@ class WikiText2LM:
             )
             new_states.append(st)
         return emb.attend(p["embed"], x, policy), new_states
+
+    def loss(self, p, batch, policy: Policy) -> torch.Tensor:
+        """Mean next-token cross entropy of a {"tokens", "labels"[, "mask"]}
+        batch, the padded vocab tail masked out."""
+        lg, _ = self.logits(p, batch["tokens"], policy)
+        lg = mask_padded_vocab(lg, self.vocab)
+        return cross_entropy(lg, batch["labels"], batch.get("mask"))
 
     def init_cache(self, batch: int, policy: Policy, device) -> list[LSTMState]:
         """Zero recurrent state per layer: h in the compute dtype, c in the

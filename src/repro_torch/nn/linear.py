@@ -1,9 +1,13 @@
 """Quantized weight sites: the embedding and the matmul primitives.
 
-Counterpart of ``repro.nn.linear`` (inference half). Weights are FloatSD8
-(dense fake-quant, or packed codes that pass straight to the dispatched
-kernel), activations are quantized to the policy's forward dtype at each
-site, and every product accumulates in f32.
+Counterpart of ``repro.nn.linear``. Weights are FloatSD8 (dense fake-quant
+with a straight-through gradient to the master copy, or packed codes that
+pass straight to the dispatched kernel), activations pass the policy's
+(forward, gradient) quantizers at each site, and every product accumulates
+in f32. When the policy quantizes gradients, a dense weight site emits its
+dW through bf16 (the reference's gradient-compression point): XLA on the
+CPU computes that product in f32 and rounds once to bf16, and so does this
+port.
 """
 from __future__ import annotations
 
@@ -12,7 +16,7 @@ import dataclasses
 import torch
 
 from ..core import floatsd
-from ..core.fp8 import quantize_fp8
+from ..core.fp8 import act_quant
 from ..core.policy import Policy
 from ..kernels import dispatch as kd
 from ..kernels.floatsd_matmul.ref import no_tf32
@@ -38,28 +42,61 @@ def uniform_init(generator: torch.Generator, shape, scale: float) -> torch.Tenso
 
 
 def quant_weight(w, policy: Policy):
-    """The policy's weight quantizer. Packed weights pass through: the codes
-    are the quantized weights."""
+    """The policy's weight quantizer, then a cast to the compute dtype; the
+    gradient reaches the master (an fp16 one too) through the cast and the
+    straight-through quantizer. Packed weights pass through: the codes are
+    the quantized weights."""
     if kd.is_packed(w):
         return w
     if policy.weight_quant == "floatsd8":
-        w, _ = floatsd.quantize(w)
+        w = floatsd.quantize_ste(w, floatsd.fit_bias(w.detach()))
     return w.to(policy.cdt() or w.dtype)
 
 
 def quant_act(x: torch.Tensor, policy: Policy, site: str = "hidden") -> torch.Tensor:
-    """Forward activation fake-quant at 'first' | 'hidden' | 'last'."""
-    fwd, _ = policy.act_dtypes(site)
-    return quantize_fp8(x, fwd)
+    """Activation quantization node at 'first' | 'hidden' | 'last': the
+    forward value and its incoming gradient, per the policy."""
+    fwd, bwd = policy.act_dtypes(site)
+    if fwd is None and bwd is None:
+        return x
+    return act_quant(x, fwd, bwd)
 
 
-def policy_einsum(eq: str, x: torch.Tensor, w) -> torch.Tensor:
-    """The bare matmul all weight sites share, f32 accumulation. Packed
-    weights go to the kernel dispatch layer."""
+def _einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    with no_tf32():
+        return torch.einsum(eq, a.to(torch.float32), b.to(torch.float32))
+
+
+class _EinsumGC(torch.autograd.Function):
+    """einsum with an explicit-transpose backward: dx keeps f32; dW is
+    computed in f32 and rounded once to bf16 (the gradient-compression
+    point), then returned in w's dtype."""
+
+    @staticmethod
+    def forward(ctx, eq, x, w):
+        ctx.eq = eq
+        ctx.save_for_backward(x, w)
+        return _einsum_f32(eq, x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        ins, out = ctx.eq.split("->")
+        in1, in2 = ins.split(",")
+        dx = _einsum_f32(f"{in2},{out}->{in1}", w, g).to(x.dtype)
+        dw = _einsum_f32(f"{in1},{out}->{in2}", x, g).to(torch.bfloat16).to(w.dtype)
+        return None, dx, dw
+
+
+def policy_einsum(eq: str, x: torch.Tensor, w, policy: Policy) -> torch.Tensor:
+    """The bare matmul all weight sites share: f32 accumulation, bf16 dW
+    emission when the policy quantizes gradients. Operands must already be
+    quantized and cast. Packed weights go to the kernel dispatch layer."""
     if kd.is_packed(w):
         return kd.packed_einsum(eq, x, w)
-    with no_tf32():
-        return torch.einsum(eq, x.to(torch.float32), w.to(torch.float32))
+    if policy.grad_quant != "none":
+        return _EinsumGC.apply(eq.replace(" ", ""), x, w)
+    return _einsum_f32(eq, x, w)
 
 
 def quant_einsum(eq: str, x: torch.Tensor, w, policy: Policy, site: str = "hidden"):
@@ -69,8 +106,30 @@ def quant_einsum(eq: str, x: torch.Tensor, w, policy: Policy, site: str = "hidde
     if kd.is_packed(w):
         y = kd.packed_einsum(eq, xq.to(cdt), w)
     else:
-        y = policy_einsum(eq, xq.to(cdt), quant_weight(w, policy).to(cdt))
+        y = policy_einsum(eq, xq.to(cdt), quant_weight(w, policy).to(cdt), policy)
     return y.to(cdt)
+
+
+class _GatherRows(torch.autograd.Function):
+    """table[tokens] whose backward sums the rows of duplicate tokens with
+    ``index_put_(accumulate=True)``: serially in token order on the CPU, and
+    on the card through PyTorch's sort-based path, which adds each token's
+    rows in a fixed order (the atomics of ``index_add_``, behind the
+    backward of ``index_select`` and ``embedding``, add them in no fixed
+    order). So two identical training runs give identical losses."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.shape = table.shape
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, g):
+        (tokens,) = ctx.saved_tensors
+        d = torch.zeros(ctx.shape, dtype=g.dtype, device=g.device)
+        d.index_put_((tokens.reshape(-1),), g.reshape(-1, ctx.shape[-1]), accumulate=True)
+        return d, None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,7 +148,7 @@ class QuantEmbedding:
             y = floatsd.decode(table.codes[tokens], table.bias,
                                dtype=policy.cdt() or torch.float32)
         else:
-            y = quant_weight(table, policy)[tokens]
+            y = _GatherRows.apply(quant_weight(table, policy), tokens)
         return quant_act(y, policy, site="first")
 
     def attend(self, p, x: torch.Tensor, policy: Policy) -> torch.Tensor:

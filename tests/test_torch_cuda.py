@@ -6,9 +6,16 @@ on a machine with the card and PyTorch alone:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-Tolerances: floatsd_matmul |y - y_plain| <= 1e-5 * (|x| @ |W|)
-elementwise (f32 sums in another order); lstm_cell bit for bit (the kernel
-rounds exactly where the plain version rounds).
+Tolerances: floatsd_matmul and matmul_dx |y - y_plain| <= 1e-5 * (|x| @
+|W|) elementwise (the same order of f32 sums; on arbitrary f32 inputs the
+products are not exact and a fused multiply-add may round differently from
+the plain version's); matmul_dw the same bound without the flush, and with
+it equal except at most 0.1% of elements, each one e5m2 step apart, with
+inf and NaN where the plain version has them; lstm_cell and lstm_cell_grad
+bit for bit (the kernels round exactly where the plain versions round);
+fused layer gradients, kernels against the plain versions, within rtol
+2e-3, atol 1e-5 (the JAX package's kernel-vs-reference bound); two
+identical train steps bit for bit.
 """
 import pytest
 
@@ -16,10 +23,19 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import floatsd  # noqa: E402
 from repro_torch.kernels import dispatch as kd  # noqa: E402
-from repro_torch.kernels.floatsd_matmul.ops import floatsd_matmul  # noqa: E402
-from repro_torch.kernels.floatsd_matmul.ref import floatsd_matmul_ref  # noqa: E402
-from repro_torch.kernels.lstm_cell.ops import lstm_cell  # noqa: E402
-from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref  # noqa: E402
+from repro_torch._tree import tree_leaves  # noqa: E402
+from repro_torch.core.policy import get_policy  # noqa: E402
+from repro_torch.data import synthetic  # noqa: E402
+from repro_torch.kernels.floatsd_matmul.ops import floatsd_matmul, matmul_dw, matmul_dx  # noqa: E402
+from repro_torch.kernels.floatsd_matmul.ref import (  # noqa: E402
+    floatsd_matmul_ref, matmul_dw_ref, matmul_dx_ref,
+)
+from repro_torch.kernels.lstm_cell.ops import lstm_cell, lstm_cell_grad  # noqa: E402
+from repro_torch.kernels.lstm_cell.ref import lstm_cell_bwd_ref, lstm_cell_ref  # noqa: E402
+from repro_torch.models import WikiText2LM  # noqa: E402
+from repro_torch.nn.lstm import LSTMLayer  # noqa: E402
+from repro_torch.optim import sgd  # noqa: E402
+from repro_torch.optim.train_state import batch_to_device, init_state, make_train_step  # noqa: E402
 
 MATMUL_SHAPES = [(3, 100, 130), (8, 128, 256), (1, 64, 33), (24, 256, 512), (8, 1024, 4096)]
 CELL_SHAPES = [(5, 200), (8, 1024), (1, 33)]
@@ -81,3 +97,144 @@ def test_dispatch_routes_cuda_tensors_to_the_kernels(dev):
     torch.cuda.synchronize()
     assert kd.STATS.count("floatsd_matmul", "cuda") == 1 and kd.STATS.count("lstm_cell", "cuda") == 1
     assert kd.STATS.count("floatsd_matmul", "ref") == 1
+
+
+# (M rows of g, K = out, N = contraction): the recurrence and batched dXs shapes
+DX_SHAPES = [(3, 100, 130), (8, 128, 256), (64, 1024, 4096)]
+DW_SHAPES = [(36, 12, 64), (100, 70, 130), (3072, 64, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", DX_SHAPES)
+def test_matmul_dx_kernel_matches_plain(dev, m, k, n):
+    g = _gen(dev, m * k + n)
+    gr = torch.randn((m, n), device=dev, generator=g)
+    codes, bias = floatsd.encode(torch.randn((k, n), device=dev, generator=g) * 0.05)
+    n0 = matmul_dx.launches
+    got = matmul_dx(gr, codes, int(bias))
+    want = matmul_dx_ref(gr, codes, int(bias))
+    bound = 1e-5 * (gr.double().abs() @ floatsd.decode(codes, bias).double().abs().t())
+    torch.cuda.synchronize()
+    assert matmul_dx.launches == n0 + 1 and got.shape == (m, k)
+    assert bool(((got.double() - want.double()).abs() <= bound + 1e-30).all())
+
+
+def _e5m2_step(v: torch.Tensor) -> torch.Tensor:
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp(min=2.0**-14))) - 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", DW_SHAPES)
+def test_matmul_dw_kernel_matches_plain(dev, m, k, n):
+    g = _gen(dev, m + k * n)
+    x = torch.randn((m, k), device=dev, generator=g)
+    gr = torch.randn((m, n), device=dev, generator=g) * 100
+    n0 = matmul_dw.launches
+    raw, raw_p = matmul_dw(x, gr, quant=False), matmul_dw_ref(x, gr, quant=False)
+    got, want = matmul_dw(x, gr), matmul_dw_ref(x, gr)
+    bound = 1e-5 * (x.double().abs().t() @ gr.double().abs())
+    torch.cuda.synchronize()
+    assert matmul_dw.launches == n0 + 2
+    assert bool(((raw.double() - raw_p.double()).abs() <= bound + 1e-30).all())
+    off = got != want
+    assert int(off.sum()) <= 1e-3 * got.numel()
+    step = _e5m2_step(torch.maximum(got.abs(), want.abs()))
+    assert bool(((got - want).abs()[off] <= step[off]).all())
+
+
+@pytest.mark.cuda
+def test_matmul_dw_flush_saturates_finite_and_keeps_inf_nan(dev):
+    x = torch.ones((4, 4), device=dev)
+    gr = torch.ones((4, 5), device=dev)
+    x[:, 1] = 3e4  # sums to 1.2e5 * g: finite overflow of e5m2, saturates
+    x[:, 2] = 1e20
+    gr[:, 4] = 1e20  # 1e40 overflows f32: +inf
+    x[2, 3] = float("nan")
+    x[0, 0] = float("-inf")
+    got, want = matmul_dw(x, gr), matmul_dw_ref(x, gr)
+    torch.cuda.synchronize()
+    assert bool((got.isnan() == want.isnan()).all()) and bool(got.isnan().any())
+    assert bool((got.isinf() == want.isinf()).all()) and bool(got.isinf().any())
+    fin = got.isfinite()
+    assert torch.equal(got[fin], want[fin]) and float(got[fin].abs().max()) == 57344.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h", CELL_SHAPES + [(64, 1024)])
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("c_dtype", [torch.float16, torch.float32])
+def test_lstm_cell_grad_kernel_matches_plain_bitwise(dev, b, h, quantized, c_dtype):
+    """The kernel reads c_prev in its storage dtype and writes an f32
+    dc_prev; the plain version sees the same values in f32."""
+    g = _gen(dev, b * h + 1)
+    z = torch.randn((b, 4 * h), device=dev, generator=g) * 2
+    c = torch.randn((b, h), device=dev, generator=g).to(torch.float16).to(c_dtype)
+    dh, dc = (torch.randn((b, h), device=dev, generator=g) for _ in range(2))
+    n0 = lstm_cell_grad.launches
+    dz_k, dcp_k = lstm_cell_grad(z, c, dh, dc, quantized=quantized, c_dtype=c_dtype)
+    dz_r, dcp_r = lstm_cell_bwd_ref(z, c.float(), dh, dc, quantized, c_dtype=c_dtype)
+    torch.cuda.synchronize()
+    assert lstm_cell_grad.launches == n0 + 1 and dcp_k.dtype == torch.float32
+    assert torch.equal(dz_k, dz_r) and torch.equal(dcp_k, dcp_r)
+
+
+@pytest.mark.cuda
+def test_fused_layer_grads_kernels_match_plain(dev):
+    pol = get_policy("floatsd8_table6").replace(grad_quant="fp8_kernel")
+    layer = LSTMLayer(48, 40)
+    p0 = {k: v.to(torch.float16) for k, v in layer.init(_gen(dev, 3)).items()}
+    xs = torch.randn((4, 9, 48), device=dev, generator=_gen(dev, 4))
+
+    def grads(backend):
+        p = {k: v.clone().requires_grad_() for k, v in p0.items()}
+        with kd.use_backend(backend):
+            h, fin = layer.apply(p, xs, pol)
+            (h.square().sum() + fin.c.float().square().sum()).backward()
+        return h.detach(), {k: v.grad.float() for k, v in p.items()}
+
+    kd.STATS.reset()
+    h_k, g_k = grads(None)
+    assert kd.STATS.count(backend="ref") == 0 and kd.STATS.count("floatsd_matmul_dw", "cuda") == 2
+    h_r, g_r = grads("ref")
+    assert torch.equal(h_k, h_r)  # forward products are exact: bit for bit
+    for k in g_k:
+        torch.testing.assert_close(g_k[k], g_r[k], rtol=2e-3, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_training_forward_equals_inference_forward_on_card(dev):
+    """The fused BPTT's forward and the serving scan run the same kernels
+    on the same codes: equal bit for bit."""
+    layer = LSTMLayer(48, 40)
+    p = {k: v.to(torch.float16).requires_grad_() for k, v in layer.init(_gen(dev, 5)).items()}
+    xs = torch.randn((4, 9, 48), device=dev, generator=_gen(dev, 6))
+    pol = get_policy("floatsd8_table6")
+    h_train, st_train = layer.apply(p, xs, pol.replace(grad_quant="fp8_kernel"))
+    packed = {"wx": kd.pack_train(p["wx"]), "wh": kd.pack_train(p["wh"]), "b": p["b"].detach()}
+    with torch.no_grad():
+        h_inf, st_inf = layer.apply(packed, xs, pol)
+    torch.cuda.synchronize()
+    assert torch.equal(h_train.detach(), h_inf) and torch.equal(st_train.c.detach(), st_inf.c)
+
+
+@pytest.mark.cuda
+def test_train_step_is_deterministic_on_card(dev):
+    """Two identical steps (duplicate tokens in the batch: the embedding's
+    scatter must add them in a fixed order) give identical losses and
+    identical parameters."""
+    model = WikiText2LM(vocab=128, emb=32, hidden=32, n_layers=2)
+    pol, opt = get_policy("floatsd8_table6"), sgd(0.9)
+    batches = list(zip(range(2), synthetic.wikitext2(batch=8, seq=16, vocab=128).batches))
+
+    def run():
+        state = init_state(model.init(_gen(dev, 0)), opt, pol)
+        step = make_train_step(model.loss, opt, pol, lr=0.5)
+        losses = []
+        for _, b in batches:
+            state, m = step(state, batch_to_device(b, dev))
+            losses.append(float(m["loss"]))
+        return losses, state
+
+    (l1, s1), (l2, s2) = run(), run()
+    assert l1 == l2
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(s1.params), tree_leaves(s2.params)))

@@ -1,0 +1,54 @@
+"""The port imports neither JAX nor the JAX package (``repro``): every
+module of ``repro_torch`` imports in a fresh interpreter where both are
+blocked, and no source of the port (nor ``chip_smoke.py``) names them in
+an import statement."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+BLOCKED = ("jax", "jaxlib", "repro")
+
+_IMPORT_ALL = f"""
+import importlib, pkgutil, sys
+for name in {BLOCKED!r}:
+    sys.modules[name] = None  # any import of them now raises ImportError
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+loaded = [k for k, v in sys.modules.items() if v is not None and k.split(".")[0] in {BLOCKED!r}]
+assert not loaded, loaded
+print(len(names))
+"""
+
+
+def test_every_port_module_imports_with_jax_and_repro_blocked():
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+    r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.strip()) >= 30  # the walk found the whole package
+
+
+def _imported(path: Path) -> set[str]:
+    out = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            out.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            out.add(node.module.split(".")[0])
+    return out
+
+
+def test_no_port_source_imports_jax_or_repro():
+    sources = [*(ROOT / "src" / "repro_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
+    assert len(sources) > 30
+    bad = {str(p.relative_to(ROOT)): _imported(p) & set(BLOCKED) for p in sources}
+    assert not {k: v for k, v in bad.items() if v}

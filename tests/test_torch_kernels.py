@@ -150,7 +150,8 @@ def test_cuda_source_tables_match_the_port():
     mm = (KERNELS_DIR / "floatsd_matmul" / "floatsd_matmul.cu").read_text()
     lut = np.concatenate([tfsd.MANTISSA_VALUES, tfsd.MANTISSA_VALUES[30:31]])
     np.testing.assert_array_equal(_c_array(mm, "kMantissa"), lut)
-    cell = (KERNELS_DIR / "lstm_cell" / "lstm_cell.cu").read_text()
+    # shared by the cell's forward and backward kernels
+    cell = (KERNELS_DIR / "lstm_cell" / "lstm_cell_common.cuh").read_text()
     grid = tqs.sigmoid_lut_values().astype(np.float32)
     np.testing.assert_array_equal(_c_array(cell, "kSigGrid"), grid)
     np.testing.assert_array_equal(
@@ -165,6 +166,7 @@ def test_build_targets_hopper_without_fast_math():
         assert "arch=compute_90a,code=sm_90a" in args
         assert not any("fast_math" in a for a in args)
     assert "--fmad=false" in _build._target("lstm_cell")[1]
+    assert "--fmad=false" in _build._target("lstm_cell_bwd")[1]
     assert _build._LIBS == {}  # nothing is built on import or on the CPU
 
 
