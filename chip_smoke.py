@@ -13,7 +13,7 @@ Phases, in order; the first failure exits non-zero:
   2. build      builds every hand-written kernel from the checkout's
                 sources (one nvcc per source, started together).
   3. kernels    each kernel against its plain PyTorch version on the card,
-                at the serving and training paths' shapes: error,
+                at the serving, training and entry paths' shapes: error,
                 mismatches, median time beside the plain version, the
                 library call and the bound (bytes or operations over the
                 card's peak rates).
@@ -27,7 +27,20 @@ Phases, in order; the first failure exits non-zero:
   5. cross      the same requests served with backend="ref" (the plain
                 versions) on the card; greedy tokens must agree over each
                 request's margin-decisive prefix.
-  6. train      the same full-width model trained through the training
+  6. serve4     the same model and requests served with
+                weight_format="floatsd4" (the FloatSD8 codes re-quantized to
+                nibble-packed FloatSD4 codes + int8 group exponents): the
+                resident bytes exactly, every gate matmul and the tied head
+                on floatsd4_matmul (its transposed mode reads the table in
+                place) and every cell on lstm_cell, none on the plain path or
+                the FloatSD8 matmul; the tokens against backend="ref" as in
+                phase 5; tok/s and decode step beside FloatSD8's; the
+                FloatSD4-vs-FloatSD8 loss of one synthetic batch (random
+                weights: informative only); both formats served again in
+                turns (8, 4, 4, 8) for their decode steps, and a window of
+                decode steps of each under torch.profiler (device busy
+                time, kernel time, operations a step).
+  7. train      the same full-width model trained through the training
                 CLI's entry point (`repro_torch.launch.train --full`: B 64,
                 S 48, sgd(0.9), lr 0.5, floatsd8_table6, static loss scale
                 1024) for a few steps from a seeded init. Counters and
@@ -37,11 +50,16 @@ Phases, in order; the first failure exits non-zero:
                 on the plain path; every loss is finite and no step was
                 skipped. Then one more step under torch.profiler: device
                 time by kernel, and the device's busy share of a step.
-  7. train-x    the same init and batches trained with backend="ref" on
+  8. train-x    the same init and batches trained with backend="ref" on
                 the card: losses within 1e-3 relative at every step, and
                 each trained master leaf within 1e-3 of its change (L2)
                 from a second kernel-path run, whose losses must be
                 bit-identical to the first's.
+  9. entry      dispatch.quantize on every trained fp16 master weight of
+                phase 7: codes byte-identical to pack_tree's and the same
+                bias; dispatch.qsigmoid on a [64,4096] gate block (layer 0's
+                first-step pre-activations of 64 sequences), bit-identical
+                to the plain version; both on their kernels.
 
 The second-to-last line is nvidia-smi's name/power-limit line, the line
 before it the kernels' JSON record, and the last line the result JSON.
@@ -65,16 +83,33 @@ TRAIN_STEPS, XCHECK_STEPS = 5, 3  # the first train step is the warm-up
 TRAIN_ARGS = ["--task", "wikitext2", "--full", "--log-every", "1", "--seed", str(SEED)]
 LOSS_RTOL = 1e-3  # kernel vs plain losses: the JAX package's kernel-vs-reference bound
 PARAM_RTOL = 1e-3  # kernel vs plain masters, per leaf, relative to the plain run's change
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bandwidth, and
-# FP32 FMA rate outside the tensor cores (both kernels run on the FP32 units)
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM3
+# bandwidth, the FP32 rate outside the tensor cores, and the TF32 tensor-core
+# rate, which a matmul's bound uses when every operand value is a TF32 value
+# (the card could then form the exact products on the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# operations of one (b, j) of the cell: 3 gates x (exp, add, divide, 42
-# compares, select) + 2 tanh + 2 e5m2 conversions + 3 multiplies + 1 add
-CELL_OPS = 3 * 46 + 8
-# the backward recomputes that (146 ops), adds 3 smooth sigmoids and a tanh
-# (10) and 22 multiplies and adds of the derivative products
-CELL_BWD_OPS = 146 + 10 + 22
+TF32_OPS_PER_S = 495e12
+# Operations the functions need, per element. A count against a sorted grid
+# of midpoints needs only a bisection: 6 compares for 64 midpoints (or 42).
+# A quantized sigmoid gate: exp, add, divide, 6 compares, the grid lookup
+GATE_OPS = 10
+# one (b, j) of the cell: 3 gates + 2 tanh + 2 e5m2 conversions + 3
+# multiplies + 1 add
+CELL_OPS = 3 * GATE_OPS + 8
+# the backward recomputes that, adds 3 smooth sigmoids and a tanh (10) and
+# 22 multiplies and adds of the derivative products
+CELL_BWD_OPS = CELL_OPS + 10 + 22
+# the quantize kernel: scale multiply, clamp, 6 compares, the code lookup,
+# the sign select
+QUANT_OPS = 10
+# qsigmoid: the negated |x|, a gate, the mirror's subtract and select
+QSIG_OPS = GATE_OPS + 3
+# FloatSD4 store of the full-width model: per 2-D leaf ceil(K/2)*N code bytes +
+# ceil(K/32)*N exponent bytes (embedding [33280,1024], four [1024,4096] gate
+# weights), plus the two f32 [4096] biases
+FLOATSD4_BYTES = (16640 * 1024 + 1040 * 1024) + 4 * (512 * 4096 + 32 * 4096) + 2 * 4096 * 4
+assert FLOATSD4_BYTES == 27_049_984
 SPIN_CYCLES = 40_000_000  # ~20 ms of device time: longer than the host needs to enqueue a timing loop
 
 
@@ -83,12 +118,29 @@ def check(cond, msg: str) -> None:
         raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
 
-def bound(nbytes: float, ops: float) -> dict:
+def bound(nbytes: float, ops: float, peak: str = "fp32") -> dict:
     """The least time for the work: bytes moved over the HBM rate, or the
-    operations over the FP32 rate, whichever is larger (ms)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-    return dict(bytes_ms=t_bytes, ops_ms=t_ops, bound_ms=max(t_bytes, t_ops),
+    operations over the peak rate for their type, whichever is larger (ms)."""
+    rate = {"fp32": FP32_OPS_PER_S, "tf32": TF32_OPS_PER_S}[peak]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+    return dict(bytes_ms=t_bytes, ops_ms=t_ops, ops_peak=peak, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def matmul_peak(*operands) -> str:
+    """"tf32" when every operand value is a TF32 value (an f32 whose low 13
+    mantissa bits are 0), as FP8/FP16 activations and FloatSD weights are:
+    their products are exact in f32, so tensor cores could form them. Else
+    "fp32"."""
+    import torch
+
+    return "tf32" if all(bool(((t.float().contiguous().view(torch.int32) & 0x1FFF) == 0).all())
+                         for t in operands) else "fp32"
+
+
+def fmt_bound(bd: dict) -> str:
+    return (f"bound {bd['bound_ms']:.5f} ms ({bd['bound_by']}; bytes {bd['bytes_ms']:.5f} ms, operations "
+            f"{bd['ops_ms']:.5f} ms at the {bd['ops_peak'].upper()} peak)")
 
 
 def timed_ms(torch, fn, reps: int, flush) -> float:
@@ -160,12 +212,11 @@ def kernel_phase(torch, dev, flush):
             t = timed_ms(torch, lambda: floatsd_matmul(x, codes, bias, transposed=tr), 20, flush)
             t_plain = timed_ms(torch, lambda: floatsd_matmul_ref(x, codes, bias, transposed=tr), 3, flush)
             t_lib = timed_ms(torch, lib, 20, flush)
-        bd = bound(x.numel() * 4 + codes.numel() + 4 + m * n * 4, 2.0 * m * n * k)
-        b_ms, b_by = bd["bound_ms"], bd["bound_by"]
+        bd = bound(x.numel() * 4 + codes.numel() + 4 + m * n * 4, 2.0 * m * n * k, matmul_peak(x, wd))
         mm[(site, m)] = dict(ms=t, plain_ms=t_plain, library_ms=t_lib, err=float(err.max()), **bd)
         print(f"  {site:6s} [{m},{k}] x {'[N,K]^T' if tr else '[K,N]'} N={n}: max_abs_err {float(err.max()):.3e}, "
               f"{mism} of {m * n} not bit-identical | kernel {t:.4f} ms, plain {t_plain:.3f} ms, "
-              f"torch.matmul {t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+              f"torch.matmul {t_lib:.4f} ms, {fmt_bound(bd)}")
 
     print("kernels: lstm_cell vs plain version (at most 0.1% flipped, |dh| <= 2^-3)")
     cell = {}
@@ -182,10 +233,9 @@ def kernel_phase(torch, dev, flush):
         t = timed_ms(torch, lambda: lstm_cell(z, c), 50, flush)
         t_plain = timed_ms(torch, lambda: lstm_cell_ref(z, c), 10, flush)
         bd = bound(b * 4 * h * 4 + b * h * 2 + b * h * 4 + b * h * 2, float(b * h * CELL_OPS))
-        b_ms, b_by = bd["bound_ms"], bd["bound_by"]
         cell[(b, h)] = dict(ms=t, plain_ms=t_plain, err=err, **bd)
         print(f"  [{b},{4 * h}] -> h,c [{b},{h}]: max_abs_err {err:.3e}, {flips} of {b * h} flipped | "
-              f"kernel {t:.4f} ms, plain {t_plain:.3f} ms, bound {b_ms:.5f} ms ({b_by})")
+              f"kernel {t:.4f} ms, plain {t_plain:.3f} ms, {fmt_bound(bd)}")
 
     print("kernels: matmul_dx (floatsd_matmul.cu on codes [K,N] read as [out, contraction]) vs plain "
           "version (tolerance |err| <= 1e-5 * (|g| @ |W|^T))")
@@ -205,11 +255,11 @@ def kernel_phase(torch, dev, flush):
             t = timed_ms(torch, lambda: matmul_dx(gr, codes, bias), 20, flush)
             t_plain = timed_ms(torch, lambda: matmul_dx_ref(gr, codes, bias), 3, flush)
             t_lib = timed_ms(torch, lambda: torch.matmul(gr, wd.t()), 20, flush)
-        bd = bound(gr.numel() * 4 + codes.numel() + 4 + m * k * 4, 2.0 * m * n * k)
+        bd = bound(gr.numel() * 4 + codes.numel() + 4 + m * k * 4, 2.0 * m * n * k, matmul_peak(gr, wd))
         dx[m] = dict(ms=t, plain_ms=t_plain, library_ms=t_lib, err=float(err.max()), **bd)
         print(f"  [{m},{n}] x codes[{k},{n}]^T: max_abs_err {float(err.max()):.3e}, {mism} of {m * k} "
               f"not bit-identical | kernel {t:.4f} ms, plain {t_plain:.3f} ms, torch.matmul {t_lib:.4f} ms, "
-              f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+              f"{fmt_bound(bd)}")
 
     print("kernels: matmul_dw vs plain version (quant=False: |err| <= 1e-5 * (|x|^T @ |g|); quant=True: "
           "at most 0.1% of outputs differ, each by at most one e5m2 step)")
@@ -233,11 +283,11 @@ def kernel_phase(torch, dev, flush):
                   "matmul_dw exceeds 1e-5")
         t = timed_ms(torch, lambda: matmul_dw(x, gr, quant=quant), 10, flush)
         t_plain = timed_ms(torch, lambda: matmul_dw_ref(x, gr, quant), 3, flush)
-        bd = bound(4.0 * (m * k + m * n + k * n), 2.0 * m * k * n)
+        bd = bound(4.0 * (m * k + m * n + k * n), 2.0 * m * k * n, matmul_peak(x, gr))
         dw[quant] = dict(ms=t, plain_ms=t_plain, library_ms=t_lib, err=float(err.max()), **bd)
         print(f"  quant={quant} [{m},{k}]^T x [{m},{n}]: max_abs_err {float(err.max()):.3e}, {int(off.sum())} of "
               f"{k * n} not bit-identical | kernel {t:.4f} ms, plain {t_plain:.3f} ms, torch.matmul(x.t(), g) "
-              f"(no FP8 snap) {t_lib:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+              f"(no FP8 snap) {t_lib:.4f} ms, {fmt_bound(bd)}")
 
     print("kernels: lstm_cell_grad vs plain version (bit for bit)")
     cell_bwd = {}
@@ -256,14 +306,128 @@ def kernel_phase(torch, dev, flush):
         bd = bound(46.0 * b * h, float(b * h * CELL_BWD_OPS))
         cell_bwd[(b, h)] = dict(ms=t, plain_ms=t_plain, err=err, **bd)
         print(f"  [{b},{4 * h}] + 3 x [{b},{h}] -> dz, dc_prev: max_abs_err {err:.3e}, {flips} differ | "
-              f"kernel {t:.4f} ms, plain {t_plain:.3f} ms, bound {bd['bound_ms']:.5f} ms ({bd['bound_by']})")
+              f"kernel {t:.4f} ms, plain {t_plain:.3f} ms, {fmt_bound(bd)}")
     return mm, cell, dx, dw, cell_bwd
 
 
-def serve(torch, model, params, policy, prompts, backend=None, step_times=None):
+def kernel_phase4(torch, dev, flush):
+    """Phase 3, continued: floatsd4_matmul, the quantize kernel and the
+    qsigmoid kernel against their plain versions."""
+    from repro_torch.core import floatsd, floatsd4
+    from repro_torch.core.fp8 import FP16, quantize_fp8
+    from repro_torch.core.qsigmoid import qsigmoid_raw
+    from repro_torch.kernels.floatsd4_matmul.ops import floatsd4_matmul
+    from repro_torch.kernels.floatsd4_matmul.ref import floatsd4_matmul_ref
+    from repro_torch.kernels.floatsd_matmul.ref import no_tf32
+    from repro_torch.kernels.floatsd_quantize.ops import floatsd_quantize
+    from repro_torch.kernels.qsigmoid.ops import qsigmoid
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    mm4 = {}
+    # (site, M, K, N, table stored [N, K], activation quantizer): the gate
+    # matmul at decode (M = lanes) and prefill (M = lanes * chunk), the
+    # tied head at both, and an odd K (999, K % 32 != 0) in both layouts,
+    # the transposed one with an odd number of table rows
+    shapes = [
+        ("gate", 8, 1024, 4096, False, "fp8"),
+        ("gate", 64, 1024, 4096, False, "fp8"),
+        ("head", 8, 1024, 33280, True, "fp16"),
+        ("head", 64, 1024, 33280, True, "fp16"),
+        ("ragged", 5, 999, 300, False, "fp8"),
+        ("ragged-t", 5, 999, 301, True, "fp8"),
+    ]
+    print("kernels: floatsd4_matmul vs plain version (bit for bit: FP8/FP16 activations times FloatSD4 "
+          "weights are exact in f32)")
+    for site, m, k, n, tr, act in shapes:
+        x = torch.randn((m, k), device=dev, generator=g)
+        x = quantize_fp8(x, FP16) if act == "fp16" else quantize_fp8(x)
+        rows = n if tr else k
+        w = torch.randn((rows, k if tr else n), device=dev, generator=g) * (0.02 if tr else 0.03)
+        c4, exps = floatsd4.encode(w)
+        codes = floatsd4.pack_nibbles(c4)
+        wd = floatsd4.decode_packed(codes, exps, rows)
+        wk = wd.t() if tr else wd
+        y = floatsd4_matmul(x, codes, exps, rows, transposed=tr)
+        y_ref = floatsd4_matmul_ref(x, codes, exps, rows, transposed=tr)
+        torch.cuda.synchronize()
+        err = float((y.double() - y_ref.double()).abs().max())
+        mism = int((y != y_ref).sum())
+        check(mism == 0, f"floatsd4_matmul {site} {m}x{k}x{n}: {mism} outputs differ (max err {err})")
+        with no_tf32():
+            t = timed_ms(torch, lambda: floatsd4_matmul(x, codes, exps, rows, transposed=tr), 20, flush)
+            t_plain = timed_ms(torch, lambda: floatsd4_matmul_ref(x, codes, exps, rows, transposed=tr), 3,
+                               flush)
+            t_lib = timed_ms(torch, lambda: torch.matmul(x, wk), 20, flush)
+        bd = bound(x.numel() * 4 + codes.numel() + exps.numel() + m * n * 4, 2.0 * m * n * k, matmul_peak(x, wd))
+        mm4[(site, m)] = dict(ms=t, plain_ms=t_plain, library_ms=t_lib, err=err, **bd)
+        print(f"  {site:8s} [{m},{k}] x {'table[N,K]^T' if tr else '[K,N]'} N={n}: max_abs_err {err:.3e}, "
+              f"{mism} of {m * n} differ | kernel {t:.4f} ms, plain {t_plain:.3f} ms, torch.matmul on the "
+              f"decoded f32 weight {t_lib:.4f} ms, {fmt_bound(bd)}")
+
+    print("kernels: floatsd_quantize vs core.floatsd.encode (byte for byte)")
+    quant = {}
+    grid = torch.as_tensor(floatsd._GRID_POS, dtype=torch.float32, device=dev)
+    mids = torch.as_tensor(floatsd._GRID_MID, dtype=torch.float32, device=dev)
+    edge = torch.cat([grid, mids, torch.nextafter(mids, torch.full_like(mids, 1e9)),
+                      torch.tensor([600.0, 1e4], device=dev)])
+    edge = torch.cat([torch.tensor([0.0, -0.0], device=dev), edge, -edge])
+    cases = [("weight", (1024, 4096), torch.float32), ("table", (33280, 1024), torch.float32),
+             ("flat", (1_000_003,), torch.float32), ("weight16", (1024, 4096), torch.float16),
+             ("table16", (33280, 1024), torch.float16)]
+    for name, shape, dt in cases:
+        x = (torch.randn(shape, device=dev, generator=g) * 0.03).to(dt)
+        bias = floatsd.fit_bias(x)
+        codes = floatsd_quantize(x, bias)
+        want = floatsd.encode(x, bias)[0]
+        torch.cuda.synchronize()
+        mism = int((codes != want).sum())
+        check(mism == 0, f"quantize {name} {shape}: {mism} codes differ")
+        t = timed_ms(torch, lambda: floatsd_quantize(x, bias), 20, flush)
+        t_plain = timed_ms(torch, lambda: floatsd.encode(x, bias), 5, flush)
+        bd = bound(x.numel() * (x.element_size() + 1) + 4, float(x.numel() * QUANT_OPS))
+        quant[name] = dict(ms=t, plain_ms=t_plain, library_ms=None, err=0.0, **bd)
+        print(f"  {name:8s} {list(shape)} {str(dt)[6:]}: {mism} of {x.numel()} codes differ | kernel {t:.4f} ms, "
+              f"plain {t_plain:.3f} ms, {fmt_bound(bd)}; no library call")
+    for bias in (-126, 127):
+        n_vals = 0
+        for dt in (torch.float32, torch.float16):
+            x = (edge * 2.0 ** max(-126, min(120, bias))).to(dt)
+            x = x[torch.isfinite(x)]  # no code for inf
+            mism = int((floatsd_quantize(x, bias) != floatsd.encode(x, bias)[0]).sum())
+            check(mism == 0, f"quantize edge values at bias {bias} ({dt}): {mism} codes differ")
+            n_vals += x.numel()
+        print(f"  edge values (±0, grid points, midpoints and their neighbours, above the top) at bias {bias}, "
+              f"f32 and fp16: 0 of {n_vals} codes differ")
+
+    print("kernels: qsigmoid vs core.qsigmoid.qsigmoid_raw (bit for bit on f32; bf16 counted)")
+    qsig = {}
+    for shape in [(64, 4096), (1_000_003,)]:
+        x = torch.randn(shape, device=dev, generator=g) * 4
+        y, y_ref = qsigmoid(x), qsigmoid_raw(x)
+        torch.cuda.synchronize()
+        mism = int((y != y_ref).sum())
+        err = float((y - y_ref).abs().max())
+        check(mism == 0, f"qsigmoid {shape}: {mism} outputs differ (max err {err})")
+        xb = x.to(torch.bfloat16)
+        yb, yb_ref = qsigmoid(xb), qsigmoid_raw(xb)
+        torch.cuda.synchronize()
+        n_bf = int((yb != yb_ref).sum())
+        err_bf = float((yb.float() - yb_ref.float()).abs().max())
+        t = timed_ms(torch, lambda: qsigmoid(x), 50, flush)
+        t_plain = timed_ms(torch, lambda: qsigmoid_raw(x), 10, flush)
+        bd = bound(x.numel() * 8, float(x.numel() * QSIG_OPS))
+        qsig[shape] = dict(ms=t, plain_ms=t_plain, library_ms=None, err=err, bf16_differ=n_bf, **bd)
+        print(f"  {list(shape)} f32: max_abs_err {err:.3e}, {mism} of {x.numel()} differ | bf16 input: {n_bf} of "
+              f"{x.numel()} differ (kernel sigma in f32, plain in bf16), max {err_bf:.3e} | kernel {t:.4f} ms, "
+              f"plain {t_plain:.3f} ms, {fmt_bound(bd)}; no library call")
+    return mm4, quant, qsig
+
+
+def serve(torch, model, params, policy, prompts, backend=None, step_times=None, weight_format="floatsd8"):
     from repro_torch.serving import ServeEngine
 
-    eng = ServeEngine(model, params, policy, lanes=LANES, chunk=CHUNK, backend=backend)
+    eng = ServeEngine(model, params, policy, lanes=LANES, chunk=CHUNK, backend=backend,
+                      weight_format=weight_format)
     reqs = eng.submit_all([p.copy() for p in prompts], max_new=MAX_NEW)
     eng.metrics.start()
     while True:
@@ -285,7 +449,8 @@ def composite(parts) -> dict:
     lib = [r.get("library_ms") for _, r in parts]
     b, o = tot("bytes_ms"), tot("ops_ms")
     return {"ms": tot("ms"), "plain_ms": tot("plain_ms"), "bound_ms": max(b, o),
-            "bound_by": "bytes" if b >= o else "operations",
+            "bound_by": "bytes" if b >= o else "operations", "bytes_ms": b, "ops_ms": o,
+            "ops_peak": "+".join(sorted({r["ops_peak"] for _, r in parts})),
             "library_ms": None if None in lib else tot("library_ms")}
 
 
@@ -301,13 +466,17 @@ def train_counts(n_layers: int, seq: int) -> dict:
 
 def profile_step(torch, step_fn, state, batch):
     """One train step under torch.profiler: device time (ms) and launches
-    by kernel group."""
+    by kernel group, and the step's wall time (ms) in the same window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    torch.cuda.synchronize()
+    # device activity only: tracing every host op would lengthen the window timed here
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         state, m = step_fn(state, batch)
-        float(m["loss"])
+        float(m["loss"])  # a device->host copy: synchronised
+        wall = (time.perf_counter() - t0) * 1e3
     names = [("floatsd_matmul_kernel<false", "floatsd_matmul"),
              ("floatsd_matmul_kernel<true", "floatsd_matmul_dx"),
              ("matmul_dw_kernel", "floatsd_matmul_dw"), ("lstm_cell_bwd_kernel", "lstm_cell_grad"),
@@ -319,11 +488,12 @@ def profile_step(torch, step_fn, state, batch):
         g = next((g for k, g in names if k in e.key.lower()), "other torch ops")
         groups[g][0] += e.self_device_time_total / 1e3
         groups[g][1] += e.count
-    return groups
+    check(groups["floatsd_matmul"][1] > 0, f"the profiler saw no kernel of the train step: {groups}")
+    return groups, wall
 
 
 def train_phase(torch, smi):
-    """Phases 6 and 7: the full-width model through the training CLI."""
+    """Phases 7 and 8: the full-width model through the training CLI."""
     from repro_torch.core.policy import get_policy
     from repro_torch.kernels import dispatch as kd
     from repro_torch.kernels.floatsd_matmul.ops import floatsd_matmul, matmul_dw, matmul_dx
@@ -357,14 +527,15 @@ def train_phase(torch, smi):
 
     # one more step under the profiler: where the device time goes
     step_fn = make_train_step(model.loss, opt, get_policy("floatsd8_table6"), lr=lr)
-    groups = profile_step(torch, step_fn, out["state"], batch_to_device(batch, "cuda"))
+    groups, wall = profile_step(torch, step_fn, out["state"], batch_to_device(batch, "cuda"))
     busy = sum(ms for ms, _ in groups.values())
-    print(f"train step device time (torch.profiler, one warm step): busy {busy:.2f} ms of the "
-          f"{step_ms:.2f} ms median step (idle share {max(0.0, 1 - busy / step_ms):.1%}) in "
+    print(f"train step device time (torch.profiler, one warm step): busy {busy:.2f} ms of that step's "
+          f"{wall:.2f} ms wall time under the profiler (idle share {max(0.0, 1 - busy / wall):.1%}; the "
+          f"unprofiled median step is {step_ms:.2f} ms) in "
           f"{sum(n for _, n in groups.values())} device operations; "
           + ", ".join(f"{k} {ms:.3f} ms ({n})" for k, (ms, n) in groups.items()), flush=True)
 
-    # 7. the same init and batches on the plain versions, then the kernels again
+    # 8. the same init and batches on the plain versions, then the kernels again
     with kd.use_backend("ref"):
         ref = train.main([*TRAIN_ARGS, "--steps", str(XCHECK_STEPS)])
     rel = [abs(a - b) / abs(b) for a, b in zip(out["losses"], ref["losses"])]
@@ -389,7 +560,180 @@ def train_phase(torch, smi):
           f"(bound {LOSS_RTOL}); plain {ref['losses']}; masters within {max(drift.values()):.3e} of their "
           f"change (bound {PARAM_RTOL}; per leaf {drift}); a second kernel run bit-identical; plain step "
           f"{statistics.median(ref['step_s']):.2f} s", flush=True)
-    return dict(launches=launches, step_ms=step_ms, tok_s=tok_s, groups=groups, busy_ms=busy)
+    return dict(launches=launches, step_ms=step_ms, tok_s=tok_s, groups=groups, busy_ms=busy, wall_ms=wall,
+                params=out["state"].params, batch=batch)
+
+
+def cross_check(reqs, refs, what: str) -> None:
+    """Greedy tokens of the kernel path against the plain path, over each
+    request's margin-decisive prefix (phases 5 and 6)."""
+    import numpy as np
+
+    decisive = agree = 0
+    for r, ref in zip(reqs, refs):
+        n = next((i for i, g in enumerate(ref.margins) if g <= MARGIN_FLOOR), MAX_NEW)
+        check(r.out[:n] == ref.out[:n], f"{what}: request {r.rid}: {r.out} vs plain {ref.out} (decisive {n})")
+        decisive += n
+        agree += r.out == ref.out
+    check(decisive >= REQUESTS * MAX_NEW // 2, f"{what}: only {decisive} decisive tokens")
+    margins = np.array([g for ref in refs for g in ref.margins])
+    print(f"{what}: {decisive} of {REQUESTS * MAX_NEW} tokens margin-decisive (floor {MARGIN_FLOOR}) "
+          f"and equal; {agree} of {REQUESTS} streams equal in full; top-2 margin median "
+          f"{np.median(margins):.3e}, min {margins.min():.3e}", flush=True)
+
+
+def serve4_phase(torch, model, params, policy, prompts, serve8, smi):
+    """Phase 6: the same requests on the FloatSD4 store."""
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import dispatch as kd
+    from repro_torch.kernels.floatsd4_matmul.ops import floatsd4_matmul
+    from repro_torch.kernels.floatsd_matmul.ops import floatsd_matmul
+    from repro_torch.kernels.lstm_cell.ops import lstm_cell
+
+    wrappers = {"floatsd4_matmul": floatsd4_matmul, "floatsd_matmul": floatsd_matmul, "lstm_cell": lstm_cell}
+    kd.STATS.reset()
+    for w in wrappers.values():
+        w.launches = 0
+    times: list[float] = []
+    eng, reqs = serve(torch, model, params, policy, prompts, step_times=times, weight_format="floatsd4")
+    launches = {op: w.launches for op, w in wrappers.items()}
+    stats = kd.STATS.snapshot()
+    m, s = eng.metrics, eng.store
+    print(f"serve4: weights {s.dense_nbytes / 2**20:.1f} MiB dense -> {s.packed_nbytes} B = "
+          f"{s.packed_nbytes / 2**20:.2f} MiB packed FloatSD4 ({s.n_packed} tensors; FloatSD8 "
+          f"{serve8['packed_nbytes'] / 2**20:.2f} MiB); {m.format()}", flush=True)
+    check(s.fmt == "floatsd4" and s.packed_nbytes == FLOATSD4_BYTES,
+          f"FloatSD4 resident bytes {s.packed_nbytes} != {FLOATSD4_BYTES}")
+    check(all(r.status == "done" and len(r.out) == MAX_NEW for r in reqs), "serve4: requests not all done")
+    check(m.numeric_errors == 0, "serve4: nonfinite logits")
+    L = model.n_layers
+    positions = CHUNK * m.prefill_steps + m.decode_steps
+    want = {"floatsd4_matmul": 2 * L * positions + m.steps, "floatsd_matmul": 0, "lstm_cell": L * positions}
+    check(launches == want, f"serve4 launches {launches} != expected {want}")
+    check(stats.get(("floatsd4_matmul", "cuda"), 0) == want["floatsd4_matmul"]
+          and stats.get(("lstm_cell", "cuda"), 0) == want["lstm_cell"]
+          and sum(n for (o, b), n in stats.items() if b == "ref" or o == "floatsd_matmul") == 0,
+          f"serve4 dispatch records {stats}")
+    step_ms = statistics.median(times) * 1e3
+    rep = m.report()
+    print(f"serve4: {rep['gen_tok_per_s']:.1f} generated tok/s, {rep['total_tok_per_s']:.1f} total tok/s, median "
+          f"decode step {step_ms:.3f} ms over {len(times)} steps (FloatSD8: {serve8['gen_tok_s']:.1f} generated "
+          f"tok/s, {serve8['step_ms']:.3f} ms; {LANES} lanes; {smi}); launches {launches}; dispatch "
+          f"{dict((f'{o}/{b}', n) for (o, b), n in stats.items())}", flush=True)
+
+    _, refs = serve(torch, model, params, policy, prompts, backend="ref", weight_format="floatsd4")
+    cross_check(reqs, refs, "serve4 cross-check")
+
+    # the loss of one synthetic batch on both stores (random weights: the
+    # difference says how far FloatSD4 moves this model, nothing of accuracy)
+    batch = next(synthetic.wikitext2(batch=LANES, seq=48, vocab=model.vocab, seed=SEED).batches)
+    b = {k: torch.as_tensor(v, device=eng.device) for k, v in batch.items()}
+    pol = eng.serve_policy
+    with torch.no_grad():
+        loss4 = float(model.loss(s.tree, b, pol))
+        loss8 = float(model.loss(serve8["tree"], b, pol))
+    check(math.isfinite(loss4) and math.isfinite(loss8), f"nonfinite eval loss {loss4}, {loss8}")
+    print(f"serve4: eval loss of one synthetic batch [{LANES},48]: FloatSD4 {loss4:.6f}, FloatSD8 {loss8:.6f}, "
+          f"difference {loss4 - loss8:+.6f} (random weights: informative only)", flush=True)
+
+    # the two formats in turns (8, 4, 4, 8: the first serve of a process
+    # is not favoured), then a profiled window of decode steps each
+    turns: dict[str, list[float]] = {"floatsd8": [], "floatsd4": []}
+    for fmt in ("floatsd8", "floatsd4", "floatsd4", "floatsd8"):
+        serve(torch, model, params, policy, prompts, step_times=turns[fmt], weight_format=fmt)
+    prof = {fmt: profile_decode(torch, model, params, policy, fmt) for fmt in turns}
+    for fmt, t in turns.items():
+        med = statistics.median(t) * 1e3
+        busy, kern, n_ops, wall = prof[fmt]
+        print(f"serve4 in turns ({fmt}): median decode step {med:.3f} ms over {len(t)} steps of two runs; "
+              f"torch.profiler over {PROFILE_STEPS} decode steps: {wall:.3f} ms wall a step under the profiler, "
+              f"device busy {busy:.3f} ms a step (idle share {max(0.0, 1 - busy / wall):.1%} of that window), "
+              f"of which kernels {kern:.3f} ms, {n_ops / PROFILE_STEPS:.0f} device operations a step", flush=True)
+    return dict(launches=launches, step_ms=step_ms, gen_tok_s=rep["gen_tok_per_s"], loss4=loss4, loss8=loss8)
+
+
+PROFILE_STEPS = 8
+
+
+def profile_decode(torch, model, params, policy, fmt):
+    """Device time of a decode step at 8 lanes under torch.profiler:
+    (busy ms a step, of which the port's kernels, device operations, wall
+    ms a step of the same window)."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import ServeEngine
+
+    eng = ServeEngine(model, params, policy, lanes=LANES, chunk=CHUNK, weight_format=fmt)
+    eng.submit_all([np.arange(5, 8) for _ in range(LANES)], max_new=PROFILE_STEPS + 4)
+    for _ in range(3):  # prefill (which emits the first token) and two decode steps
+        eng.step_once()
+    torch.cuda.synchronize()
+    # device activity only: tracing every host op would lengthen the window timed here
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            eng.step_once()  # ends in a device->host copy: synchronised
+        wall = (time.perf_counter() - t0) * 1e3
+    check(eng.metrics.prefill_steps == 1 and eng.metrics.decode_steps == PROFILE_STEPS + 2,
+          f"profiled window: {eng.metrics.format()}")
+    busy = kern = 0.0
+    n_ops = 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue
+        busy += e.self_device_time_total / 1e3
+        n_ops += e.count
+        if any(k in e.key for k in ("floatsd", "lstm_cell")):
+            kern += e.self_device_time_total / 1e3
+    check(kern > 0, f"the profiler saw no kernel of the {fmt} decode steps")
+    return busy / PROFILE_STEPS, kern / PROFILE_STEPS, n_ops, wall / PROFILE_STEPS
+
+
+def entry_phase(torch, params, batch):
+    """Phase 9: dispatch.quantize on the trained masters, dispatch.qsigmoid
+    on a gate block."""
+    from repro_torch.core import floatsd
+    from repro_torch.core.qsigmoid import qsigmoid_raw
+    from repro_torch.kernels import dispatch as kd
+    from repro_torch.kernels.floatsd_quantize.ops import floatsd_quantize
+    from repro_torch.kernels.qsigmoid.ops import qsigmoid
+    from repro_torch.serving import pack_tree
+
+    packed = pack_tree(params)  # core.floatsd.encode, the serving packer
+    masters = [(mod, name, w) for mod, leaves in params.items() for name, w in leaves.items() if w.dim() >= 2]
+    # layer 0's gate pre-activations at the first time step of 64 sequences
+    # (h0 = 0, so z = x @ Wx + b)
+    table, wx = packed["embed"]["table"], packed["lstm0"]["wx"]
+    toks = torch.as_tensor(batch["tokens"][:, 0], device=table.codes.device).long()
+    x = floatsd.decode(table.codes[toks], table.bias)
+    z = (kd.matmul(x, wx.codes, wx.bias) + params["lstm0"]["b"].float()).contiguous()
+    check(tuple(z.shape) == (64, 4096), f"gate block {tuple(z.shape)}")
+    torch.cuda.synchronize()
+
+    kd.STATS.reset()
+    floatsd_quantize.launches = qsigmoid.launches = 0
+    out = [(mod, name, w, *kd.quantize(w)) for mod, name, w in masters]
+    y = kd.qsigmoid(z)
+    launches = {"floatsd_quantize": floatsd_quantize.launches, "qsigmoid": qsigmoid.launches}
+    stats = kd.STATS.snapshot()
+    check(launches == {"floatsd_quantize": len(masters), "qsigmoid": 1}, f"entry launches {launches}")
+    check(stats == {("floatsd_quantize", "cuda"): len(masters), ("qsigmoid", "cuda"): 1},
+          f"entry dispatch records {stats}")
+    for mod, name, w, codes, bias in out:
+        p = packed[mod][name]
+        check(w.dtype == torch.float16, f"{mod}/{name}: master dtype {w.dtype}")
+        check(torch.equal(codes, p.codes) and int(bias) == p.bias,
+              f"{mod}/{name}: dispatch.quantize differs from pack_tree ({int((codes != p.codes).sum())} codes, "
+              f"bias {int(bias)} vs {p.bias})")
+    mism = int((y != qsigmoid_raw(z)).sum())
+    check(mism == 0, f"entry qsigmoid: {mism} of {z.numel()} differ from the plain version")
+    print(f"entry: dispatch.quantize on {len(masters)} trained fp16 masters "
+          f"({', '.join(f'{m}/{n} {list(w.shape)}' for m, n, w in masters)}): codes and biases equal pack_tree's; "
+          f"dispatch.qsigmoid on gate block [64,4096]: 0 differ from the plain version; launches {launches}; "
+          f"dispatch {dict((f'{o}/{b}', n) for (o, b), n in stats.items())}", flush=True)
+    return dict(launches=launches)
 
 
 def main() -> int:
@@ -433,6 +777,7 @@ def main() -> int:
     # 3. kernels against their plain versions
     flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev)  # > 50 MB L2
     mm, cell, dx, dw, cell_bwd = kernel_phase(torch, dev, flush)
+    mm4, quant, qsig = kernel_phase4(torch, dev, flush)
     del flush
 
     # 4. the main path at full width
@@ -471,24 +816,23 @@ def main() -> int:
 
     # 5. cross-check against the plain versions on the card
     _, refs = serve(torch, model, params, policy, prompts, backend="ref")
-    decisive = agree = 0
-    for r, ref in zip(reqs, refs):
-        n = next((i for i, g in enumerate(ref.margins) if g <= MARGIN_FLOOR), MAX_NEW)
-        check(r.out[:n] == ref.out[:n], f"request {r.rid}: {r.out} vs plain {ref.out} (decisive {n})")
-        decisive += n
-        agree += r.out == ref.out
-    check(decisive >= REQUESTS * MAX_NEW // 2, f"only {decisive} decisive tokens")
-    margins = np.array([g for ref in refs for g in ref.margins])
-    print(f"cross-check: {decisive} of {REQUESTS * MAX_NEW} tokens margin-decisive (floor {MARGIN_FLOOR}) "
-          f"and equal; {agree} of {REQUESTS} streams equal in full; top-2 margin median "
-          f"{np.median(margins):.3e}, min {margins.min():.3e}", flush=True)
+    cross_check(reqs, refs, "cross-check")
 
-    # 6-7. training
+    # 6. the FloatSD4 store
+    serve8 = dict(packed_nbytes=s.packed_nbytes, step_ms=step_ms, gen_tok_s=m.report()["gen_tok_per_s"],
+                  tree=eng.store.tree)
+    s4 = serve4_phase(torch, model, params, policy, prompts, serve8, smi)
+    del serve8, eng
+
+    # 7-8. training
     tr = train_phase(torch, smi)
 
-    # result lines: each kernel's time per decode step (serving) or per train
-    # step, from the kernel phase's per-launch times and the launch counts
-    # of each path
+    # 9. the element-wise entry points on the trained masters
+    ent = entry_phase(torch, tr["params"], tr["batch"])
+
+    # result lines: each kernel's time per decode step (serving), per train
+    # step, or per entry-point pass, from the kernel phase's per-launch times
+    # and the launch counts of each path
     L, S = cfg.n_layers, 48
     serve_mm = [(2 * L, mm[("gate", 8)]), (1, mm[("head", 8)])]
     train_mm = [(2 * L * S, mm[("gate", 64)]), (2 * L, mm[("remat", 3072)])]
@@ -509,16 +853,26 @@ def main() -> int:
         ("lstm_cell_grad", "lstm_cell/lstm_cell_bwd.cu", "lstm_cell/bwd.py:75", cell_bwd.values(),
          None, None, [(L * S, cell_bwd[(64, 1024)])],
          "train step: 96 x z [64,4096], c_prev/dh/dc [64,1024] -> dz, dc_prev"),
+        ("floatsd4_matmul", "floatsd4_matmul/floatsd4_matmul.cu", "floatsd4_matmul/kernel.py:29",
+         mm4.values(), [(2 * L, mm4[("gate", 8)]), (1, mm4[("head", 8)])],
+         "FloatSD4 decode step at 8 lanes: 4 x [8,1024]@[1024,4096] + [8,1024]@table[33280,1024]^T "
+         "(transposed mode)", None, None),
+        ("floatsd_quantize", "floatsd_quantize/floatsd_quantize.cu", "floatsd_quantize/kernel.py:32",
+         quant.values(), [(1, quant["table16"]), (2 * L, quant["weight16"])],
+         "entry: dispatch.quantize on the 5 trained fp16 masters, [33280,1024] + 4 x [1024,4096]", None, None),
+        ("qsigmoid", "qsigmoid/qsigmoid.cu", "qsigmoid/kernel.py:28", qsig.values(),
+         [(1, qsig[(64, 4096)])], "entry: dispatch.qsigmoid on a [64,4096] f32 gate block", None, None),
     ]
+    paths = {"serve": launches, "train": tr["launches"], "serve4": s4["launches"], "entry": ent["launches"]}
     record = {"kernels": []}
-    for name, src, repl, rows, serve_parts, serve_per, train_parts, train_per in entries:
-        n_serve, n_train = launches.get(name, 0), tr["launches"][name]
-        parts, per = (serve_parts, serve_per) if serve_parts else (train_parts, train_per)
+    for name, src, repl, rows, parts, per, train_parts, train_per in entries:
+        by_path = {path: counts.get(name, 0) for path, counts in paths.items()}
+        parts, per = (parts, per) if parts else (train_parts, train_per)
         rec = {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/{src}",
-               "replaces": f"src/repro/kernels/{repl}", "launches": n_serve + n_train,
-               "launches_by_path": {"serve": n_serve, "train": n_train},
+               "replaces": f"src/repro/kernels/{repl}", "launches": sum(by_path.values()),
+               "launches_by_path": by_path,
                "max_abs_err": max(v["err"] for v in rows), **composite(parts), "per": per}
-        if serve_parts:
+        if train_parts and parts is not train_parts:
             rec["train_step"] = {**composite(train_parts), "per": train_per}
         record["kernels"].append(rec)
     check(all(k["launches"] > 0 for k in record["kernels"]), "a kernel never launched on the main path")

@@ -9,7 +9,11 @@ The JAX package's parameters are nested dicts of arrays; its checkpoints
 ``.scale/.dynamic``), written atomically with a CRC32 ``content_hash`` of
 the arrays. ``from_jax_params`` / ``load_jax_checkpoint`` give a model
 trained in JAX to the port's server (floating arrays as f32 tensors: an
-fp16 master converts exactly); ``load_train_state`` continues a JAX
+fp16 master converts exactly); ``from_jax_packed`` carries a JAX
+``WeightStore.tree`` (FloatSD8 ``PackedTensor`` and FloatSD4
+``PackedTensor4`` leaves) into the port's packed tree, codes, biases and
+exponents unchanged, so the port serves a store the JAX package packed;
+``load_train_state`` continues a JAX
 TrainState in the port's trainer, and ``save_checkpoint`` writes the
 port's TrainState in that layout, dtypes included, so
 ``repro.distributed.checkpointing.restore`` reads it.
@@ -28,11 +32,12 @@ import torch
 
 from .core.loss_scaling import LossScaleState
 from .device import resolve_device
+from .kernels.dispatch import PackedTensor, PackedTensor4
 from .optim.train_state import TrainState
 
 __all__ = [
-    "from_jax_params", "load_jax_checkpoint", "to_jax_state", "save_checkpoint",
-    "load_train_state",
+    "from_jax_params", "from_jax_packed", "load_jax_checkpoint", "to_jax_state",
+    "save_checkpoint", "load_train_state",
 ]
 
 
@@ -71,6 +76,29 @@ def from_jax_params(params: Mapping[str, Any], device=None) -> dict:
         return _tensor(tree, dev)
 
     return conv(params)
+
+
+def from_jax_packed(tree: Mapping[str, Any], device=None) -> dict:
+    """A JAX ``WeightStore.tree`` (nested dicts whose packed leaves carry
+    ``codes`` and ``bias``, or ``codes``, ``exps`` and ``k``; arrays
+    numpy-convertible) -> the port's packed tree on ``device``: codes
+    uint8, exponents int8, a FloatSD8 bias as a host int, dense leaves as
+    ``from_jax_params`` converts them."""
+    dev = resolve_device(device)
+
+    def raw(a, dtype):
+        return torch.from_numpy(np.array(a, dtype)).to(dev)
+
+    def conv(x):
+        if isinstance(x, Mapping):
+            return {k: conv(v) for k, v in x.items()}
+        if hasattr(x, "codes") and hasattr(x, "exps"):
+            return PackedTensor4(raw(x.codes, np.uint8), raw(x.exps, np.int8), int(x.k))
+        if hasattr(x, "codes") and hasattr(x, "bias"):
+            return PackedTensor(raw(x.codes, np.uint8), int(np.asarray(x.bias)))
+        return _tensor(x, dev)
+
+    return conv(tree)
 
 
 def _step_dir(path: str) -> str:

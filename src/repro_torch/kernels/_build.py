@@ -5,8 +5,10 @@ Each kernel is one ``kernels/<dir>/<op>.cu`` with a plain C interface
 ``load(op)`` compiles it with ``nvcc`` into a shared library under
 ``build/kernels/`` at the repository root (listed in ``.gitignore``) and
 opens it with ``ctypes``; the library's name carries a hash of the source,
-the headers (``*.cuh``) of its directory and the flags, so an edited source
-is rebuilt and an unchanged one is reused. A build that fails raises with
+of every header it includes (``#include "..."``, followed from file to
+file, wherever the header lies) and of the flags, so an edit to a source or
+to a shared header rebuilds every library that uses it, and an unchanged one
+is reused. A build that fails raises with
 nvcc's log.
 
 The sources include no PyTorch headers, so each compiles in seconds; the
@@ -19,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -41,6 +44,10 @@ KERNELS = {
     "floatsd_matmul_dw": ("floatsd_matmul", ()),
     "lstm_cell": ("lstm_cell", ("--fmad=false",)),
     "lstm_cell_bwd": ("lstm_cell", ("--fmad=false",)),
+    "floatsd4_matmul": ("floatsd4_matmul", ()),
+    "floatsd_quantize": ("floatsd_quantize", ()),
+    # shares the cell's sigmoid (lstm_cell_common.cuh) and its rounding
+    "qsigmoid": ("qsigmoid", ("--fmad=false",)),
 }
 
 _LOCK = threading.Lock()
@@ -59,12 +66,29 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(op: str) -> list[Path]:
+    """The source of ``op`` and every header it includes with quotes,
+    resolved against the including file's directory, transitively."""
+    folder, _ = KERNELS[op]
+    todo = [_KERNELS_DIR / folder / f"{op}.cu"]
+    seen: list[Path] = []
+    while todo:
+        f = todo.pop(0).resolve()
+        if f in seen:
+            continue
+        seen.append(f)
+        todo += [f.parent / inc for inc in _INCLUDE.findall(f.read_text())]
+    return seen
+
+
 def _target(op: str) -> tuple[Path, list[str]]:
-    folder, extra = KERNELS[op]
-    src = _KERNELS_DIR / folder / f"{op}.cu"
-    flags = [*_COMMON_FLAGS, *extra]
+    src, *headers = _sources(op)
+    flags = [*_COMMON_FLAGS, *KERNELS[op][1]]
     h = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
-    for header in sorted(src.parent.glob("*.cuh")):
+    for header in sorted(headers):
         h.update(header.read_bytes())
     digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{op}-{digest}.so", [str(src), *flags]

@@ -1,8 +1,10 @@
 """Kernel dispatch: routes each op to its hand-written CUDA kernel or to its
 plain PyTorch version.
 
-Counterpart of ``repro.kernels.dispatch`` (the serving ops, and the
-backward ops and weight hoists of the fused quantized-BPTT training path). The resolver
+Counterpart of ``repro.kernels.dispatch``: the serving ops over FloatSD8
+(``PackedTensor``) and FloatSD4 (``PackedTensor4``) weights, the backward
+ops and weight hoists of the fused quantized-BPTT training path, and the
+element-wise ``quantize`` and ``qsigmoid`` entry points. The resolver
 has one rule: a tensor on the card goes to the kernel, a tensor on the CPU
 to the plain version. The only override is ``backend="ref"`` (an argument,
 or ``use_backend("ref")`` around a whole model call), which runs the plain
@@ -22,17 +24,24 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from ..core import floatsd
+from ..core import floatsd, floatsd4
+from .floatsd4_matmul import ops as fm4_ops
+from .floatsd4_matmul.ref import floatsd4_matmul_ref
 from .floatsd_matmul import ops as fm_ops
 from .floatsd_matmul.ref import matmul_dw_ref, ordered_matmul
+from .floatsd_quantize import ops as fq_ops
+from .floatsd_quantize.ref import quantize_ref
 from .lstm_cell import ops as lc_ops
 from .lstm_cell.ref import lstm_cell_bwd_ref, lstm_cell_ref
+from .qsigmoid import ops as qs_ops
+from .qsigmoid.ref import qsigmoid_ref
 
 __all__ = [
     "BACKENDS", "ZERO_CODE", "PackedTensor", "is_packed", "Decision",
     "DispatchStats", "STATS", "use_backend", "matmul", "lstm_cell",
     "packed_einsum", "hoist_packed", "matmul_dx", "matmul_dw", "lstm_cell_grad",
-    "pack_train", "hoist_train",
+    "pack_train", "hoist_train", "PackedTensor4", "is_packed4", "is_any_packed", "pack4",
+    "unpack4", "matmul4", "quantize", "qsigmoid",
 ]
 
 BACKENDS = ("ref", "cuda")
@@ -55,6 +64,40 @@ class PackedTensor(NamedTuple):
 
 def is_packed(x: Any) -> bool:
     return isinstance(x, PackedTensor)
+
+
+class PackedTensor4(NamedTuple):
+    """A FloatSD4-packed tensor: two 4-bit codes per byte along axis 0 (low
+    nibble = even row) and one int8 exponent per 32 rows of axis 0 and
+    column; ``k`` is the true length of axis 0."""
+
+    codes: torch.Tensor  # uint8 [ceil(k/2), ...]
+    exps: torch.Tensor  # int8 [ceil(k/32), ...]
+    k: int
+    # f32 decode [k, ...], set by hoist_packed when the plain version runs
+    dense: torch.Tensor | None = None
+
+
+def is_packed4(x: Any) -> bool:
+    return isinstance(x, PackedTensor4)
+
+
+def is_any_packed(x: Any) -> bool:
+    return isinstance(x, (PackedTensor, PackedTensor4))
+
+
+def pack4(w) -> PackedTensor4:
+    """FloatSD4-encode a dense weight, or a FloatSD8 PackedTensor (decoded
+    first: the serving conversion re-quantizes the FloatSD8 values)."""
+    if is_packed(w):
+        w = floatsd.decode(w.codes, w.bias, dtype=torch.float32)
+    codes, exps = floatsd4.encode(w)
+    return PackedTensor4(floatsd4.pack_nibbles(codes), exps, w.shape[0])
+
+
+def unpack4(w4: PackedTensor4, dtype=torch.float32) -> torch.Tensor:
+    """Decode a PackedTensor4 back to its dense tensor."""
+    return floatsd4.decode_packed(w4.codes, w4.exps, w4.k, dtype=dtype)
 
 
 class Decision(NamedTuple):
@@ -159,12 +202,33 @@ def lstm_cell(z: torch.Tensor, c_prev: torch.Tensor, *, quantized: bool = True,
     return out
 
 
-def packed_einsum(eq: str, x: torch.Tensor, packed: PackedTensor, *,
+def matmul4(x: torch.Tensor, w4: PackedTensor4, *, transposed: bool = False,
+            backend: str | None = None) -> torch.Tensor:
+    """x [..., K] @ decode4(w4) -> [..., N] f32, w4 packed [K, N] or, when
+    ``transposed``, the [N, K] table read in place (the tied head). x is
+    taken in f32, exactly as ``matmul`` takes it. On the card both layouts
+    run the kernel; the JAX package decodes the table and multiplies
+    densely for the head, because a Pallas block cannot transpose a nibble
+    stream: the same function, and a CUDA thread reads any nibble."""
+    k = x.shape[-1]
+    n = w4.k if transposed else w4.codes.shape[1]
+    x2 = x.reshape(-1, k).to(torch.float32).contiguous()
+    dec = _decide("floatsd4_matmul", x2, backend)
+    if dec.backend == "ref":
+        y = floatsd4_matmul_ref(x2, w4.codes, w4.exps, w4.k, transposed=transposed,
+                                dense=w4.dense)
+    else:
+        y = fm4_ops.floatsd4_matmul(x2, w4.codes, w4.exps, w4.k, transposed=transposed)
+    STATS.record(dec)
+    return y.reshape(*x.shape[:-1], n)
+
+
+def packed_einsum(eq: str, x: torch.Tensor, packed, *,
                   backend: str | None = None) -> torch.Tensor:
-    """The weight-site einsums over a PackedTensor: ``...d,df->...f`` /
-    ``bd,dk->bk`` (contract w's first axis) and ``...d,vd->...v``
-    (contract w's second axis: the tied logits head, whose codes the kernel
-    reads in place). Returns f32."""
+    """The weight-site einsums over a PackedTensor or PackedTensor4:
+    ``...d,df->...f`` / ``bd,dk->bk`` (contract w's first axis) and
+    ``...d,vd->...v`` (contract w's second axis: the tied logits head,
+    whose codes the kernel reads in place). Returns f32."""
     ins, out = eq.replace(" ", "").split("->")
     xl, wl = ins.split(",")
     cl = xl[-1]
@@ -174,6 +238,8 @@ def packed_einsum(eq: str, x: torch.Tensor, packed: PackedTensor, *,
     wf = wl[0] if transposed else wl[1]
     if out != xl[:-1] + wf:
         raise NotImplementedError(f"packed_einsum does not support {eq!r}")
+    if is_packed4(packed):
+        return matmul4(x, packed, transposed=transposed, backend=backend)
     return matmul(x, packed.codes, packed.bias, transposed=transposed, dense=packed.dense,
                   backend=backend)
 
@@ -183,14 +249,17 @@ def hoist_packed(w, *, backend: str | None = None):
 
     When the plain version will run the matmuls, decoding the codes once
     outside the loop beats a decode at every step: the returned
-    PackedTensor carries the decode in ``dense``. On the card the codes
-    stay as they are, since decoding in the tile is the kernel's point.
-    Anything else passes through.
+    PackedTensor / PackedTensor4 carries the decode in ``dense``. On the
+    card the codes stay as they are, since decoding in the tile is the
+    kernel's point. Anything else passes through.
     """
-    if not is_packed(w) or w.dense is not None:
+    if not is_any_packed(w) or w.dense is not None:
         return w
-    if _decide("floatsd_matmul", w.codes, backend).backend != "ref":
+    op = "floatsd4_matmul" if is_packed4(w) else "floatsd_matmul"
+    if _decide(op, w.codes, backend).backend != "ref":
         return w
+    if is_packed4(w):
+        return w._replace(dense=unpack4(w))
     return w._replace(dense=floatsd.decode(w.codes, w.bias, dtype=torch.float32))
 
 
@@ -269,3 +338,34 @@ def hoist_train(w: torch.Tensor, *, backend: str | None = None) -> PackedTensor:
     ``hoist_packed``: the packed codes, plus their decode in ``dense`` when
     the plain versions will run (so neither scan decodes per step)."""
     return hoist_packed(pack_train(w), backend=backend)
+
+
+# ---------------------------------------------------------------------------
+# element-wise entry points
+# ---------------------------------------------------------------------------
+
+
+def quantize(x: torch.Tensor, bias=None, *, backend: str | None = None):
+    """Any-shape finite tensor -> (uint8 FloatSD8 codes of its shape, bias).
+    ``bias`` defaults to ``floatsd.fit_bias(x)``, a device int32 that the
+    kernel reads in place, so no host synchronisation happens here; it is
+    returned as given (a 0-d int32 tensor), and the codes use it clamped
+    as ``floatsd.encode`` clamps it."""
+    bias = floatsd.fit_bias(x) if bias is None else torch.as_tensor(
+        bias, dtype=torch.int32, device=x.device)
+    dec = _decide("floatsd_quantize", x, backend)
+    if dec.backend == "ref":
+        codes = quantize_ref(x, bias)
+    else:
+        codes = fq_ops.floatsd_quantize(x, bias)
+    STATS.record(dec)
+    return codes, bias
+
+
+def qsigmoid(x: torch.Tensor, *, backend: str | None = None) -> torch.Tensor:
+    """Two-region FloatSD8 sigmoid of any-shape ``x``, same shape and
+    dtype."""
+    dec = _decide("qsigmoid", x, backend)
+    y = qsigmoid_ref(x) if dec.backend == "ref" else qs_ops.qsigmoid(x)
+    STATS.record(dec)
+    return y

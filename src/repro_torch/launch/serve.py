@@ -1,13 +1,15 @@
 """Batched serving CLI of the port.
 
 Builds the WikiText-2 FloatSD8 LSTM LM with random weights from ``--seed``,
-packs them to 1-byte FloatSD8 codes, and drains a synthetic workload
+packs them to 1-byte FloatSD8 codes (or, with ``--weight-format floatsd4``,
+re-quantizes those to nibble-packed FloatSD4 codes), and drains a synthetic workload
 through ``ServeEngine`` (continuous batching, chunked prefill, greedy
 decoding). On the card every gate matmul, the tied head and the cell run
 the hand-written CUDA kernels.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu   # reduced, CPU
   PYTHONPATH=src python -m repro_torch.launch.serve --full         # 1024-wide LM, GPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --full --weight-format floatsd4
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from ..configs import lstm_wikitext2
 from ..core.policy import get_policy
 from ..device import resolve_device
 from ..models import build
-from ..serving import ServeEngine, synthetic_prompts
+from ..serving import WEIGHT_FORMATS, ServeEngine, synthetic_prompts
 
 
 def main(argv=None):
@@ -31,6 +33,10 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8, help="decode lanes")
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--chunk", type=int, default=8, help="prompt tokens consumed per prefill step")
+    ap.add_argument("--weight-format", choices=WEIGHT_FORMATS, default="floatsd8",
+                    help="packed serving format: floatsd8 (1 byte a weight, the trained "
+                         "function) or floatsd4 (2 codes a byte + group exponents, about half "
+                         "the resident bytes, re-quantized from the FloatSD8 values)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -41,11 +47,13 @@ def main(argv=None):
     params = model.init(torch.Generator(device=device).manual_seed(args.seed))
     prompts = synthetic_prompts(args.requests, cfg.vocab, np.random.default_rng(args.seed))
 
-    engine = ServeEngine(model, params, policy, lanes=args.batch, chunk=args.chunk)
+    engine = ServeEngine(model, params, policy, lanes=args.batch, chunk=args.chunk,
+                         weight_format=args.weight_format)
     s = engine.store
     print(
         f"weights: {s.dense_nbytes/2**20:.1f} MiB dense -> "
-        f"{s.packed_nbytes/2**20:.1f} MiB packed FloatSD8 "
+        f"{s.packed_nbytes/2**20:.1f} MiB packed "
+        f"{'FloatSD4' if s.fmt == 'floatsd4' else 'FloatSD8'} "
         f"({s.compression:.2f}x smaller, {s.n_packed} tensors packed)",
         flush=True,
     )

@@ -2,7 +2,8 @@
 
 Counterpart of ``repro.nn.linear``. Weights are FloatSD8 (dense fake-quant
 with a straight-through gradient to the master copy, or packed codes that
-pass straight to the dispatched kernel), activations pass the policy's
+pass straight to the dispatched kernel) or packed FloatSD4 codes (serving
+only), activations pass the policy's
 (forward, gradient) quantizers at each site, and every product accumulates
 in f32. When the policy quantizes gradients, a dense weight site emits its
 dW through bf16 (the reference's gradient-compression point): XLA on the
@@ -15,7 +16,7 @@ import dataclasses
 
 import torch
 
-from ..core import floatsd
+from ..core import floatsd, floatsd4
 from ..core.fp8 import act_quant
 from ..core.policy import Policy
 from ..kernels import dispatch as kd
@@ -44,9 +45,9 @@ def uniform_init(generator: torch.Generator, shape, scale: float) -> torch.Tenso
 def quant_weight(w, policy: Policy):
     """The policy's weight quantizer, then a cast to the compute dtype; the
     gradient reaches the master (an fp16 one too) through the cast and the
-    straight-through quantizer. Packed weights pass through: the codes are
-    the quantized weights."""
-    if kd.is_packed(w):
+    straight-through quantizer. Packed weights (either format) pass
+    through: the codes are the quantized weights."""
+    if kd.is_any_packed(w):
         return w
     if policy.weight_quant == "floatsd8":
         w = floatsd.quantize_ste(w, floatsd.fit_bias(w.detach()))
@@ -91,8 +92,9 @@ class _EinsumGC(torch.autograd.Function):
 def policy_einsum(eq: str, x: torch.Tensor, w, policy: Policy) -> torch.Tensor:
     """The bare matmul all weight sites share: f32 accumulation, bf16 dW
     emission when the policy quantizes gradients. Operands must already be
-    quantized and cast. Packed weights go to the kernel dispatch layer."""
-    if kd.is_packed(w):
+    quantized and cast. Packed weights (either format) go to the kernel
+    dispatch layer."""
+    if kd.is_any_packed(w):
         return kd.packed_einsum(eq, x, w)
     if policy.grad_quant != "none":
         return _EinsumGC.apply(eq.replace(" ", ""), x, w)
@@ -103,7 +105,7 @@ def quant_einsum(eq: str, x: torch.Tensor, w, policy: Policy, site: str = "hidde
     """einsum with both operands quantized per policy; f32 accumulation."""
     xq = quant_act(x, policy, site)
     cdt = policy.cdt() or x.dtype
-    if kd.is_packed(w):
+    if kd.is_any_packed(w):
         y = kd.packed_einsum(eq, xq.to(cdt), w)
     else:
         y = policy_einsum(eq, xq.to(cdt), quant_weight(w, policy).to(cdt), policy)
@@ -142,9 +144,13 @@ class QuantEmbedding:
 
     def apply(self, p, tokens: torch.Tensor, policy: Policy) -> torch.Tensor:
         """tokens -> embeddings (the 'first layer activation' site). A
-        packed table gathers the 1-byte codes, then decodes only those rows."""
+        packed table gathers the codes (a FloatSD4 one its nibbles and
+        group exponents), then decodes only those rows."""
         table = p["table"]
-        if kd.is_packed(table):
+        if kd.is_packed4(table):
+            y = floatsd4.gather_decode(table.codes, table.exps, tokens,
+                                       dtype=policy.cdt() or torch.float32)
+        elif kd.is_packed(table):
             y = floatsd.decode(table.codes[tokens], table.bias,
                                dtype=policy.cdt() or torch.float32)
         else:

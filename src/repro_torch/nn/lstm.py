@@ -5,7 +5,8 @@ and ``LSTMLayer.apply``'s plain and lengths-masked forward scans (the
 serving half), and the fused quantized BPTT that trains a forward,
 unmasked layer (``_LSTMBPTT``, the reference's ``_make_lstm_bptt`` in its
 default remat mode). Per time step: two FloatSD8 x FP8 gate matmuls through
-the dispatched ``floatsd_matmul`` and one fused ``lstm_cell`` (two-region
+the dispatched ``floatsd_matmul`` (``floatsd4_matmul`` on FloatSD4-packed
+weights, which serve only) and one fused ``lstm_cell`` (two-region
 sigmoid, FP8 tanh, FP16 cell state).
 """
 from __future__ import annotations
@@ -173,7 +174,7 @@ class LSTMLayer:
             policy.grad_quant == "fp8_kernel"
             and policy.weight_quant == "floatsd8"
             and policy.cdt() in (None, torch.float32)
-            and not (kd.is_packed(p["wx"]) or kd.is_packed(p["wh"]))
+            and not (kd.is_any_packed(p["wx"]) or kd.is_any_packed(p["wh"]))
         )
         if fused:
             if lengths is not None:

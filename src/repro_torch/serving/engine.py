@@ -1,4 +1,5 @@
-"""ServeEngine: continuous-batching inference over packed FloatSD8 weights.
+"""ServeEngine: continuous-batching inference over packed FloatSD8 or
+FloatSD4 weights.
 
 Counterpart of ``repro.serving.engine.ServeEngine`` without the frontend
 features (prefix cache, preemption, fault injection, tracer). Lifecycle per
@@ -18,8 +19,10 @@ retire. All B lanes advance in one batched step per iteration:
   * a lane whose logits are not all finite is retired as ``numeric_error``
     instead of sampling from NaN.
 
-The weights are packed to 1-byte codes at construction. On the card every
-gate matmul, the tied head and the cell run the hand-written kernels;
+The weights are packed at construction, to 1-byte FloatSD8 codes or (with
+``weight_format="floatsd4"``) to nibble-packed FloatSD4 codes and group
+exponents. On the card every gate matmul, the tied head and the cell run
+the hand-written kernels;
 ``backend="ref"`` runs the plain versions instead (the cross-check).
 """
 from __future__ import annotations
@@ -35,7 +38,7 @@ from ..kernels import dispatch as kd
 from .metrics import ServeMetrics
 from .scheduler import Request, Scheduler
 from .state_pool import StatePool, masked_reset
-from .weight_store import WeightStore
+from .weight_store import WEIGHT_FORMATS, WeightStore
 
 __all__ = ["ServeEngine", "Lane"]
 
@@ -61,9 +64,14 @@ class ServeEngine:
     ``step_once``, ``run`` and ``cancel``."""
 
     def __init__(self, model, params, policy, lanes: int = 8, chunk: int = 8,
-                 admission: str = "fifo", backend: str | None = None):
+                 admission: str = "fifo", backend: str | None = None,
+                 weight_format: str = "floatsd8"):
         if chunk < 1:
             raise ValueError("chunk must be >= 1")
+        if weight_format not in WEIGHT_FORMATS:
+            raise ValueError(
+                f"weight_format must be one of {WEIGHT_FORMATS}, got {weight_format!r}"
+            )
         if policy.weight_quant != "floatsd8":
             raise ValueError(
                 f"the engine serves packed FloatSD8 weights, but policy {policy.name!r} "
@@ -78,14 +86,15 @@ class ServeEngine:
         self.backend = backend
         self.scheduler = Scheduler(admission)
         self.metrics = ServeMetrics(lanes)
-        # decode(encode(w)) == quantize(w), so serving the codes with the
-        # weight quantizer dropped computes the trained function
-        self.store = WeightStore.pack(params)
+        # decode(encode(w)) == quantize(w), so serving FloatSD8 codes with the
+        # weight quantizer dropped computes the trained function; FloatSD4
+        # re-quantizes those values (a footprint for accuracy trade)
+        self.store = WeightStore.pack(params, fmt=weight_format)
         self.serve_params = self.store.tree
         self.serve_policy = policy.replace(weight_quant="none")
         self.device = next(
-            x.codes.device for x in tree_leaves(self.serve_params, is_leaf=kd.is_packed)
-            if kd.is_packed(x)
+            x.codes.device for x in tree_leaves(self.serve_params, is_leaf=kd.is_any_packed)
+            if kd.is_any_packed(x)
         )
         self.pool = StatePool.for_model(model, lanes, policy, self.device)
         self._lanes: list[Lane | None] = [None] * lanes

@@ -15,13 +15,18 @@ inf and NaN where the plain version has them; lstm_cell and lstm_cell_grad
 bit for bit (the kernels round exactly where the plain versions round);
 fused layer gradients, kernels against the plain versions, within rtol
 2e-3, atol 1e-5 (the JAX package's kernel-vs-reference bound); two
-identical train steps bit for bit.
+identical train steps bit for bit; floatsd4_matmul bit for bit on FP8
+activations (every product exact) and within the matmul bound on f32 ones;
+the quantize kernel byte for byte against ``core.floatsd.encode``; the
+qsigmoid kernel bit for bit on f32.
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import floatsd  # noqa: E402
+from repro_torch.core import floatsd, floatsd4  # noqa: E402
+from repro_torch.core.fp8 import quantize_fp8  # noqa: E402
+from repro_torch.core.qsigmoid import qsigmoid_raw  # noqa: E402
 from repro_torch.kernels import dispatch as kd  # noqa: E402
 from repro_torch._tree import tree_leaves  # noqa: E402
 from repro_torch.core.policy import get_policy  # noqa: E402
@@ -30,7 +35,11 @@ from repro_torch.kernels.floatsd_matmul.ops import floatsd_matmul, matmul_dw, ma
 from repro_torch.kernels.floatsd_matmul.ref import (  # noqa: E402
     floatsd_matmul_ref, matmul_dw_ref, matmul_dx_ref,
 )
+from repro_torch.kernels.floatsd4_matmul.ops import floatsd4_matmul  # noqa: E402
+from repro_torch.kernels.floatsd4_matmul.ref import floatsd4_matmul_ref  # noqa: E402
+from repro_torch.kernels.floatsd_quantize.ops import floatsd_quantize  # noqa: E402
 from repro_torch.kernels.lstm_cell.ops import lstm_cell, lstm_cell_grad  # noqa: E402
+from repro_torch.kernels.qsigmoid.ops import qsigmoid  # noqa: E402
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_bwd_ref, lstm_cell_ref  # noqa: E402
 from repro_torch.models import WikiText2LM  # noqa: E402
 from repro_torch.nn.lstm import LSTMLayer  # noqa: E402
@@ -238,3 +247,133 @@ def test_train_step_is_deterministic_on_card(dev):
     (l1, s1), (l2, s2) = run(), run()
     assert l1 == l2
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(s1.params), tree_leaves(s2.params)))
+
+
+# ---------------------------------------------------------------------------
+# the FloatSD4 matmul, the quantize kernel and the qsigmoid kernel
+# ---------------------------------------------------------------------------
+
+# (M, rows of the packed axis, the other axis): gate [M, K] @ [K, N] or, when
+# transposed, head [M, K] @ table[N, K]^T; odd and K % 32 != 0 included
+MATMUL4_SHAPES = [(5, 999, 300), (3, 100, 130), (1, 33, 7), (8, 1024, 4096), (64, 1024, 1000)]
+
+
+def _packed4(dev, rows, cols, seed):
+    w = torch.randn((rows, cols), device=dev, generator=_gen(dev, seed)) * 0.05
+    codes, exps = floatsd4.encode(w)
+    return floatsd4.pack_nibbles(codes), exps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,rows,cols", MATMUL4_SHAPES)
+@pytest.mark.parametrize("transposed", [False, True])
+def test_floatsd4_matmul_kernel_matches_plain(dev, m, rows, cols, transposed):
+    codes, exps = _packed4(dev, rows, cols, m + rows + cols)
+    k = cols if transposed else rows
+    x = torch.randn((m, k), device=dev, generator=_gen(dev, k))
+    n0 = floatsd4_matmul.launches
+    xq = quantize_fp8(x)  # FP8 activations: exact products, so bit for bit
+    assert torch.equal(floatsd4_matmul(xq, codes, exps, rows, transposed=transposed),
+                       floatsd4_matmul_ref(xq, codes, exps, rows, transposed=transposed))
+    got = floatsd4_matmul(x, codes, exps, rows, transposed=transposed)
+    want = floatsd4_matmul_ref(x, codes, exps, rows, transposed=transposed)
+    w = floatsd4.decode_packed(codes, exps, rows).double().abs()
+    bound = 1e-5 * (x.double().abs() @ (w.t() if transposed else w))
+    torch.cuda.synchronize()
+    assert floatsd4_matmul.launches == n0 + 2
+    assert bool(((got.double() - want.double()).abs() <= bound + 1e-30).all())
+
+
+@pytest.mark.cuda
+def test_floatsd4_matmul_keeps_subnormal_weights(dev):
+    """Exponent -126: the codes of |mantissa| < 1 decode to f32 subnormals,
+    which the kernel keeps (no flush to zero), as the plain version does."""
+    codes = torch.arange(32, device=dev, dtype=torch.uint8).reshape(16, 2) % 16
+    codes = floatsd4.pack_nibbles(torch.cat([codes, codes]))
+    exps = torch.full((1, 2), -126, dtype=torch.int8, device=dev)
+    x = torch.eye(32, device=dev)
+    got = floatsd4_matmul(x, codes, exps, 32)
+    assert torch.equal(got, floatsd4_matmul_ref(x, codes, exps, 32))
+    assert int(((got != 0) & (got.abs() < torch.finfo(torch.float32).tiny)).sum()) == 16
+
+
+def _quantize_edge_values(dev, bias, dtype):
+    grid = torch.as_tensor(floatsd._GRID_POS, dtype=torch.float32, device=dev)
+    mids = torch.as_tensor(floatsd._GRID_MID, dtype=torch.float32, device=dev)
+    v = torch.cat([grid, mids, torch.nextafter(mids, torch.full_like(mids, 1e9)),
+                   torch.tensor([600.0, 1e4], device=dev)])
+    v = torch.cat([torch.tensor([0.0, -0.0], device=dev), v, -v])
+    x = (v * 2.0 ** max(-126, min(120, bias))).to(dtype)
+    return x[torch.isfinite(x)]  # no code for inf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [-126, -7, 0, 127, None])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_quantize_kernel_matches_encode_bytewise(dev, bias, dtype):
+    """±0, grid values, midpoints (ties) and their neighbours, values above
+    the top, at both extreme biases, plus a random tensor at its fitted
+    bias; f32 and fp16 input."""
+    g = _gen(dev, 17)
+    xs = [(torch.randn((1000, 33), device=dev, generator=g) * 0.3).to(dtype)]
+    if bias is not None:
+        xs.append(_quantize_edge_values(dev, bias, dtype))
+    n0 = floatsd_quantize.launches
+    for x in xs:
+        b = floatsd.fit_bias(x) if bias is None else bias
+        got = floatsd_quantize(x, b)
+        want = floatsd.encode(x, b)[0]
+        torch.cuda.synchronize()
+        assert got.dtype == torch.uint8 and got.shape == x.shape
+        assert torch.equal(got, want)
+    assert floatsd_quantize.launches == n0 + len(xs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 4096), (1_000_003,), (7, 33)])
+def test_qsigmoid_kernel_matches_plain_bitwise_on_f32(dev, shape):
+    x = torch.randn(shape, device=dev, generator=_gen(dev, 23)) * 4
+    x.view(-1)[:6] = torch.tensor([0.0, -0.0, 88.0, -88.0, 1e-30, -1e-30], device=dev)
+    n0 = qsigmoid.launches
+    got = qsigmoid(x)
+    torch.cuda.synchronize()
+    assert qsigmoid.launches == n0 + 1 and got.dtype == torch.float32
+    assert torch.equal(got, qsigmoid_raw(x))
+
+
+@pytest.mark.cuda
+def test_new_kernels_raise_on_what_they_cannot_take(dev):
+    """A wrong shape, dtype or bias raises; nothing falls back to the plain
+    version on the card."""
+    codes, exps = _packed4(dev, 64, 32, 1)
+    x = torch.randn((4, 64), device=dev)
+    n0 = (floatsd4_matmul.launches, floatsd_quantize.launches, qsigmoid.launches)
+    with pytest.raises(ValueError):
+        floatsd4_matmul(x, codes, exps, 63)  # rows disagree with x's K
+    with pytest.raises(ValueError):
+        floatsd4_matmul(x, codes[:-1].contiguous(), exps, 64)  # codes short of ceil(K/2) rows
+    with pytest.raises(ValueError):
+        floatsd4_matmul(x, codes, exps, 64, transposed=True)  # table [64, 32] has K = 32
+    with pytest.raises(ValueError):
+        floatsd_quantize(x, torch.zeros((), dtype=torch.int64, device=dev))
+    with pytest.raises(ValueError):
+        qsigmoid(x.double())
+    assert (floatsd4_matmul.launches, floatsd_quantize.launches, qsigmoid.launches) == n0
+
+
+@pytest.mark.cuda
+def test_dispatch_routes_new_entry_points_to_the_kernels(dev):
+    kd.STATS.reset()
+    codes, exps = _packed4(dev, 64, 32, 2)
+    w4 = kd.PackedTensor4(codes, exps, 64)
+    x = torch.randn((4, 64), device=dev)
+    assert kd.hoist_packed(w4) is w4  # the codes stay packed on the card
+    kd.packed_einsum("bd,dk->bk", x, w4)
+    kd.packed_einsum("...d,vd->...v", torch.randn((4, 32), device=dev), w4)
+    codes8, bias = kd.quantize(x)
+    kd.qsigmoid(x)
+    torch.cuda.synchronize()
+    assert kd.STATS.count("floatsd4_matmul", "cuda") == 2
+    assert kd.STATS.count("floatsd_quantize", "cuda") == kd.STATS.count("qsigmoid", "cuda") == 1
+    assert kd.STATS.count(backend="ref") == 0
+    assert bias.device.type == "cuda" and torch.equal(codes8, floatsd.encode(x)[0])

@@ -52,3 +52,16 @@ def test_no_port_source_imports_jax_or_repro():
     assert len(sources) > 30
     bad = {str(p.relative_to(ROOT)): _imported(p) & set(BLOCKED) for p in sources}
     assert not {k: v for k, v in bad.items() if v}
+
+
+def test_walk_reaches_the_floatsd4_and_elementwise_kernel_modules():
+    """The blocked import above walks these modules too (the FloatSD4
+    serving path and the quantize / qsigmoid entry points)."""
+    import pkgutil
+
+    import repro_torch
+
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
+    for kernel in ("floatsd4_matmul", "floatsd_quantize", "qsigmoid"):
+        assert {f"repro_torch.kernels.{kernel}.ops", f"repro_torch.kernels.{kernel}.ref"} <= names
+    assert "repro_torch.core.floatsd4" in names

@@ -252,3 +252,124 @@ def test_plain_matmul_sums_in_kernel_order():
     np.testing.assert_array_equal(gotq, wantq)
     assert tkd.ZERO_CODE == jkd.ZERO_CODE
     assert float(tfsd.decode(torch.tensor([tkd.ZERO_CODE], dtype=torch.uint8), 37)) == 0.0
+
+# ---------------------------------------------------------------------------
+# the element-wise entry points: dispatch.quantize and dispatch.qsigmoid
+# ---------------------------------------------------------------------------
+
+ELEMWISE_SHAPES = [(8, 256), (7, 33), (1000,), (2, 3, 7), (64, 512)]
+
+
+def _elem(shape, scale, seed=0):
+    rng = np.random.default_rng(seed + int(np.prod(shape)))
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape", ELEMWISE_SHAPES)
+def test_quantize_entry_point_matches_jax(shape):
+    x = _elem(shape, 0.7)
+    tkd.STATS.reset()
+    codes, bias = tkd.quantize(torch.from_numpy(x))
+    want_codes, want_bias = jkd.quantize(jnp.asarray(x), backend="ref")
+    assert codes.shape == x.shape and codes.dtype == torch.uint8
+    assert bias.dtype == torch.int32 and int(bias) == int(want_bias)
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(want_codes))
+    assert tkd.STATS.last["floatsd_quantize"] == tkd.Decision("floatsd_quantize", "ref", "cpu tensor")
+    assert tkd.STATS.count(backend="cuda") == 0
+
+
+@pytest.mark.parametrize("bias", [-126, -7, 0, 127])
+def test_quantize_entry_point_edge_values_match_jax(bias):
+    """±0, every grid value and midpoint (ties), values above the top, at
+    an explicit bias: the returned bias is the one given, the codes use it
+    clamped to [-126, 120], as in the JAX package. At bias 127 the values
+    whose scaled copy overflows f32 are left out (no code for inf). f32
+    subnormals (at -126 the small values, at 0 the one after 0.0) XLA on
+    the CPU reads as 0 (the zero code, 15) and the port keeps:
+    there the port's code is its code of the same value scaled up by
+    2^126 at bias 0 (exact)."""
+    grid = np.concatenate([tfsd._GRID_POS, tfsd._GRID_MID]).astype(np.float32)
+    scale = np.float32(2.0 ** np.clip(bias, -126, 120))
+    v = np.concatenate([grid, np.nextafter(grid, np.float32(np.inf)), [600.0, 1e4]]).astype(np.float32)
+    v = np.concatenate([[0.0, -0.0], v, -v]).astype(np.float32)
+    with np.errstate(over="ignore"):
+        x = v * scale
+    x = x[np.isfinite(x)]
+    codes, got_bias = tkd.quantize(torch.from_numpy(x), bias)
+    want_codes, want_bias = jkd.quantize(jnp.asarray(x), jnp.int32(bias), backend="ref")
+    assert int(got_bias) == int(want_bias) == bias
+    got, want = codes.numpy(), np.asarray(want_codes)
+    sub = (x != 0) & (np.abs(x) < np.finfo(np.float32).tiny)
+    assert bias != -126 or sub.sum() > 20
+    assert np.all(want[sub] == 15)
+    np.testing.assert_array_equal(got[sub], tfsd.encode(torch.from_numpy(x[sub] * np.float32(2.0**126)), 0)[0].numpy())
+    np.testing.assert_array_equal(got[~sub], want[~sub])
+
+
+@pytest.mark.parametrize("shape", ELEMWISE_SHAPES)
+def test_qsigmoid_entry_point_matches_jax(shape):
+    x = _elem(shape, 2.0)
+    tkd.STATS.reset()
+    got = tkd.qsigmoid(torch.from_numpy(x))
+    want = jkd.qsigmoid(jnp.asarray(x), backend="ref")
+    assert got.shape == x.shape and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert tkd.STATS.last["qsigmoid"] == tkd.Decision("qsigmoid", "ref", "cpu tensor")
+
+
+def test_new_wrappers_take_plain_version_on_cpu_and_count_no_launch():
+    from repro_torch.core.floatsd4 import encode as enc4, pack_nibbles
+    from repro_torch.kernels.floatsd4_matmul.ops import floatsd4_matmul
+    from repro_torch.kernels.floatsd4_matmul.ref import floatsd4_matmul_ref
+    from repro_torch.kernels.floatsd_quantize.ops import floatsd_quantize
+    from repro_torch.kernels.qsigmoid.ops import qsigmoid
+
+    before = (floatsd4_matmul.launches, floatsd_quantize.launches, qsigmoid.launches)
+    x = torch.from_numpy(_elem((5, 99), 1.0))
+    c4, e4 = enc4(torch.from_numpy(_elem((99, 40), 0.05)))
+    p4 = pack_nibbles(c4)
+    assert torch.equal(floatsd4_matmul(x, p4, e4, 99), floatsd4_matmul_ref(x, p4, e4, 99))
+    assert torch.equal(floatsd_quantize(x, -3), tfsd.encode(x, -3)[0])
+    assert torch.equal(qsigmoid(x), tqs.qsigmoid_raw(x))
+    assert (floatsd4_matmul.launches, floatsd_quantize.launches, qsigmoid.launches) == before
+
+
+def _c_ints(src: str, name: str) -> np.ndarray:
+    body = re.search(rf"{name}\[\d+\]\s*=\s*\{{(.*?)\}};", src, re.S).group(1)
+    return np.array([int(v) for v in re.findall(r"\d+", body)])
+
+
+def test_new_cuda_source_tables_match_the_port():
+    from repro_torch.core import floatsd4 as tfsd4
+
+    src4 = (KERNELS_DIR / "floatsd4_matmul" / "floatsd4_matmul.cu").read_text()
+    np.testing.assert_array_equal(_c_array(src4, "kLut16"), tfsd4.LUT16)
+    q = (KERNELS_DIR / "floatsd_quantize" / "floatsd_quantize.cu").read_text()
+    np.testing.assert_array_equal(_c_array(q, "kMid"), tfsd._GRID_MID.astype(np.float32))
+    np.testing.assert_array_equal(_c_ints(q, "kCode"), (tfsd._GRID_E << 5) | tfsd._GRID_MIDX)
+    assert f"kTop = {tfsd._GRID_POS[-1]:.1f}f" in q
+
+
+def test_build_hash_follows_included_headers(tmp_path, monkeypatch):
+    """qsigmoid.cu includes the cell's header from another directory, and
+    both matmul kernels include the shared tile loop: each header is among
+    its includers' sources, and an edit to it changes the library name of
+    every kernel that includes it, and of no other."""
+    common = KERNELS_DIR / "lstm_cell" / "lstm_cell_common.cuh"
+    tiles = KERNELS_DIR / "decode_gemm.cuh"
+    assert common in _build._sources("qsigmoid") and common in _build._sources("lstm_cell_bwd")
+    assert _build._sources("floatsd4_matmul") == [KERNELS_DIR / "floatsd4_matmul" / "floatsd4_matmul.cu", tiles]
+    assert tiles in _build._sources("floatsd_matmul") and tiles not in _build._sources("floatsd_matmul_dw")
+    assert "--fmad=false" in _build._target("qsigmoid")[1]
+    import shutil
+
+    copy = tmp_path / "kernels"
+    shutil.copytree(KERNELS_DIR, copy, ignore=shutil.ignore_patterns("*.py", "__pycache__"))
+    monkeypatch.setattr(_build, "_KERNELS_DIR", copy)
+    for header, includers in [("lstm_cell/lstm_cell_common.cuh", {"lstm_cell", "lstm_cell_bwd", "qsigmoid"}),
+                              ("decode_gemm.cuh", {"floatsd_matmul", "floatsd4_matmul"})]:
+        before = {op: _build._target(op)[0].name for op in _build.KERNELS}
+        path = copy / header
+        path.write_text(path.read_text() + "\n// edited\n")
+        changed = {op for op in _build.KERNELS if _build._target(op)[0].name != before[op]}
+        assert changed == includers, header
