@@ -13,10 +13,13 @@ Phases, in order; the first failure exits non-zero:
   2. build      builds every hand-written kernel from the checkout's
                 sources (one nvcc per source, started together).
   3. kernels    each kernel against its plain PyTorch version on the card,
-                at the serving, training and entry paths' shapes: error,
-                mismatches, median time beside the plain version, the
-                library call and the bound (bytes or operations over the
-                card's peak rates).
+                at the serving, training, entry and zoo paths' shapes:
+                error, mismatches, median time beside the plain version,
+                the library call and the bound (bytes or operations over
+                the card's peak rates). rwkv_wkv at the zoo's full-width
+                prefill shape in three decay regimes and at a ragged S,
+                two launches bit-identical; floatsd_matmul at the zoo's
+                weight sites and head.
   4. main path  the full-width WikiText-2 FloatSD8 LM (vocab 33278 padded
                 to 33280, 1024 wide, 2 layers, tied embeddings, seeded
                 random weights) packed to 1-byte codes and served by
@@ -60,6 +63,26 @@ Phases, in order; the first failure exits non-zero:
                 bias; dispatch.qsigmoid on a [64,4096] gate block (layer 0's
                 first-step pre-activations of 64 sequences), bit-identical
                 to the plain version; both on their kernels.
+ 10. zoo        the model zoo's RWKV-6 (rwkv6_3b at its published width:
+                32 layers, d_model 2560, 40 heads of 64, d_ff 8960, vocab
+                65536, tied, layernorm) from seed 0, packed to FloatSD8
+                (2,905,722,960 resident bytes, asserted) with the f32 tree
+                freed: CausalLM.prefill on 2 x 1024 synthetic tokens (every
+                weight site and the head on floatsd_matmul, every receptance
+                gate on qsigmoid, one rwkv_wkv a layer, none on the plain
+                path; finite logits); sequence 0's first 64 tokens through
+                decode_step one at a time, against the prefill's logits
+                (held within the stated tolerance with no activation
+                quantizer, the same codes; reported under the served
+                policy); ServeEngine with 8 lanes and 8 requests (lockstep
+                one-token steps), 16 new tokens each. Counters are zeroed
+                before and read after each of the three.
+ 11. zoo-x      the same path at full width and 2 layers on the kernels
+                against backend="ref" on the card: prefill logits within the
+                stated tolerance with no activation quantizer (the served
+                policy's gap reported: FP8 flips cascade through the state),
+                greedy tokens of the engine equal over the plain path's
+                margin-decisive prefix.
 
 The second-to-last line is nvidia-smi's name/power-limit line, the line
 before it the kernels' JSON record, and the last line the result JSON.
@@ -401,7 +424,7 @@ def kernel_phase4(torch, dev, flush):
 
     print("kernels: qsigmoid vs core.qsigmoid.qsigmoid_raw (bit for bit on f32; bf16 counted)")
     qsig = {}
-    for shape in [(64, 4096), (1_000_003,)]:
+    for shape in [(64, 4096), (1_000_003,), (2, 1024, 2560)]:  # the last: a zoo prefill gate
         x = torch.randn(shape, device=dev, generator=g) * 4
         y, y_ref = qsigmoid(x), qsigmoid_raw(x)
         torch.cuda.synchronize()
@@ -736,7 +759,415 @@ def entry_phase(torch, params, batch):
     return dict(launches=launches)
 
 
+# the zoo: rwkv6_3b at its published width (32 layers, d_model 2560, 40 heads
+# of 64, d_ff 8960, vocab 65536, tied, layernorm), served in FloatSD8
+ZOO_B, ZOO_S = 2, 1024  # prefill: 2 sequences of 1024 synthetic tokens
+ZOO_DECODE = 64  # tokens of sequence 0 fed one at a time through decode_step
+ZOO_LANES, ZOO_MAX_NEW = 8, 16
+ZOO_BYTES = 2_905_722_960  # tree_nbytes of the packed store: 20 stacked leaves + the dense final norm
+ZOO_SITES = 8  # weight sites a layer: wr, wk, wv, wg, wo of the time mix, wk, wv, wr of the channel mix
+ZOO_X_LAYERS = 2  # the plain-version cross-check's depth (its floatsd_matmul is ~1.3 ms per M weights)
+# prefill against decode (the chunked kernel against the per-token
+# recurrence) through all 32 layers: |err| <= ZOO_TOL * max(1, max |logit|)
+# with no activation quantizer (policy fp32 on the same codes; measured
+# 1e-4). Under floatsd8_table6 a 1-ulp difference that flips an FP8
+# activation moves every later position through 32 layers (up to 28% of the
+# scale, measured, between two evaluations that share the plain wkv too), so
+# that gap is reported, not bounded.
+ZOO_TOL = 2e-4
+# kernels against the plain versions at ZOO_X_LAYERS layers, prefill logits
+# with no activation quantizer (measured 3.1e-6 of the scale); the served
+# policy's gap is reported, as above
+ZOO_X_TOL = 1e-5
+WKV_TOL = 2e-4  # rtol and atol, the JAX package's chunked-vs-recurrence bound; or, where a value
+WKV_TERMS_TOL = 1e-5  # cancels far below its terms, this share of the sum of the terms' magnitudes
+WKV_L = 16
+
+
+def wkv_ops(b, s, h, k, v) -> float:
+    """Operations of the chunked form: per (sequence, head, chunk of 16)
+    the MACs of y's inter-chunk term and of the state update (2 L K V), of
+    the tile and of A v (L L (K + V)), counted 2 each, plus the exps (the
+    [L, L, K] pairwise decay, the decayed r and k, e^{b_last}) and the logs."""
+    chunks = b * h * -(-s // WKV_L)
+    macs = 2 * WKV_L * k * v + WKV_L * WKV_L * (k + v)
+    exps = WKV_L * WKV_L * k + 2 * WKV_L * k + k
+    return float(chunks * (2 * macs + exps + WKV_L * k))
+
+
+def wkv_phase(torch, dev, flush):
+    """Phase 3, continued: the chunked rwkv_wkv kernel against its plain
+    version (the per-token recurrence) at the full-width prefill shape
+    (three decay regimes) and a ragged S; two launches bit-identical."""
+    from repro_torch.kernels.rwkv_wkv.ops import rwkv_wkv
+    from repro_torch.kernels.rwkv_wkv.ref import wkv_ref
+
+    def rejected(got, want, terms):
+        """Elements of (y, final state) beyond both rules of the bound."""
+        d = [(a - e).abs() for a, e in zip(got, want)]
+        return sum(int(((x > WKV_TOL + WKV_TOL * e.abs()) & (x > WKV_TERMS_TOL * t)).sum())
+                   for x, e, t in zip(d, want, terms))
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    rows, caught = {}, {}
+    print(f"kernels: rwkv_wkv vs the per-token recurrence (rtol = atol = {WKV_TOL}, or {WKV_TERMS_TOL} of the "
+          f"sum of the terms' magnitudes where a value cancels far below them; outputs and final states)")
+    for s, w0 in [(ZOO_S, -6.0), (ZOO_S, -2.0), (ZOO_S, 1.0), (1000, -2.0)]:
+        b, h, k = ZOO_B, 40, 64
+        r, kk, vv = (torch.randn((b, s, h, k), device=dev, generator=g) for _ in range(3))
+        w = torch.exp(-torch.exp(torch.randn((b, s, h, k), device=dev, generator=g) * 0.3 + w0))
+        u = torch.randn((h, k), device=dev, generator=g) * 0.1
+        y, s_fin = rwkv_wkv(r, kk, vv, w, u)
+        y_r, s_r = wkv_ref(r, kk, vv, w, u)
+        y_t, s_t = wkv_ref(r.abs(), kk.abs(), vv.abs(), w, u.abs())  # the sums of the terms' magnitudes
+        y2, s2 = rwkv_wkv(r, kk, vv, w, u)
+        torch.cuda.synchronize()
+        err = max(float((y - y_r).abs().max()), float((s_fin - s_r).abs().max()))
+        n_rel = n_terms = 0
+        for a, e, t in ((y, y_r, y_t), (s_fin, s_r, s_t)):
+            d = (a - e).abs()
+            rel, terms = d <= WKV_TOL + WKV_TOL * e.abs(), d <= WKV_TERMS_TOL * t
+            n_rel += int((~rel).sum())
+            n_terms = max(n_terms, float((d / t.clamp(min=1e-30)).max()))
+            check(bool((rel | terms).all()), f"rwkv_wkv S={s} w0={w0}: max err {err:.3e} beyond rtol = atol = "
+                                             f"{WKV_TOL} and beyond {WKV_TERMS_TOL} of the terms")
+        check(torch.equal(y, y2) and torch.equal(s_fin, s2), f"rwkv_wkv S={s} w0={w0}: two launches differ")
+        # negative control: the recurrence with the bonus u dropped, held to
+        # the same bound, must be rejected in every regime (the terms' rule
+        # is loosest where w0 = -6 keeps the state large)
+        caught[(s, w0)] = rejected(wkv_ref(r, kk, vv, w, torch.zeros_like(u)), (y_r, s_r), (y_t, s_t))
+        t = timed_ms(torch, lambda: rwkv_wkv(r, kk, vv, w, u), 20, flush)
+        t_plain = timed_ms(torch, lambda: wkv_ref(r, kk, vv, w, u), 3, flush)
+        nbytes = 4.0 * (b * s * h * (3 * k + k) + h * k + b * s * h * k + b * h * k * k)
+        bd = bound(nbytes, wkv_ops(b, s, h, k, k))
+        rows[(s, w0)] = dict(ms=t, plain_ms=t_plain, library_ms=None, err=err, **bd)
+        print(f"  [B {b}, S {s}, H {h}, K = V = {k}] w0 {w0}: max_abs_err {err:.3e} (|y| max "
+              f"{float(y_r.abs().max()):.3e}); {n_rel} of {y.numel() + s_fin.numel()} beyond rtol = atol = "
+              f"{WKV_TOL}, the worst {n_terms:.2e} of its terms' magnitudes; two launches bit-identical | kernel {t:.4f} ms, plain "
+              f"{t_plain:.3f} ms, {fmt_bound(bd)}; library call: none (no one PyTorch call computes wkv); "
+              f"with u dropped {caught[(s, w0)]} beyond the bound")
+    check(all(n > 0 for n in caught.values()),
+          f"rwkv_wkv: the bound does not reject the recurrence without u in every regime: {caught}")
+    return rows
+
+
+def zoo_matmul_phase(torch, dev, flush):
+    """floatsd_matmul at the zoo's shapes: its prefill (M = B S = 2048) and
+    its decode step at 8 lanes, every weight site and the tied head."""
+    from repro_torch.core import floatsd
+    from repro_torch.core.fp8 import FP16, quantize_fp8
+    from repro_torch.kernels.floatsd_matmul.ops import floatsd_matmul
+    from repro_torch.kernels.floatsd_matmul.ref import floatsd_matmul_ref, no_tf32
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    rows = {}
+    print("kernels: floatsd_matmul at the zoo's shapes (tolerance |err| <= 1e-5 * (|x| @ |W|))")
+    for site, k, n, tr in [("dd", 2560, 2560, False), ("cmix-k", 2560, 8960, False),
+                           ("cmix-v", 8960, 2560, False), ("head", 2560, 65536, True)]:
+        w = torch.randn((n, k) if tr else (k, n), device=dev, generator=g) * (0.02 if tr else k ** -0.5)
+        codes, bias = floatsd.encode(w)
+        bias = int(bias)
+        wd = floatsd.decode(codes, bias)
+        wk = wd.t() if tr else wd
+        for m in (ZOO_B * ZOO_S, ZOO_LANES):
+            x = torch.randn((m, k), device=dev, generator=g)
+            x = quantize_fp8(x, FP16) if tr else quantize_fp8(x)
+            y = floatsd_matmul(x, codes, bias, transposed=tr)
+            y_ref = floatsd_matmul_ref(x, codes, bias, transposed=tr)
+            torch.cuda.synchronize()
+            err = (y.double() - y_ref.double()).abs()
+            check(bool((err <= 1e-5 * (x.double().abs() @ wk.double().abs()) + 1e-30).all()),
+                  f"floatsd_matmul zoo {site} {m}x{k}x{n} exceeds 1e-5")
+            mism = int((y != y_ref).sum())
+            with no_tf32():
+                t = timed_ms(torch, lambda: floatsd_matmul(x, codes, bias, transposed=tr), 10, flush)
+                t_plain = timed_ms(torch, lambda: floatsd_matmul_ref(x, codes, bias, transposed=tr), 1, flush)
+                t_lib = timed_ms(torch, lambda: torch.matmul(x, wk), 10, flush)
+            bd = bound(x.numel() * 4 + codes.numel() + 4 + m * n * 4, 2.0 * m * n * k, matmul_peak(x, wd))
+            rows[(site, m)] = dict(ms=t, plain_ms=t_plain, library_ms=t_lib, err=float(err.max()), **bd)
+            print(f"  {site:6s} [{m},{k}] x {'[N,K]^T' if tr else '[K,N]'} N={n}: max_abs_err "
+                  f"{float(err.max()):.3e}, {mism} of {m * n} not bit-identical | kernel {t:.4f} ms, plain "
+                  f"{t_plain:.3f} ms, torch.matmul {t_lib:.4f} ms, {fmt_bound(bd)}", flush=True)
+        del codes, wd, wk, w
+    return rows
+
+
+def torch_ops(torch, fn) -> int:
+    """The ATen operations that ``fn()`` dispatches: the host's work, which
+    sets a host-bound step (each costs microseconds of host time)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def zoo_decode(torch, model, tree, toks, policy):
+    """Sequence 0's first ZOO_DECODE tokens through decode_step one at a
+    time: (logits [ZOO_DECODE, vocab], wall time of each step)."""
+    out, times = [], []
+    with torch.no_grad():
+        cache = model.init_cache(1, policy, toks.device)
+        for t in range(ZOO_DECODE):
+            t0 = time.perf_counter()
+            lg, cache = model.decode_step(tree, toks[:1, t:t + 1], cache, policy)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            out.append(lg[0, 0])
+    return torch.stack(out), times
+
+
+def positions_gap(torch, got, want) -> dict:
+    """Per-position gaps of [positions, vocab] logits, over scale = max(1,
+    max |want|): the largest, the last position's, the first position
+    beyond ZOO_TOL, and the positions whose argmax agrees."""
+    scale = max(1.0, float(want.abs().max()))
+    per = (got.float() - want.float()).abs().amax(dim=-1) / scale
+    beyond = (per > ZOO_TOL).nonzero()
+    return {"scale": scale, "max": float(per.max()), "last": float(per[-1]),
+            "first": int(beyond[0]) if beyond.numel() else got.shape[0],
+            "argmax": int((got.argmax(-1) == want.argmax(-1)).sum())}
+
+
+def zoo_counters(reset: bool = False) -> dict:
+    """Launch counts of the zoo path's kernels (zeroed when ``reset``)."""
+    from repro_torch.kernels.floatsd_matmul.ops import floatsd_matmul
+    from repro_torch.kernels.qsigmoid.ops import qsigmoid
+    from repro_torch.kernels.rwkv_wkv.ops import rwkv_wkv
+
+    wrappers = {"floatsd_matmul": floatsd_matmul, "qsigmoid": qsigmoid, "rwkv_wkv": rwkv_wkv}
+    if reset:
+        for w in wrappers.values():
+            w.launches = 0
+    return {op: w.launches for op, w in wrappers.items()}
+
+
+def zoo_build(torch, dev, n_layers=None):
+    """rwkv6_3b (or its first ``n_layers``) from seed 0, packed to FloatSD8;
+    the f32 tree is freed before anything is served."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.serving import WeightStore
+
+    cfg = get_config("rwkv6_3b")
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    model = build(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    store = WeightStore.pack(params)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return cfg, model, store, time.perf_counter() - t0
+
+
+def zoo_serve(torch, model, tree, policy, prompts, backend=None):
+    """ServeEngine over the packed store: lanes in lockstep, one token a
+    step; returns (engine, requests by rid, decode-step wall times)."""
+    from repro_torch.serving import ServeEngine
+
+    eng = ServeEngine(model, tree, policy, lanes=ZOO_LANES, backend=backend)
+    reqs = eng.submit_all([p.copy() for p in prompts], max_new=ZOO_MAX_NEW)
+    times = []
+    eng.metrics.start()
+    while True:
+        t0 = time.perf_counter()
+        if not eng.step_once():  # ends in a device->host copy: synchronised
+            break
+        times.append(time.perf_counter() - t0)
+    eng.metrics.stop()
+    return eng, sorted(reqs, key=lambda r: r.rid), times
+
+
+def zoo_phase(torch, dev, smi):
+    """Phase 10: full-width rwkv6_3b, packed, prefilled, decoded and served."""
+    import numpy as np
+
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import dispatch as kd
+    from repro_torch.serving import synthetic_prompts
+
+    cfg, model, store, t_build = zoo_build(torch, dev)
+    L = cfg.n_layers
+    print(f"zoo: {cfg.name} ({L} layers, d_model {cfg.d_model}, {cfg.d_model // cfg.rwkv_head_dim} heads of "
+          f"{cfg.rwkv_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}) from seed {SEED}: {store.dense_nbytes} B f32 "
+          f"-> {store.packed_nbytes} B packed FloatSD8 ({store.n_packed} stacked leaves) in {t_build:.1f} s", flush=True)
+    check(store.packed_nbytes == ZOO_BYTES and store.n_packed == 20,
+          f"zoo resident bytes {store.packed_nbytes} != {ZOO_BYTES} ({store.n_packed} leaves packed)")
+    pol = get_policy("floatsd8_table6").replace(weight_quant="none")  # the codes are the quantized weights
+    tree = model.hoist(store.tree)  # the small stacked leaves decoded once, as the engine does
+    rng = np.random.default_rng(SEED)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (ZOO_B, ZOO_S)), device=dev)
+    n_sites = ZOO_SITES * L + 1
+    out = {}
+
+    # prefill: counters zeroed just before, read just after
+    kd.STATS.reset()
+    zoo_counters(reset=True)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits = model.prefill(tree, {"tokens": toks}, pol)
+        torch.cuda.synchronize()
+        wall_first = time.perf_counter() - t0
+    launches, stats = zoo_counters(), kd.STATS.snapshot()
+    want = {"floatsd_matmul": n_sites, "qsigmoid": 2 * L, "rwkv_wkv": L}
+    check(launches == want, f"zoo prefill launches {launches} != {want}")
+    check(stats == {(op, "cuda"): n for op, n in want.items()}, f"zoo prefill dispatch records {stats}")
+    check(tuple(logits.shape) == (ZOO_B, ZOO_S, cfg.vocab_padded()) and bool(torch.isfinite(logits).all()),
+          f"zoo prefill logits {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        model.prefill(tree, {"tokens": toks}, pol)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out["prefill"] = dict(launches=launches, wall_s=wall, tok_s=ZOO_B * ZOO_S / wall)
+    print(f"zoo prefill: B {ZOO_B} x S {ZOO_S}: {wall * 1e3:.1f} ms wall ({wall_first * 1e3:.1f} ms the first, "
+          f"with warm-up), {ZOO_B * ZOO_S / wall:.0f} tok/s ({smi}); launches {launches} (per layer "
+          f"{ZOO_SITES} weight sites, 2 receptance gates, 1 wkv; + the head); dispatch "
+          f"{dict((f'{o}/{b}', n) for (o, b), n in stats.items())}; logits finite, |max| "
+          f"{float(logits.abs().max()):.3f}", flush=True)
+
+    # token-by-token decode of sequence 0 against the prefill's logits
+    kd.STATS.reset()
+    zoo_counters(reset=True)
+    dec, times = zoo_decode(torch, model, tree, toks, pol)
+    launches, stats = zoo_counters(), kd.STATS.snapshot()
+    with torch.no_grad():  # one more step, after the counters are read: its host work
+        cache = model.init_cache(1, pol, dev)
+        n_ops = torch_ops(torch, lambda: model.decode_step(tree, toks[:1, :1], cache, pol))
+    want = {"floatsd_matmul": n_sites * ZOO_DECODE, "qsigmoid": 2 * L * ZOO_DECODE, "rwkv_wkv": 0}
+    check(launches == want and sum(n for (_, b), n in stats.items() if b == "ref") == 0,
+          f"zoo decode launches {launches} != {want}; dispatch {stats}")
+    check(bool(torch.isfinite(dec).all()), "zoo decode: nonfinite logits")
+    served = positions_gap(torch, dec, logits[0, :ZOO_DECODE])
+    # the same first tokens prefilled on the plain versions (the plain wkv:
+    # the matmul and qsigmoid kernels equal their plain versions bit for bit
+    # here), against the decode and against the kernels' prefill
+    with torch.no_grad(), kd.use_backend("ref"):
+        plain_pre = model.prefill(tree, {"tokens": toks[:1, :ZOO_DECODE]}, pol)[0]
+    dec_vs_plain = positions_gap(torch, dec, plain_pre)
+    kernel_vs_plain = positions_gap(torch, logits[0, :ZOO_DECODE], plain_pre)
+    # the same codes with no activation quantizer (policy fp32): the chunked
+    # kernel against the per-token recurrence through all 32 layers
+    fp32 = get_policy("fp32")
+    with torch.no_grad():
+        ref32 = model.prefill(tree, {"tokens": toks[:1, :ZOO_DECODE]}, fp32)[0]
+    dec32, _ = zoo_decode(torch, model, tree, toks, fp32)
+    plain = positions_gap(torch, dec32, ref32)
+    check(plain["max"] <= ZOO_TOL, f"zoo decode vs prefill, no activation quantizer: max err {plain['max']:.3e} "
+                                   f"of the scale {plain['scale']:.3f} (bound {ZOO_TOL})")
+    step = statistics.median(times[1:])
+    out["decode"] = dict(launches=launches, step_ms=step * 1e3, tok_s=1 / step, aten_ops=n_ops, served=served,
+                         plain=plain)
+    print(f"zoo decode: {ZOO_DECODE} steps of sequence 0 (B 1): median step {step * 1e3:.2f} ms, {1 / step:.1f} "
+          f"tok/s ({smi}), {n_ops} ATen operations a step; launches {launches}. Against the prefill's logits at positions 0-{ZOO_DECODE - 1}: "
+          f"with no activation quantizer (policy fp32, the same codes) max err {plain['max']:.3e} of the scale "
+          f"{plain['scale']:.3f} (bound {ZOO_TOL}), argmax equal at {plain['argmax']} of {ZOO_DECODE}; under "
+          f"floatsd8_table6 (reported: an FP8 flip of an activation moves everything after it through 32 "
+          f"layers) bit-equal or within {ZOO_TOL} of the scale {served['scale']:.3f} up to position "
+          f"{served['first'] - 1}, then up to {served['max']:.3e} of it (position {ZOO_DECODE - 1}: "
+          f"{served['last']:.3e}), argmax equal at {served['argmax']} of {ZOO_DECODE}. The same under "
+          f"floatsd8_table6 against a prefill of those tokens on the plain versions: decode up to "
+          f"{dec_vs_plain['max']:.3e} of the scale (position {ZOO_DECODE - 1}: {dec_vs_plain['last']:.3e}; "
+          f"within {ZOO_TOL} up to position {dec_vs_plain['first'] - 1}), the kernels' prefill up to "
+          f"{kernel_vs_plain['max']:.3e} (within {ZOO_TOL} up to position {kernel_vs_plain['first'] - 1})",
+          flush=True)
+    out["decode"].update(dec_vs_plain=dec_vs_plain, kernel_vs_plain=kernel_vs_plain)
+    del logits, ref32, dec, dec32, plain_pre
+
+    # ServeEngine: 8 lanes, 8 requests, lockstep one-token steps
+    prompts = synthetic_prompts(ZOO_LANES, cfg.vocab, np.random.default_rng(SEED))
+    kd.STATS.reset()
+    zoo_counters(reset=True)
+    eng, reqs, times = zoo_serve(torch, model, store.tree, get_policy("floatsd8_table6"), prompts)
+    launches, stats = zoo_counters(), kd.STATS.snapshot()
+    m = eng.metrics
+    check(eng.chunk == 1 and eng.store.packed_nbytes == ZOO_BYTES, "zoo engine: chunk or store")
+    check(all(r.status == "done" and len(r.out) == ZOO_MAX_NEW for r in reqs) and m.numeric_errors == 0,
+          f"zoo engine: {[r.status for r in reqs]}, {m.numeric_errors} nonfinite")
+    want = {"floatsd_matmul": n_sites * m.steps, "qsigmoid": 2 * L * m.steps, "rwkv_wkv": 0}
+    check(launches == want and sum(n for (_, b), n in stats.items() if b == "ref") == 0,
+          f"zoo engine launches {launches} != {want}; dispatch {stats}")
+    step = statistics.median(times)
+    rep = m.report()
+    out["engine"] = dict(launches=launches, step_ms=step * 1e3, gen_tok_s=rep["gen_tok_per_s"],
+                         lane_tok_s=ZOO_LANES / step)
+    print(f"zoo engine: {m.format()}; median step {step * 1e3:.2f} ms over {len(times)} steps at "
+          f"{ZOO_LANES} lanes = {ZOO_LANES / step:.1f} tok/s ({smi}); launches {launches}", flush=True)
+    out["launches"] = {op: sum(out[p]["launches"][op] for p in ("prefill", "decode", "engine"))
+                       for op in want}
+    del eng, store, tree
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_x_phase(torch, dev, smi):
+    """Phase 11: the zoo's path at full width and ZOO_X_LAYERS layers on
+    the kernels against backend="ref" (the plain versions) on the card."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import dispatch as kd
+    from repro_torch.serving import synthetic_prompts
+
+    cfg, model, store, _ = zoo_build(torch, dev, ZOO_X_LAYERS)
+    tree = model.hoist(store.tree)
+    toks = torch.as_tensor(np.random.default_rng(SEED).integers(0, cfg.vocab, (ZOO_B, ZOO_S)), device=dev)
+    gaps = {}
+    for name in ("fp32", "floatsd8_table6"):
+        pol = get_policy(name).replace(weight_quant="none")
+        with torch.no_grad():
+            got = model.prefill(tree, {"tokens": toks}, pol)
+            t0 = time.perf_counter()
+            with kd.use_backend("ref"):
+                want = model.prefill(tree, {"tokens": toks}, pol)
+            torch.cuda.synchronize()
+            t_ref = time.perf_counter() - t0
+        gaps[name] = positions_gap(torch, got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1]))
+        gaps[name]["bit_equal"] = float((got == want).float().mean())
+        del got, want
+    g32, g8 = gaps["fp32"], gaps["floatsd8_table6"]
+    check(g32["max"] <= ZOO_X_TOL, f"zoo-x prefill logits, no activation quantizer: max err {g32['max']:.3e} of "
+                                   f"the scale {g32['scale']:.3f} (bound {ZOO_X_TOL})")
+    prompts = synthetic_prompts(ZOO_LANES, cfg.vocab, np.random.default_rng(SEED))
+    pol8 = get_policy("floatsd8_table6")
+    _, reqs, _ = zoo_serve(torch, model, store.tree, pol8, prompts)
+    _, refs, ref_times = zoo_serve(torch, model, store.tree, pol8, prompts, backend="ref")
+    decisive = agree = 0
+    for r, ref in zip(reqs, refs):
+        n = next((i for i, g in enumerate(ref.margins) if g <= MARGIN_FLOOR), ZOO_MAX_NEW)
+        check(r.out[:n] == ref.out[:n], f"zoo-x: request {r.rid}: {r.out} vs plain {ref.out} (decisive {n})")
+        decisive += n
+        agree += r.out == ref.out
+    check(decisive >= ZOO_LANES * ZOO_MAX_NEW // 2, f"zoo-x: only {decisive} decisive tokens")
+    print(f"zoo-x ({ZOO_X_LAYERS} of {get_config('rwkv6_3b').n_layers} layers at full width, kernels vs "
+          f"backend='ref' on the card): prefill logits [{ZOO_B},{ZOO_S}] with no activation quantizer (policy "
+          f"fp32, the same codes) max err {g32['max']:.3e} of the scale {g32['scale']:.3f} (bound {ZOO_X_TOL}), "
+          f"{g32['bit_equal']:.2%} bit-equal; under floatsd8_table6 (reported) max err {g8['max']:.3e} of the "
+          f"scale {g8['scale']:.3f}, {g8['bit_equal']:.2%} bit-equal, every position within {ZOO_TOL} up to "
+          f"{g8['first']} of {ZOO_B * ZOO_S} (flattened), argmax equal at {g8['argmax']}; plain prefill "
+          f"{t_ref:.2f} s; engine ({ZOO_LANES} lanes, {ZOO_MAX_NEW} new tokens, floatsd8_table6): {decisive} of "
+          f"{ZOO_LANES * ZOO_MAX_NEW} tokens margin-decisive (floor {MARGIN_FLOOR}) and equal, {agree} of "
+          f"{ZOO_LANES} streams equal in full; plain decode step {statistics.median(ref_times) * 1e3:.1f} ms",
+          flush=True)
+    del store, tree
+    torch.cuda.empty_cache()
+    return gaps
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -778,6 +1209,8 @@ def main() -> int:
     flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev)  # > 50 MB L2
     mm, cell, dx, dw, cell_bwd = kernel_phase(torch, dev, flush)
     mm4, quant, qsig = kernel_phase4(torch, dev, flush)
+    wkv = wkv_phase(torch, dev, flush)
+    zmm = zoo_matmul_phase(torch, dev, flush)
     del flush
 
     # 4. the main path at full width
@@ -826,14 +1259,22 @@ def main() -> int:
 
     # 7-8. training
     tr = train_phase(torch, smi)
+    tr_launches = tr["launches"]
 
     # 9. the element-wise entry points on the trained masters
     ent = entry_phase(torch, tr["params"], tr["batch"])
+    del tr
+
+    # 10-11. the model zoo: rwkv6_3b at full width, then its kernel-vs-plain cross-check
+    torch.cuda.empty_cache()
+    zoo = zoo_phase(torch, dev, smi)
+    zoo_x_phase(torch, dev, smi)
 
     # result lines: each kernel's time per decode step (serving), per train
     # step, or per entry-point pass, from the kernel phase's per-launch times
     # and the launch counts of each path
     L, S = cfg.n_layers, 48
+    ZL = zoo["prefill"]["launches"]["rwkv_wkv"]  # the zoo's layers
     serve_mm = [(2 * L, mm[("gate", 8)]), (1, mm[("head", 8)])]
     train_mm = [(2 * L * S, mm[("gate", 64)]), (2 * L, mm[("remat", 3072)])]
     entries = [
@@ -862,8 +1303,23 @@ def main() -> int:
          "entry: dispatch.quantize on the 5 trained fp16 masters, [33280,1024] + 4 x [1024,4096]", None, None),
         ("qsigmoid", "qsigmoid/qsigmoid.cu", "qsigmoid/kernel.py:28", qsig.values(),
          [(1, qsig[(64, 4096)])], "entry: dispatch.qsigmoid on a [64,4096] f32 gate block", None, None),
+        ("rwkv_wkv", "rwkv_wkv/rwkv_wkv.cu", "rwkv_wkv/kernel.py:27", wkv.values(),
+         [(ZL, wkv[(ZOO_S, -2.0)])], f"zoo prefill at B {ZOO_B} x S {ZOO_S}: {ZL} x r, k, w [2,1024,40,64], "
+         "v [2,1024,40,64] -> y, final state; library call: none", None, None),
     ]
-    paths = {"serve": launches, "train": tr["launches"], "serve4": s4["launches"], "entry": ent["launches"]}
+    paths = {"serve": launches, "train": tr_launches, "serve4": s4["launches"], "entry": ent["launches"],
+             "zoo": zoo["launches"]}
+    # the zoo prefill's share of the kernels it shares with the LSTM paths
+    zoo_prefill = {
+        "floatsd_matmul": ([(6 * ZL, zmm[("dd", ZOO_B * ZOO_S)]), (ZL, zmm[("cmix-k", ZOO_B * ZOO_S)]),
+                            (ZL, zmm[("cmix-v", ZOO_B * ZOO_S)]), (1, zmm[("head", ZOO_B * ZOO_S)])],
+                           f"zoo prefill: {6 * ZL} x [2048,2560]@[2560,2560] + {ZL} x [2048,2560]@[2560,8960] "
+                           f"+ {ZL} x [2048,8960]@[8960,2560] + [2048,2560]@[65536,2560]^T"),
+        "qsigmoid": ([(2 * ZL, qsig[(2, 1024, 2560)])], f"zoo prefill: {2 * ZL} x [2,1024,2560] f32 gates"),
+    }
+    zoo_decode = ([(6 * ZL, zmm[("dd", ZOO_LANES)]), (ZL, zmm[("cmix-k", ZOO_LANES)]),
+                   (ZL, zmm[("cmix-v", ZOO_LANES)]), (1, zmm[("head", ZOO_LANES)])],
+                  f"zoo decode step at {ZOO_LANES} lanes: the same {ZOO_SITES * ZL + 1} sites at M = {ZOO_LANES}")
     record = {"kernels": []}
     for name, src, repl, rows, parts, per, train_parts, train_per in entries:
         by_path = {path: counts.get(name, 0) for path, counts in paths.items()}
@@ -874,8 +1330,14 @@ def main() -> int:
                "max_abs_err": max(v["err"] for v in rows), **composite(parts), "per": per}
         if train_parts and parts is not train_parts:
             rec["train_step"] = {**composite(train_parts), "per": train_per}
+        if name in zoo_prefill:
+            z_parts, z_per = zoo_prefill[name]
+            rec["zoo_prefill"] = {**composite(z_parts), "per": z_per}
+        if name == "floatsd_matmul":
+            rec["zoo_decode_step"] = {**composite(zoo_decode[0]), "per": zoo_decode[1]}
         record["kernels"].append(rec)
     check(all(k["launches"] > 0 for k in record["kernels"]), "a kernel never launched on the main path")
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -70,8 +70,18 @@ def _grid_codes() -> tuple[np.ndarray, np.ndarray]:
 _GRID_E, _GRID_MIDX = _grid_codes()
 
 
+_TABLES: dict = {}  # (table, device, dtype) -> the table on that device
+
+
 def _table(values: np.ndarray, like: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
-    return torch.as_tensor(values, dtype=dtype, device=like.device)
+    """One of this module's constant tables on ``like``'s device, copied
+    there once: a copy from host memory at every call would make the host
+    wait for the card each time."""
+    key = (id(values), like.device, dtype)
+    hit = _TABLES.get(key)
+    if hit is None or hit[0] is not values:
+        hit = _TABLES[key] = (values, torch.as_tensor(values, dtype=dtype, device=like.device))
+    return hit[1]
 
 
 def exp2i(k) -> torch.Tensor:
@@ -134,13 +144,25 @@ def encode(x: torch.Tensor, bias=None) -> tuple[torch.Tensor, torch.Tensor]:
     return ((e << 5) | midx).to(torch.uint8), bias
 
 
+def _decode_lut() -> np.ndarray:
+    """Every uint8 code decoded at bias 0: its mantissa (index 31 clipped
+    to 30) times 2^e, exact in f32 (at most 5 significant bits)."""
+    c = np.arange(256)
+    return (MANTISSA_VALUES[np.minimum(c & 0x1F, 30)] * 2.0 ** (c >> 5)).astype(np.float32)
+
+
+_DECODE_LUT = _decode_lut()
+
+
 def decode(codes: torch.Tensor, bias, dtype=torch.float32) -> torch.Tensor:
-    """uint8 FloatSD8 codes -> values. Mantissa index 31 (never emitted by
-    ``encode``) clips to 30, as in the reference."""
-    c = codes.to(torch.int32)
-    m = _table(MANTISSA_VALUES, c)[torch.clamp(c & 0x1F, 0, 30)]
-    bias = _clamp_bias(bias).to(c.device)
-    return (m * exp2i((c >> 5) + bias)).to(dtype)
+    """uint8 FloatSD8 codes -> values: the code's value at bias 0 from a
+    256-entry table, times 2^bias. Both factors are exact and the product
+    is rounded once, so this equals mantissa * 2^(e + bias) bit for bit.
+    Mantissa index 31 (never emitted by ``encode``) clips to 30, as in the
+    reference. A host ``bias`` (a packed tensor's int) stays on the host: a
+    0-d CPU factor enters a card's product as a scalar, with no copy."""
+    v = _table(_DECODE_LUT, codes)[codes.long()]
+    return (v * exp2i(_clamp_bias(bias))).to(dtype)
 
 
 class _QuantizeSTE(torch.autograd.Function):

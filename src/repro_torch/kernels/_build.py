@@ -48,6 +48,7 @@ KERNELS = {
     "floatsd_quantize": ("floatsd_quantize", ()),
     # shares the cell's sigmoid (lstm_cell_common.cuh) and its rounding
     "qsigmoid": ("qsigmoid", ("--fmad=false",)),
+    "rwkv_wkv": ("rwkv_wkv", ()),
 }
 
 _LOCK = threading.Lock()

@@ -4,7 +4,8 @@ plain PyTorch version.
 Counterpart of ``repro.kernels.dispatch``: the serving ops over FloatSD8
 (``PackedTensor``) and FloatSD4 (``PackedTensor4``) weights, the backward
 ops and weight hoists of the fused quantized-BPTT training path, and the
-element-wise ``quantize`` and ``qsigmoid`` entry points. The resolver
+element-wise ``quantize`` and ``qsigmoid`` entry points, and the chunked
+RWKV-6 ``rwkv_wkv`` of the model zoo's prefill. The resolver
 has one rule: a tensor on the card goes to the kernel, a tensor on the CPU
 to the plain version. The only override is ``backend="ref"`` (an argument,
 or ``use_backend("ref")`` around a whole model call), which runs the plain
@@ -35,13 +36,15 @@ from .lstm_cell import ops as lc_ops
 from .lstm_cell.ref import lstm_cell_bwd_ref, lstm_cell_ref
 from .qsigmoid import ops as qs_ops
 from .qsigmoid.ref import qsigmoid_ref
+from .rwkv_wkv import ops as rw_ops
+from .rwkv_wkv.ref import wkv_ref
 
 __all__ = [
     "BACKENDS", "ZERO_CODE", "PackedTensor", "is_packed", "Decision",
     "DispatchStats", "STATS", "use_backend", "matmul", "lstm_cell",
     "packed_einsum", "hoist_packed", "matmul_dx", "matmul_dw", "lstm_cell_grad",
     "pack_train", "hoist_train", "PackedTensor4", "is_packed4", "is_any_packed", "pack4",
-    "unpack4", "matmul4", "quantize", "qsigmoid",
+    "unpack4", "matmul4", "quantize", "qsigmoid", "rwkv_wkv",
 ]
 
 BACKENDS = ("ref", "cuda")
@@ -369,3 +372,25 @@ def qsigmoid(x: torch.Tensor, *, backend: str | None = None) -> torch.Tensor:
     y = qsigmoid_ref(x) if dec.backend == "ref" else qs_ops.qsigmoid(x)
     STATS.record(dec)
     return y
+
+
+# ---------------------------------------------------------------------------
+# the model zoo's recurrence
+# ---------------------------------------------------------------------------
+
+
+def rwkv_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
+             *, chunk: int = 16, backend: str | None = None):
+    """Chunked RWKV-6 wkv from a zero state, in the model's per-head layout:
+    r, k, w [B, S, H, K], v [B, S, H, V], u [H, K] or [B, H, K] -> (y [B, S,
+    H, V] f32, the state after the last token [B, H, K, V] f32). The kernel
+    evaluates 16 tokens at a time with the state kept on chip; ``chunk`` is
+    the reference's argument and must be 16, the kernel's fixed chunk. The
+    plain version is the per-token recurrence (the same function). A short
+    last chunk is bounds-checked, so every S runs unpadded."""
+    if chunk != rw_ops.CHUNK:
+        raise ValueError(f"rwkv_wkv: the kernel's chunk is {rw_ops.CHUNK}, got {chunk}")
+    dec = _decide("rwkv_wkv", r, backend)
+    out = wkv_ref(r, k, v, w, u) if dec.backend == "ref" else rw_ops.rwkv_wkv(r, k, v, w, u)
+    STATS.record(dec)
+    return out

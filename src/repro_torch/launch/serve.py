@@ -1,15 +1,19 @@
 """Batched serving CLI of the port.
 
-Builds the WikiText-2 FloatSD8 LSTM LM with random weights from ``--seed``,
-packs them to 1-byte FloatSD8 codes (or, with ``--weight-format floatsd4``,
-re-quantizes those to nibble-packed FloatSD4 codes), and drains a synthetic workload
-through ``ServeEngine`` (continuous batching, chunked prefill, greedy
-decoding). On the card every gate matmul, the tied head and the cell run
-the hand-written CUDA kernels.
+Builds the ``--arch`` model (default: the WikiText-2 FloatSD8 LSTM LM) with
+random weights from ``--seed``, packs them to 1-byte FloatSD8 codes (or, with
+``--weight-format floatsd4``, re-quantizes those to nibble-packed FloatSD4
+codes), and drains a synthetic workload through ``ServeEngine`` (continuous
+batching, chunked prefill, greedy decoding). On the card every weight site,
+the tied head and the cell run the hand-written CUDA kernels. A model-zoo
+arch (``--arch rwkv6_3b``) serves its reduced config, as the reference CLI
+does: lockstep one-token steps, each lane once, so ``--requests`` must not
+exceed ``--batch``; its full width is driven from the API (``chip_smoke.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu   # reduced, CPU
   PYTHONPATH=src python -m repro_torch.launch.serve --full         # 1024-wide LM, GPU
   PYTHONPATH=src python -m repro_torch.launch.serve --full --weight-format floatsd4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_3b --device cpu --requests 4 --batch 4
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ import argparse
 import numpy as np
 import torch
 
-from ..configs import lstm_wikitext2
+from ..configs import get_config, lstm_wikitext2
 from ..core.policy import get_policy
 from ..device import resolve_device
 from ..models import build
@@ -27,7 +31,10 @@ from ..serving import WEIGHT_FORMATS, ServeEngine, synthetic_prompts
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--full", action="store_true", help="paper-scale model (hidden 1024, vocab 33278)")
+    ap.add_argument("--arch", default="lstm_wikitext2",
+                    help="config name (repro_torch/configs); a zoo arch serves its reduced config")
+    ap.add_argument("--full", action="store_true",
+                    help="paper-scale LSTM LM (hidden 1024, vocab 33278); ignored for a zoo arch")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--batch", type=int, default=8, help="decode lanes")
@@ -41,7 +48,11 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = lstm_wikitext2.CONFIG if args.full else lstm_wikitext2.REDUCED
+    cfg = get_config(args.arch)
+    if cfg.family == "lstm":
+        cfg = cfg if args.full else lstm_wikitext2.REDUCED
+    else:
+        cfg = cfg.reduced()
     policy = get_policy("floatsd8_table6")
     model = build(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(args.seed))

@@ -1,12 +1,16 @@
 from ..configs.base import ArchConfig
+from .lm import CausalLM
 from .lstm_models import WikiText2LM
 
-__all__ = ["WikiText2LM", "build"]
+__all__ = ["CausalLM", "WikiText2LM", "build"]
 
 
-def build(cfg: ArchConfig) -> WikiText2LM:
-    """Arch config -> model object (the LSTM family only, in the port)."""
-    if cfg.family != "lstm":
-        raise NotImplementedError(f"the port builds LSTM models only, got {cfg.family!r}")
-    return WikiText2LM(vocab=cfg.vocab, emb=cfg.d_model, hidden=cfg.d_model,
-                       n_layers=cfg.n_layers)
+def build(cfg: ArchConfig):
+    """Arch config -> model object: the paper's LSTM LM (``lstm``) or the
+    zoo's ``CausalLM`` (``ssm``: RWKV-6). The other families raise
+    ``NotImplementedError`` until they are ported (ROADMAP.md Queue 1 item
+    10)."""
+    if cfg.family == "lstm":
+        return WikiText2LM(vocab=cfg.vocab, emb=cfg.d_model, hidden=cfg.d_model,
+                           n_layers=cfg.n_layers)
+    return CausalLM(cfg)

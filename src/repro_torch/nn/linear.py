@@ -21,25 +21,12 @@ from ..core.fp8 import act_quant
 from ..core.policy import Policy
 from ..kernels import dispatch as kd
 from ..kernels.floatsd_matmul.ref import no_tf32
+from .module import truncated_normal_init
 
 __all__ = [
     "QuantEmbedding", "quant_act", "quant_weight", "policy_einsum",
-    "quant_einsum", "truncated_normal_init", "uniform_init",
+    "quant_einsum",
 ]
-
-
-def truncated_normal_init(generator: torch.Generator, shape, stddev: float) -> torch.Tensor:
-    """stddev * N(0, 1) truncated to [-2, 2], on the generator's device."""
-    t = torch.empty(shape, dtype=torch.float32, device=generator.device)
-    return torch.nn.init.trunc_normal_(
-        t, std=stddev, a=-2.0 * stddev, b=2.0 * stddev, generator=generator
-    )
-
-
-def uniform_init(generator: torch.Generator, shape, scale: float) -> torch.Tensor:
-    """U(-scale, scale), on the generator's device."""
-    t = torch.empty(shape, dtype=torch.float32, device=generator.device)
-    return t.uniform_(-scale, scale, generator=generator)
 
 
 def quant_weight(w, policy: Policy):

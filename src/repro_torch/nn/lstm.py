@@ -19,7 +19,8 @@ import torch
 from ..core.fp8 import quantize_fp8
 from ..core.policy import Policy
 from ..kernels import dispatch as kd
-from .linear import policy_einsum, quant_act, quant_weight, uniform_init
+from .linear import policy_einsum, quant_act, quant_weight
+from .module import uniform_init
 
 __all__ = ["LSTMCell", "LSTMLayer", "LSTMState"]
 

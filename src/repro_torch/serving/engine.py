@@ -24,9 +24,16 @@ The weights are packed at construction, to 1-byte FloatSD8 codes or (with
 exponents. On the card every gate matmul, the tied head and the cell run
 the hand-written kernels;
 ``backend="ref"`` runs the plain versions instead (the cross-check).
+
+A model whose ``decode_step`` takes no ``lengths`` (the zoo's
+``CausalLM``) advances its lanes in lockstep, one token a step (``chunk``
+is forced to 1), and its layer-major cache cannot be reset per lane, so
+such an engine serves at most ``lanes`` requests: ``run`` refuses a larger
+queue, and re-arming a used lane raises, as in the reference.
 """
 from __future__ import annotations
 
+import inspect
 import time
 from typing import Iterable
 
@@ -82,7 +89,9 @@ class ServeEngine:
         self.model = model
         self.policy = policy
         self.lanes_n = lanes
-        self.chunk = chunk
+        # a model without lengths support advances every lane one token a step
+        self._supports_lengths = "lengths" in inspect.signature(model.decode_step).parameters
+        self.chunk = chunk if self._supports_lengths else 1
         self.backend = backend
         self.scheduler = Scheduler(admission)
         self.metrics = ServeMetrics(lanes)
@@ -91,12 +100,20 @@ class ServeEngine:
         # re-quantizes those values (a footprint for accuracy trade)
         self.store = WeightStore.pack(params, fmt=weight_format)
         self.serve_params = self.store.tree
+        if hasattr(model, "hoist"):  # decode a stacked model's small leaves once, not every step
+            self.serve_params = model.hoist(self.serve_params)
         self.serve_policy = policy.replace(weight_quant="none")
         self.device = next(
             x.codes.device for x in tree_leaves(self.serve_params, is_leaf=kd.is_any_packed)
             if kd.is_any_packed(x)
         )
         self.pool = StatePool.for_model(model, lanes, policy, self.device)
+        # Re-arming a used lane needs a per-lane reset of every cache leaf:
+        # lane-major leaves, and lengths support (a layer-major stack whose
+        # layer count equals ``lanes`` would pass the shape test alone).
+        self._rearmable = self._supports_lengths and all(
+            c.dim() >= 1 and c.shape[0] == lanes for c in tree_leaves(self.pool.caches))
+        self._lane_used = [False] * lanes
         self._lanes: list[Lane | None] = [None] * lanes
         self._reset = np.zeros((lanes,), np.int32)
         self._rid = 0
@@ -114,6 +131,12 @@ class ServeEngine:
     def _arm_free_lanes(self) -> None:
         for i in range(self.lanes_n):
             if self._lanes[i] is None and self.scheduler:
+                if self._lane_used[i] and not self._rearmable:
+                    raise RuntimeError(
+                        "cannot re-arm a used lane: this model's cache has non-lane-major leaves "
+                        "that masked_reset cannot clear per lane; serve at most `lanes` requests "
+                        "per engine (or use an LSTM-family model)")
+                self._lane_used[i] = True
                 req = self.scheduler.pop()
                 req.t_admit = time.monotonic()
                 self._lanes[i] = Lane(req)
@@ -159,11 +182,17 @@ class ServeEngine:
         lens = torch.as_tensor(lengths, device=dev)
         caches = masked_reset(self.pool.caches, torch.as_tensor(reset, device=dev))
         with kd.use_backend(self.backend):
-            logits, caches = self.model.decode_step(
-                self.serve_params, toks, caches, self.serve_policy, lengths=lens
-            )
-        idx = torch.clamp(lens.long() - 1, 0, toks.shape[1] - 1)
-        last = logits[torch.arange(toks.shape[0], device=dev), idx]
+            if self._supports_lengths:
+                logits, caches = self.model.decode_step(
+                    self.serve_params, toks, caches, self.serve_policy, lengths=lens
+                )
+                idx = torch.clamp(lens.long() - 1, 0, toks.shape[1] - 1)
+                last = logits[torch.arange(toks.shape[0], device=dev), idx]
+            else:
+                logits, caches = self.model.decode_step(
+                    self.serve_params, toks, caches, self.serve_policy
+                )
+                last = logits[:, -1]
         nxt = torch.argmax(last, dim=-1)
         top2 = torch.topk(last, 2, dim=-1).values
         ok = torch.isfinite(last).all(dim=-1)
@@ -224,6 +253,12 @@ class ServeEngine:
 
     def run(self) -> ServeMetrics:
         """Serve until the queue and every lane are drained."""
+        outstanding = len(self.scheduler) + sum(l is not None for l in self._lanes)
+        if not self._rearmable and outstanding > self.lanes_n:
+            raise ValueError(
+                f"{outstanding} requests queued but this model's cache cannot be reset per lane "
+                f"(non-lane-major leaves); submit at most lanes={self.lanes_n} requests per "
+                f"engine, or use an LSTM-family model for continuous batching")
         self.metrics.start()
         while self.step_once():
             pass

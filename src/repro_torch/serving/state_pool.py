@@ -4,6 +4,9 @@ Counterpart of ``repro.serving.state_pool``. A serving engine keeps B
 decode lanes for the whole process; each lane's LSTM (h, c) lives at a fixed
 batch index of one list of per-layer states. Re-arming a lane zeroes exactly
 that lane's slices: ``masked_reset`` runs at the top of the engine's step.
+The zoo's ``CausalLM`` keeps a layer-major cache ([layers, lanes, ...] per
+leaf), which ``masked_reset`` passes through, as the reference's does; the
+engine serves such a model in lockstep, each lane once.
 """
 from __future__ import annotations
 
@@ -11,7 +14,7 @@ from typing import Any
 
 import torch
 
-from .._tree import tree_map
+from .._tree import tree_leaves, tree_map
 
 __all__ = ["StatePool", "masked_reset"]
 
@@ -43,7 +46,7 @@ class StatePool:
 
     def reset(self, mask) -> None:
         """Host-initiated masked reset (the engine folds it into its step)."""
-        leaf = self.caches[0].h
+        leaf = tree_leaves(self.caches)[0]
         self.caches = masked_reset(self.caches, torch.as_tensor(mask, device=leaf.device))
 
     def extract(self, lane: int) -> Any:

@@ -15,7 +15,11 @@ stay dense. Two formats:
     footprint trade, not the same function.
 
 Codes, biases and exponents are byte-identical to the reference's on the
-same weights.
+same weights. A stacked model (the zoo's scanned layers) packs each
+stacked leaf whole, with one bias for all its layers, as the reference
+does: its norm scales and biases, token-shift mixes, decay base and bonus
+are >= 2-D there, so they are served FloatSD8-quantized too; only the 1-D
+final norm stays dense.
 """
 from __future__ import annotations
 

@@ -18,7 +18,13 @@ fused layer gradients, kernels against the plain versions, within rtol
 identical train steps bit for bit; floatsd4_matmul bit for bit on FP8
 activations (every product exact) and within the matmul bound on f32 ones;
 the quantize kernel byte for byte against ``core.floatsd.encode``; the
-qsigmoid kernel bit for bit on f32.
+qsigmoid kernel bit for bit on f32; the chunked rwkv_wkv kernel against the
+per-token recurrence within rtol 2e-4, atol 2e-4 (the JAX package's
+chunked-vs-recurrence bound) or, where a value cancels far below its terms
+(slow decay over 1024 tokens), within 1e-5 of the sum of the terms'
+magnitudes, outputs and final states, and bit for bit
+from one launch to the next; the reduced RWKV-6 model on the kernels
+against its plain versions on the card within 1e-4 of the logit scale.
 """
 import pytest
 
@@ -40,6 +46,8 @@ from repro_torch.kernels.floatsd4_matmul.ref import floatsd4_matmul_ref  # noqa:
 from repro_torch.kernels.floatsd_quantize.ops import floatsd_quantize  # noqa: E402
 from repro_torch.kernels.lstm_cell.ops import lstm_cell, lstm_cell_grad  # noqa: E402
 from repro_torch.kernels.qsigmoid.ops import qsigmoid  # noqa: E402
+from repro_torch.kernels.rwkv_wkv.ops import rwkv_wkv  # noqa: E402
+from repro_torch.kernels.rwkv_wkv.ref import wkv_ref  # noqa: E402
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_bwd_ref, lstm_cell_ref  # noqa: E402
 from repro_torch.models import WikiText2LM  # noqa: E402
 from repro_torch.nn.lstm import LSTMLayer  # noqa: E402
@@ -377,3 +385,92 @@ def test_dispatch_routes_new_entry_points_to_the_kernels(dev):
     assert kd.STATS.count("floatsd_quantize", "cuda") == kd.STATS.count("qsigmoid", "cuda") == 1
     assert kd.STATS.count(backend="ref") == 0
     assert bias.device.type == "cuda" and torch.equal(codes8, floatsd.encode(x)[0])
+
+
+# (B, S, H, K, V): the reduced model's prefill, ragged S (a short last chunk),
+# V not a multiple of the kernel's 16-column slice, the largest K, one head
+# per batch row (the JAX kernel's [BH, S, K] layout), the full-width prefill
+WKV_SHAPES = [(3, 32, 4, 32, 32), (2, 50, 2, 64, 64), (1, 33, 2, 64, 40), (1, 20, 1, 128, 128),
+              (4, 16, 1, 32, 32), (2, 1024, 40, 64, 64)]
+
+
+def _wkv_inputs(dev, b, s, h, k, v, w0, seed=0):
+    g = _gen(dev, seed + b * s * h + k + v)
+    r, kk = (torch.randn((b, s, h, k), device=dev, generator=g) for _ in range(2))
+    vv = torch.randn((b, s, h, v), device=dev, generator=g)
+    w = torch.exp(-torch.exp(torch.randn((b, s, h, k), device=dev, generator=g) * 0.3 + w0))
+    u = torch.randn((b, h, k), device=dev, generator=g) * 0.1
+    return r, kk, vv, w, u
+
+
+def _assert_wkv_close(y, s_fin, y_r, s_r, inputs):
+    """rtol = atol = 2e-4, or, where a value cancels far below its terms,
+    1e-5 of the sum of the terms' magnitudes (the recurrence on |r|, |k|,
+    |v|, |u|: f32 rounding of the terms, summed in another order)."""
+    r, kk, vv, w, u = inputs
+    y_t, s_t = wkv_ref(r.abs(), kk.abs(), vv.abs(), w, u.abs())
+    for got, want, terms in ((y, y_r, y_t), (s_fin, s_r, s_t)):
+        err = (got - want).abs()
+        assert bool(((err <= 2e-4 + 2e-4 * want.abs()) | (err <= 1e-5 * terms)).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,k,v", WKV_SHAPES)
+@pytest.mark.parametrize("w0", [-6.0, -2.0, 1.0])
+def test_rwkv_wkv_kernel_matches_plain(dev, b, s, h, k, v, w0):
+    r, kk, vv, w, u = _wkv_inputs(dev, b, s, h, k, v, w0)
+    n0 = rwkv_wkv.launches
+    y, s_fin = rwkv_wkv(r, kk, vv, w, u)
+    y_r, s_r = wkv_ref(r, kk, vv, w, u)
+    torch.cuda.synchronize()
+    assert rwkv_wkv.launches == n0 + 1 and y.shape == (b, s, h, v) and s_fin.shape == (b, h, k, v)
+    _assert_wkv_close(y, s_fin, y_r, s_r, (r, kk, vv, w, u))
+    y2, s2 = rwkv_wkv(r, kk, vv, w, u)  # a second launch: the same bits
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(s_fin, s2)
+
+
+@pytest.mark.cuda
+def test_rwkv_wkv_kernel_shares_u_across_the_batch_and_raises(dev):
+    r, kk, vv, w, u = _wkv_inputs(dev, 2, 48, 3, 32, 32, -2.0)
+    y, s_fin = rwkv_wkv(r, kk, vv, w, u[0])  # u [H, K], as the model passes it
+    y_r, s_r = wkv_ref(r, kk, vv, w, u[0])
+    _assert_wkv_close(y, s_fin, y_r, s_r, (r, kk, vv, w, u[0]))
+    n0 = rwkv_wkv.launches
+    big = torch.zeros((1, 16, 1, 129), device=dev)
+    with pytest.raises(ValueError):
+        rwkv_wkv(big, big, big, big, big[0, 0])  # K > 128
+    with pytest.raises(ValueError):
+        rwkv_wkv(r.half(), kk, vv, w, u)
+    with pytest.raises(ValueError):
+        rwkv_wkv(r, kk, vv, w, u[:, :2])
+    assert rwkv_wkv.launches == n0
+
+
+@pytest.mark.cuda
+def test_reduced_rwkv_on_the_kernels_matches_its_plain_versions(dev):
+    """The reduced RWKV-6 model served on the card: prefill (rwkv_wkv,
+    floatsd_matmul, qsigmoid on their kernels) and decode steps against
+    backend="ref" on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import CausalLM
+    from repro_torch.serving import WeightStore
+
+    cfg = get_config("rwkv6_3b").reduced()
+    model = CausalLM(cfg)
+    pol = get_policy("floatsd8_table6").replace(weight_quant="none")
+    tree = WeightStore.pack(model.init(_gen(dev, 3))).tree
+    toks = torch.randint(0, cfg.vocab, (2, 32), device=dev, generator=_gen(dev, 4))
+    kd.STATS.reset()
+    with torch.no_grad():
+        got = model.prefill(tree, {"tokens": toks}, pol)
+        counts = kd.STATS.snapshot()
+        with kd.use_backend("ref"):
+            want = model.prefill(tree, {"tokens": toks}, pol)
+        cache = model.init_cache(2, pol, dev)
+        for t in range(4):
+            lg, cache = model.decode_step(tree, toks[:, t:t + 1], cache, pol)
+            torch.testing.assert_close(lg[:, 0], got[:, t], rtol=0, atol=1e-4 * float(got.abs().max()))
+    torch.cuda.synchronize()
+    assert counts == {("rwkv_wkv", "cuda"): 2, ("qsigmoid", "cuda"): 4, ("floatsd_matmul", "cuda"): 17}
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))

@@ -65,3 +65,16 @@ def test_walk_reaches_the_floatsd4_and_elementwise_kernel_modules():
     for kernel in ("floatsd4_matmul", "floatsd_quantize", "qsigmoid"):
         assert {f"repro_torch.kernels.{kernel}.ops", f"repro_torch.kernels.{kernel}.ref"} <= names
     assert "repro_torch.core.floatsd4" in names
+
+
+def test_walk_reaches_the_rwkv_zoo_modules():
+    """The blocked import above walks the RWKV-6 serving slice too: its
+    kernel, the zoo's modules, the model and its config."""
+    import pkgutil
+
+    import repro_torch
+
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
+    assert {"repro_torch.kernels.rwkv_wkv.ops", "repro_torch.kernels.rwkv_wkv.ref"} <= names
+    assert {f"repro_torch.nn.{m}" for m in ("module", "norms", "rwkv", "transformer")} <= names
+    assert {"repro_torch.models.lm", "repro_torch.configs.rwkv6_3b"} <= names
