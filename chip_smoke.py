@@ -19,7 +19,13 @@ Phases, in order; the first failure exits non-zero:
                 the card's peak rates). rwkv_wkv at the zoo's full-width
                 prefill shape in three decay regimes and at a ragged S,
                 two launches bit-identical; floatsd_matmul at the zoo's
-                weight sites and head.
+                weight sites and head; flash_attention against the oracle
+                and the chunked plain version at the dense prefill's shape,
+                at S 8192 under the window (and the plain version without
+                the window rejected there), at a ragged S, without the
+                causal mask and on bf16, two launches bit-identical, beside
+                scaled_dot_product_attention where it computes the same
+                function.
   4. main path  the full-width WikiText-2 FloatSD8 LM (vocab 33278 padded
                 to 33280, 1024 wide, 2 layers, tied embeddings, seeded
                 random weights) packed to 1-byte codes and served by
@@ -83,6 +89,26 @@ Phases, in order; the first failure exits non-zero:
                 policy's gap reported: FP8 flips cascade through the state),
                 greedy tokens of the engine equal over the plain path's
                 margin-decisive prefix.
+ 12. dense      the zoo's dense family: h2o_danube3_4b at its published
+                width (24 layers, d_model 3840, 32 heads of 120 over 8 KV
+                heads, d_ff 10240, vocab 32000, window 4096, rmsnorm,
+                SwiGLU, tied) from seed 0, after the RWKV trees are freed,
+                packed to FloatSD8 (3,838,970,920 resident bytes, asserted)
+                with the f32 tree freed: CausalLM.prefill on 2 x 1024 tokens
+                (every weight site and the head on floatsd_matmul, 169
+                launches, and every layer's attention on flash_attention,
+                24; none on the plain path; finite logits), once more timed
+                and once under torch.profiler; sequence 0's first 64 tokens
+                through decode_step against the prefill's logits (bounded
+                with no activation quantizer, reported under the served
+                policy); ServeEngine with 8 lanes, 8 requests, 16 new tokens
+                and a KV cache of 2048 positions (1,509,949,440 B,
+                asserted). Counters are zeroed before and read after each.
+ 13. dense-x    the same path at full width and 2 layers on the kernels
+                against backend="ref" on the card: prefill logits within the
+                stated tolerance with no activation quantizer (the served
+                policy's gap reported), greedy tokens of the engine equal
+                over the plain path's margin-decisive prefix.
 
 The second-to-last line is nvidia-smi's name/power-limit line, the line
 before it the kernels' JSON record, and the last line the result JSON.
@@ -141,13 +167,17 @@ def check(cond, msg: str) -> None:
         raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
 
-def bound(nbytes: float, ops: float, peak: str = "fp32") -> dict:
+def bound(nbytes: float, ops, peak: str = "fp32") -> dict:
     """The least time for the work: bytes moved over the HBM rate, or the
-    operations over the peak rate for their type, whichever is larger (ms)."""
-    rate = {"fp32": FP32_OPS_PER_S, "tf32": TF32_OPS_PER_S}[peak]
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
-    return dict(bytes_ms=t_bytes, ops_ms=t_ops, ops_peak=peak, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+    operations over the peak rate for their type, whichever is larger (ms).
+    ``ops`` is a count at ``peak``, or a list of (count, peak) pairs for
+    work of several types, whose times add."""
+    parts = ops if isinstance(ops, list) else [(ops, peak)]
+    rate = {"fp32": FP32_OPS_PER_S, "tf32": TF32_OPS_PER_S}
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(n / rate[pk] for n, pk in parts) * 1e3
+    return dict(bytes_ms=t_bytes, ops_ms=t_ops, ops_peak="+".join(dict.fromkeys(pk for _, pk in parts)),
+                bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def matmul_peak(*operands) -> str:
@@ -163,7 +193,7 @@ def matmul_peak(*operands) -> str:
 
 def fmt_bound(bd: dict) -> str:
     return (f"bound {bd['bound_ms']:.5f} ms ({bd['bound_by']}; bytes {bd['bytes_ms']:.5f} ms, operations "
-            f"{bd['ops_ms']:.5f} ms at the {bd['ops_peak'].upper()} peak)")
+            f"{bd['ops_ms']:.5f} ms at the {bd['ops_peak'].upper().replace('+', ' + ')} peak)")
 
 
 def timed_ms(torch, fn, reps: int, flush) -> float:
@@ -473,7 +503,7 @@ def composite(parts) -> dict:
     b, o = tot("bytes_ms"), tot("ops_ms")
     return {"ms": tot("ms"), "plain_ms": tot("plain_ms"), "bound_ms": max(b, o),
             "bound_by": "bytes" if b >= o else "operations", "bytes_ms": b, "ops_ms": o,
-            "ops_peak": "+".join(sorted({r["ops_peak"] for _, r in parts})),
+            "ops_peak": "+".join(sorted({pk for _, r in parts for pk in r["ops_peak"].split("+")})),
             "library_ms": None if None in lib else tot("library_ms")}
 
 
@@ -851,19 +881,25 @@ def wkv_phase(torch, dev, flush):
     return rows
 
 
-def zoo_matmul_phase(torch, dev, flush):
-    """floatsd_matmul at the zoo's shapes: its prefill (M = B S = 2048) and
-    its decode step at 8 lanes, every weight site and the tied head."""
+#: (site, K, N, table stored [N, K]) of each zoo model's weight sites and head
+ZOO_MM_SITES = [("dd", 2560, 2560, False), ("cmix-k", 2560, 8960, False), ("cmix-v", 8960, 2560, False),
+                ("head", 2560, 65536, True)]
+DENSE_MM_SITES = [("wq-wo", 3840, 3840, False), ("wk-wv", 3840, 960, False), ("wi-wg", 3840, 10240, False),
+                  ("ffn-wo", 10240, 3840, False), ("head", 3840, 32000, True)]
+
+
+def zoo_matmul_phase(torch, dev, flush, model="rwkv6_3b", sites=ZOO_MM_SITES, seed=SEED + 3):
+    """floatsd_matmul at a zoo model's shapes: its prefill (M = B S = 2048)
+    and its decode step at 8 lanes, every weight site and the tied head."""
     from repro_torch.core import floatsd
     from repro_torch.core.fp8 import FP16, quantize_fp8
     from repro_torch.kernels.floatsd_matmul.ops import floatsd_matmul
     from repro_torch.kernels.floatsd_matmul.ref import floatsd_matmul_ref, no_tf32
 
-    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    g = torch.Generator(device=dev).manual_seed(seed)
     rows = {}
-    print("kernels: floatsd_matmul at the zoo's shapes (tolerance |err| <= 1e-5 * (|x| @ |W|))")
-    for site, k, n, tr in [("dd", 2560, 2560, False), ("cmix-k", 2560, 8960, False),
-                           ("cmix-v", 8960, 2560, False), ("head", 2560, 65536, True)]:
+    print(f"kernels: floatsd_matmul at {model}'s shapes (tolerance |err| <= 1e-5 * (|x| @ |W|))")
+    for site, k, n, tr in sites:
         w = torch.randn((n, k) if tr else (k, n), device=dev, generator=g) * (0.02 if tr else k ** -0.5)
         codes, bias = floatsd.encode(w)
         bias = int(bias)
@@ -909,12 +945,18 @@ def torch_ops(torch, fn) -> int:
     return Count.n
 
 
-def zoo_decode(torch, model, tree, toks, policy):
+def zoo_decode(torch, model, tree, toks, policy, late: int = 0):
     """Sequence 0's first ZOO_DECODE tokens through decode_step one at a
-    time: (logits [ZOO_DECODE, vocab], wall time of each step)."""
+    time (an attention model's KV cache holds them all): (logits
+    [ZOO_DECODE, vocab], wall time of each step). ``late`` > 0 starts an
+    attention model's cache that many positions late, a negative control:
+    its unwritten slots then count as keys."""
     out, times = [], []
     with torch.no_grad():
-        cache = model.init_cache(1, policy, toks.device)
+        cache = model.init_cache(1, policy, toks.device, cache_len=ZOO_DECODE)
+        if late:
+            kv = cache["stack"]["b0"]
+            cache = {**cache, "stack": {"b0": kv._replace(pos=kv.pos + late)}}
         for t in range(ZOO_DECODE):
             t0 = time.perf_counter()
             lg, cache = model.decode_step(tree, toks[:1, t:t + 1], cache, policy)
@@ -924,33 +966,36 @@ def zoo_decode(torch, model, tree, toks, policy):
     return torch.stack(out), times
 
 
-def positions_gap(torch, got, want) -> dict:
+def positions_gap(torch, got, want, tol=None) -> dict:
     """Per-position gaps of [positions, vocab] logits, over scale = max(1,
     max |want|): the largest, the last position's, the first position
-    beyond ZOO_TOL, and the positions whose argmax agrees."""
+    beyond ``tol`` (default ZOO_TOL), and the positions whose argmax
+    agrees."""
     scale = max(1.0, float(want.abs().max()))
     per = (got.float() - want.float()).abs().amax(dim=-1) / scale
-    beyond = (per > ZOO_TOL).nonzero()
+    beyond = (per > (ZOO_TOL if tol is None else tol)).nonzero()
     return {"scale": scale, "max": float(per.max()), "last": float(per[-1]),
             "first": int(beyond[0]) if beyond.numel() else got.shape[0],
             "argmax": int((got.argmax(-1) == want.argmax(-1)).sum())}
 
 
 def zoo_counters(reset: bool = False) -> dict:
-    """Launch counts of the zoo path's kernels (zeroed when ``reset``)."""
+    """Launch counts of the zoo paths' kernels (zeroed when ``reset``)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.floatsd_matmul.ops import floatsd_matmul
     from repro_torch.kernels.qsigmoid.ops import qsigmoid
     from repro_torch.kernels.rwkv_wkv.ops import rwkv_wkv
 
-    wrappers = {"floatsd_matmul": floatsd_matmul, "qsigmoid": qsigmoid, "rwkv_wkv": rwkv_wkv}
+    wrappers = {"floatsd_matmul": floatsd_matmul, "qsigmoid": qsigmoid, "rwkv_wkv": rwkv_wkv,
+                "flash_attention": flash_attention}
     if reset:
         for w in wrappers.values():
             w.launches = 0
     return {op: w.launches for op, w in wrappers.items()}
 
 
-def zoo_build(torch, dev, n_layers=None):
-    """rwkv6_3b (or its first ``n_layers``) from seed 0, packed to FloatSD8;
+def zoo_build(torch, dev, n_layers=None, arch="rwkv6_3b"):
+    """``arch`` (or its first ``n_layers``) from seed 0, packed to FloatSD8;
     the f32 tree is freed before anything is served."""
     import dataclasses
 
@@ -958,7 +1003,7 @@ def zoo_build(torch, dev, n_layers=None):
     from repro_torch.models import build
     from repro_torch.serving import WeightStore
 
-    cfg = get_config("rwkv6_3b")
+    cfg = get_config(arch)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     model = build(cfg)
@@ -971,12 +1016,12 @@ def zoo_build(torch, dev, n_layers=None):
     return cfg, model, store, time.perf_counter() - t0
 
 
-def zoo_serve(torch, model, tree, policy, prompts, backend=None):
+def zoo_serve(torch, model, tree, policy, prompts, backend=None, cache_len=None):
     """ServeEngine over the packed store: lanes in lockstep, one token a
     step; returns (engine, requests by rid, decode-step wall times)."""
     from repro_torch.serving import ServeEngine
 
-    eng = ServeEngine(model, tree, policy, lanes=ZOO_LANES, backend=backend)
+    eng = ServeEngine(model, tree, policy, lanes=ZOO_LANES, backend=backend, cache_len=cache_len)
     reqs = eng.submit_all([p.copy() for p in prompts], max_new=ZOO_MAX_NEW)
     times = []
     eng.metrics.start()
@@ -1020,9 +1065,9 @@ def zoo_phase(torch, dev, smi):
         torch.cuda.synchronize()
         wall_first = time.perf_counter() - t0
     launches, stats = zoo_counters(), kd.STATS.snapshot()
-    want = {"floatsd_matmul": n_sites, "qsigmoid": 2 * L, "rwkv_wkv": L}
+    want = {"floatsd_matmul": n_sites, "qsigmoid": 2 * L, "rwkv_wkv": L, "flash_attention": 0}
     check(launches == want, f"zoo prefill launches {launches} != {want}")
-    check(stats == {(op, "cuda"): n for op, n in want.items()}, f"zoo prefill dispatch records {stats}")
+    check(stats == {(op, "cuda"): n for op, n in want.items() if n}, f"zoo prefill dispatch records {stats}")
     check(tuple(logits.shape) == (ZOO_B, ZOO_S, cfg.vocab_padded()) and bool(torch.isfinite(logits).all()),
           f"zoo prefill logits {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
     with torch.no_grad():
@@ -1045,7 +1090,8 @@ def zoo_phase(torch, dev, smi):
     with torch.no_grad():  # one more step, after the counters are read: its host work
         cache = model.init_cache(1, pol, dev)
         n_ops = torch_ops(torch, lambda: model.decode_step(tree, toks[:1, :1], cache, pol))
-    want = {"floatsd_matmul": n_sites * ZOO_DECODE, "qsigmoid": 2 * L * ZOO_DECODE, "rwkv_wkv": 0}
+    want = {"floatsd_matmul": n_sites * ZOO_DECODE, "qsigmoid": 2 * L * ZOO_DECODE, "rwkv_wkv": 0,
+            "flash_attention": 0}
     check(launches == want and sum(n for (_, b), n in stats.items() if b == "ref") == 0,
           f"zoo decode launches {launches} != {want}; dispatch {stats}")
     check(bool(torch.isfinite(dec).all()), "zoo decode: nonfinite logits")
@@ -1095,7 +1141,8 @@ def zoo_phase(torch, dev, smi):
     check(eng.chunk == 1 and eng.store.packed_nbytes == ZOO_BYTES, "zoo engine: chunk or store")
     check(all(r.status == "done" and len(r.out) == ZOO_MAX_NEW for r in reqs) and m.numeric_errors == 0,
           f"zoo engine: {[r.status for r in reqs]}, {m.numeric_errors} nonfinite")
-    want = {"floatsd_matmul": n_sites * m.steps, "qsigmoid": 2 * L * m.steps, "rwkv_wkv": 0}
+    want = {"floatsd_matmul": n_sites * m.steps, "qsigmoid": 2 * L * m.steps, "rwkv_wkv": 0,
+            "flash_attention": 0}
     check(launches == want and sum(n for (_, b), n in stats.items() if b == "ref") == 0,
           f"zoo engine launches {launches} != {want}; dispatch {stats}")
     step = statistics.median(times)
@@ -1166,6 +1213,350 @@ def zoo_x_phase(torch, dev, smi):
     return gaps
 
 
+# the dense family: h2o_danube3_4b at its published width (24 layers, d_model
+# 3840, 32 heads of 120 over 8 KV heads, d_ff 10240, vocab 32000, window 4096,
+# RoPE, rmsnorm, SwiGLU, tied), served in FloatSD8
+DENSE_ARCH = "h2o_danube3_4b"
+DENSE_BYTES = 3_838_970_920  # tree_nbytes of the packed store: 9 stacked leaves + the table + the final norm
+DENSE_KV_BYTES = 1_509_949_440  # the engine's bf16 KV cache: 24 layers x 2 x 8 lanes x 2048 x 8 x 120 x 2 B
+DENSE_CACHE_LEN = 2048  # the engine's KV cache positions (the serve CLI's)
+DENSE_SITES = 7  # weight sites a layer: wq, wk, wv, wo of the attention, wi, wg, wo of the FFN
+DENSE_X_LAYERS = 2
+# prefill against decode through all 24 layers with no activation quantizer
+# (policy fp32 on the same codes): prefill rounds p and v to bf16, decode
+# reads k and v from a bf16 cache. The full-width reading from seed 0 is
+# 2.112e-3 of the logit scale in every run on the H100 (the JAX package's
+# own gap at the reduced config, 2 layers: 3.1e-3 to 3.9e-3 over three
+# seeds); the bound leaves 2.4x of headroom. A decode whose cache starts one
+# position late (an unwritten slot counted as a key) must exceed it.
+DENSE_TOL = 5e-3
+# kernels against the plain versions at DENSE_X_LAYERS layers, prefill logits
+# with no activation quantizer: one bf16 step (2^-8) of the logit scale. The
+# two attentions round p to bf16 from scores that differ in their last bits,
+# so a p on a rounding boundary lands one bf16 step apart and moves its row
+# by up to 2^-8 p |v| / l; a gap of more than one bf16 step of the logits
+# is more than those roundings (the reduced model on the card: 1.1e-3 of
+# its scale, tests/test_torch_cuda.py)
+DENSE_X_TOL = 2.0 ** -8
+# flash_attention against its plain versions: the JAX package's
+# kernel-vs-oracle bounds (tests/test_flash_kernel.py), |err| <= atol + rtol
+# |want|, f32 and bf16 inputs
+FLASH_TOL = {"float32": (6e-3, 2e-2), "bfloat16": (2e-2, 3e-2)}
+FLASH_Q_SCALE = 2.0  # q ~ N(0, 4): scores of std 2 (a peaked attention, as a trained model's)
+# (name, B, S, H, Kh, D, causal, window, dtype): the dense prefill (the
+# window of 4096 inactive at S 1024), the window biting, a ragged S, no
+# causal mask, bf16
+FLASH_CASES = [("prefill", ZOO_B, ZOO_S, 32, 8, 120, True, 4096, "float32"),
+               ("window", 1, 8192, 32, 8, 120, True, 4096, "float32"),
+               ("ragged", ZOO_B, 1000, 32, 8, 120, True, 4096, "float32"),
+               ("full", ZOO_B, ZOO_S, 32, 8, 120, False, None, "float32"),
+               ("bf16", ZOO_B, ZOO_S, 32, 8, 120, True, 4096, "bfloat16")]
+
+
+def attend_pairs(sq: int, skv: int, causal: bool, window) -> int:
+    """The (query, key) pairs the masks admit, positions from 0."""
+    total = 0
+    for i in range(sq):
+        hi = min(skv - 1, i) if causal else skv - 1
+        lo = max(0, i - window + 1) if window is not None else 0
+        total += max(hi - lo + 1, 0)
+    return total
+
+
+def flash_oracle(torch, q, k, v, causal, window, heads_per_call=4):
+    """``flash_attention_ref`` (the [BH, S, D] oracle, f32 scores and PV) on
+    the model layout, K and V expanded to the query heads, a few heads at a
+    time (the scores of all 32 heads at S 8192 would take 8.6 GB)."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    b, sq, h, d = q.shape
+    skv, g = k.shape[1], h // k.shape[2]
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    for h0 in range(0, h, heads_per_call):
+        hs = range(h0, min(h, h0 + heads_per_call))
+        kv = [t[:, :, [j // g for j in hs]].permute(0, 2, 1, 3).reshape(-1, skv, d) for t in (k, v)]
+        o = flash_attention_ref(q[:, :, h0:h0 + len(hs)].permute(0, 2, 1, 3).reshape(-1, sq, d), *kv,
+                                causal, window)
+        out[:, :, h0:h0 + len(hs)] = o.reshape(b, len(hs), sq, d).permute(0, 2, 1, 3)
+    return out
+
+
+def flash_phase(torch, dev, flush):
+    """Phase 3, continued: the flash_attention kernel against its plain
+    versions (the oracle and the model's chunked online softmax) at the
+    dense prefill's shape, where the window bites, at a ragged S, without
+    the causal mask and on bf16; two launches bit-identical; the oracle
+    without the window, at the window's shape, rejected."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import _mask, flash_attention_gqa
+    from repro_torch.kernels.floatsd_matmul.ref import no_tf32
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    rows = {}
+    print(f"kernels: flash_attention vs the oracle and the chunked plain version (|err| <= atol + rtol |want|: "
+          f"f32 {FLASH_TOL['float32']}, bf16 {FLASH_TOL['bfloat16']}; q ~ N(0, {FLASH_Q_SCALE ** 2:g}))")
+    for name, b, s, h, kh, d, causal, window, dt in FLASH_CASES:
+        dt = getattr(torch, dt)
+        q = (torch.randn((b, s, h, d), device=dev, generator=g) * FLASH_Q_SCALE).to(dt)
+        k, v = (torch.randn((b, s, kh, d), device=dev, generator=g).to(dt) for _ in range(2))
+        o = flash_attention(q, k, v, causal=causal, window=window)
+        o2 = flash_attention(q, k, v, causal=causal, window=window)
+        oracle = flash_oracle(torch, q, k, v, causal, window)
+        plain = flash_attention_gqa(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        check(torch.equal(o, o2), f"flash_attention {name}: two launches differ")
+        atol, rtol = FLASH_TOL[str(dt).split(".")[-1]]
+        errs = {}
+        for ref_name, want in (("oracle", oracle), ("plain", plain)):
+            e = (o.float() - want.float()).abs()
+            beyond = int((e > atol + rtol * want.float().abs()).sum())
+            check(beyond == 0, f"flash_attention {name}: {beyond} outputs beyond the bound against the {ref_name} "
+                               f"(max err {float(e.max()):.3e})")
+            errs[ref_name] = (float(e.max()), int((o != want).sum()))
+        caught = None
+        if name == "window":  # negative control: the plain version without the window
+            nowin = flash_attention_gqa(q, k, v, causal=causal, window=None)
+            e = (nowin.float() - oracle.float()).abs()
+            caught = float((e > atol + rtol * oracle.float().abs()).float().mean())
+            check(caught > 0.01, f"flash_attention: the bound does not reject attention without the window "
+                                 f"({caught:.2%} beyond)")
+            del nowin
+        t = timed_ms(torch, lambda: flash_attention(q, k, v, causal=causal, window=window), 10, flush)
+        with no_tf32():
+            t_plain = timed_ms(torch, lambda: flash_attention_gqa(q, k, v, causal=causal, window=window), 3, flush)
+            # the library yardstick: SDPA on the heads-major layout; where the
+            # window bites, its band as a boolean mask
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            if window is None or window >= s:
+                lib_kw, lib_call = dict(is_causal=causal), f"is_causal={causal}"
+            else:
+                pos = torch.arange(s, device=dev)
+                lib_kw, lib_call = dict(attn_mask=_mask(pos, pos, causal, window)), "attn_mask=band"
+            lib = sdpa(qt, kt, vt, enable_gqa=True, **lib_kw).transpose(1, 2)
+            e = (lib.float() - oracle.float()).abs()
+            lib_beyond = int((e > atol + rtol * oracle.float().abs()).sum())
+            check(lib_beyond == 0, f"flash_attention {name}: SDPA ({lib_call}) is {lib_beyond} outputs beyond the "
+                                   f"bound of the oracle: not the same function")
+            t_lib = timed_ms(torch, lambda: sdpa(qt, kt, vt, enable_gqa=True, **lib_kw), 10, flush)
+            del qt, kt, vt, lib, lib_kw
+        pairs = b * h * attend_pairs(s, s, causal, window)
+        # QK^T at the peak its operands allow, PV at the TF32 peak (p and v
+        # are rounded to bf16, so every product is exact): 2 D operations
+        # a pair each
+        bd = bound(q.element_size() * (2 * q.numel() + k.numel() + v.numel()),
+                   [(2.0 * pairs * d, matmul_peak(q, k)), (2.0 * pairs * d, "tf32")])
+        rows[name] = dict(ms=t, plain_ms=t_plain, library_ms=t_lib, err=max(e for e, _ in errs.values()), **bd)
+        print(f"  {name:8s} q [{b},{s},{h},{d}], k, v [{b},{s},{kh},{d}] {str(dt)[6:]}, causal {causal}, window "
+              f"{window}: vs oracle max_abs_err {errs['oracle'][0]:.3e} ({errs['oracle'][1]} of {o.numel()} not "
+              f"bit-identical), vs plain {errs['plain'][0]:.3e} ({errs['plain'][1]} not bit-identical); |o| max "
+              f"{float(oracle.float().abs().max()):.3f}; two launches bit-identical"
+              + (f"; without the window {caught:.2%} beyond the bound" if caught is not None else "")
+              + f" | kernel {t:.4f} ms, plain {t_plain:.3f} ms, "
+              + f"SDPA ({lib_call}, enable_gqa; 0 beyond the bound of the oracle) {t_lib:.4f} ms"
+              + f", {pairs * d * 4 / 1e9:.2f} GFLOP, {fmt_bound(bd)}", flush=True)
+        del q, k, v, o, o2, oracle, plain
+    torch.cuda.empty_cache()
+    return rows
+
+
+def profile_prefill(torch, model, tree, toks, policy):
+    """One prefill under torch.profiler: device time (ms) and launches by
+    kernel group, and the wall time (ms) of the same call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.prefill(tree, {"tokens": toks}, policy)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    names = [("floatsd_matmul_kernel", "floatsd_matmul"), ("flash_fwd_kernel", "flash_attention")]
+    groups = {g: [0.0, 0] for _, g in names + [("", "other torch ops")]}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue
+        grp = next((grp for key, grp in names if key in e.key), "other torch ops")
+        groups[grp][0] += e.self_device_time_total / 1e3
+        groups[grp][1] += e.count
+    return groups, wall
+
+
+def dense_phase(torch, dev, smi):
+    """Phase 12: full-width h2o_danube3_4b, packed, prefilled, decoded and
+    served."""
+    import numpy as np
+
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import dispatch as kd
+    from repro_torch.serving import synthetic_prompts
+
+    held = torch.cuda.memory_allocated()
+    cfg, model, store, t_build = zoo_build(torch, dev, arch=DENSE_ARCH)
+    L = cfg.n_layers
+    print(f"dense: {cfg.name} ({L} layers, d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.hd} over "
+          f"{cfg.kv_heads} KV heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, window {cfg.window}) from seed {SEED}: "
+          f"{store.dense_nbytes} B f32 -> {store.packed_nbytes} B packed FloatSD8 ({store.n_packed} leaves) in "
+          f"{t_build:.1f} s; {held} B held on the card before the build (the RWKV trees freed)", flush=True)
+    check(store.packed_nbytes == DENSE_BYTES and store.n_packed == 10,
+          f"dense resident bytes {store.packed_nbytes} != {DENSE_BYTES} ({store.n_packed} leaves packed)")
+    pol = get_policy("floatsd8_table6").replace(weight_quant="none")
+    tree = model.hoist(store.tree)
+    toks = torch.as_tensor(np.random.default_rng(SEED).integers(0, cfg.vocab, (ZOO_B, ZOO_S)), device=dev)
+    n_sites = DENSE_SITES * L + 1
+    out = {}
+
+    kd.STATS.reset()
+    zoo_counters(reset=True)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits = model.prefill(tree, {"tokens": toks}, pol)
+        torch.cuda.synchronize()
+        wall_first = time.perf_counter() - t0
+    launches, stats = zoo_counters(), kd.STATS.snapshot()
+    want = {"floatsd_matmul": n_sites, "qsigmoid": 0, "rwkv_wkv": 0, "flash_attention": L}
+    check(launches == want, f"dense prefill launches {launches} != {want}")
+    check(stats == {(op, "cuda"): n for op, n in want.items() if n}, f"dense prefill dispatch records {stats}")
+    check(tuple(logits.shape) == (ZOO_B, ZOO_S, cfg.vocab_padded()) and bool(torch.isfinite(logits).all()),
+          f"dense prefill logits {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        model.prefill(tree, {"tokens": toks}, pol)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    groups, wall_prof = profile_prefill(torch, model, tree, toks, pol)
+    busy = sum(ms for ms, _ in groups.values())
+    out["prefill"] = dict(launches=launches, wall_s=wall, tok_s=ZOO_B * ZOO_S / wall, profile=groups)
+    print(f"dense prefill: B {ZOO_B} x S {ZOO_S}: {wall * 1e3:.1f} ms wall ({wall_first * 1e3:.1f} ms the first), "
+          f"{ZOO_B * ZOO_S / wall:.0f} tok/s ({smi}); launches {launches} (per layer {DENSE_SITES} weight sites, "
+          f"1 attention; + the head); dispatch {dict((f'{o}/{b}', n) for (o, b), n in stats.items())}; logits "
+          f"finite, |max| {float(logits.abs().max()):.3f}. Profiled prefill: {wall_prof:.1f} ms wall, device busy "
+          f"{busy:.1f} ms: " + ", ".join(f"{grp} {ms:.1f} ms ({n} kernels)" for grp, (ms, n) in groups.items()),
+          flush=True)
+
+    kd.STATS.reset()
+    zoo_counters(reset=True)
+    dec, times = zoo_decode(torch, model, tree, toks, pol)
+    launches, stats = zoo_counters(), kd.STATS.snapshot()
+    with torch.no_grad():
+        cache = model.init_cache(1, pol, dev, cache_len=ZOO_DECODE)
+        n_ops = torch_ops(torch, lambda: model.decode_step(tree, toks[:1, :1], cache, pol))
+        del cache
+    want = {"floatsd_matmul": n_sites * ZOO_DECODE, "qsigmoid": 0, "rwkv_wkv": 0, "flash_attention": 0}
+    check(launches == want and sum(n for (_, b), n in stats.items() if b == "ref") == 0,
+          f"dense decode launches {launches} != {want}; dispatch {stats}")
+    check(bool(torch.isfinite(dec).all()), "dense decode: nonfinite logits")
+    served = positions_gap(torch, dec, logits[0, :ZOO_DECODE], DENSE_TOL)
+    fp32 = get_policy("fp32")
+    with torch.no_grad():
+        ref32 = model.prefill(tree, {"tokens": toks[:1, :ZOO_DECODE]}, fp32)[0]
+    dec32, _ = zoo_decode(torch, model, tree, toks, fp32)
+    plain = positions_gap(torch, dec32, ref32, DENSE_TOL)
+    check(plain["max"] <= DENSE_TOL, f"dense decode vs prefill, no activation quantizer: max err {plain['max']:.3e} "
+                                     f"of the scale {plain['scale']:.3f} (bound {DENSE_TOL})")
+    late, _ = zoo_decode(torch, model, tree, toks, fp32, late=1)
+    control = positions_gap(torch, late, ref32, DENSE_TOL)
+    check(control["max"] > DENSE_TOL, f"dense decode: the bound {DENSE_TOL} does not reject a cache one position "
+                                      f"late (max err {control['max']:.3e} of the scale)")
+    step = statistics.median(times[1:])
+    out["decode"] = dict(launches=launches, step_ms=step * 1e3, tok_s=1 / step, aten_ops=n_ops, served=served,
+                         plain=plain, late_control=control)
+    print(f"dense decode: {ZOO_DECODE} steps of sequence 0 (B 1): median step {step * 1e3:.2f} ms, {1 / step:.1f} "
+          f"tok/s ({smi}), {n_ops} ATen operations a step; launches {launches}. Against the prefill's logits at "
+          f"positions 0-{ZOO_DECODE - 1}: with no activation quantizer (policy fp32, the same codes) max err "
+          f"{plain['max']:.3e} of the scale {plain['scale']:.3f} (bound {DENSE_TOL}; position {ZOO_DECODE - 1}: "
+          f"{plain['last']:.3e}), argmax equal at {plain['argmax']} of {ZOO_DECODE}; negative control, the cache one "
+          f"position late: max err {control['max']:.3e}, beyond the bound from position {control['first']}; under "
+          f"floatsd8_table6 "
+          f"(reported) max err {served['max']:.3e} of the scale {served['scale']:.3f}, within {DENSE_TOL} up to "
+          f"position {served['first'] - 1}, argmax equal at {served['argmax']} of {ZOO_DECODE}", flush=True)
+    del logits, ref32, dec, dec32, late
+
+    prompts = synthetic_prompts(ZOO_LANES, cfg.vocab, np.random.default_rng(SEED))
+    kd.STATS.reset()
+    zoo_counters(reset=True)
+    eng, reqs, times = zoo_serve(torch, model, store.tree, get_policy("floatsd8_table6"), prompts,
+                                 cache_len=DENSE_CACHE_LEN)
+    launches, stats = zoo_counters(), kd.STATS.snapshot()
+    m = eng.metrics
+    kv = eng.pool.caches["stack"]["b0"]
+    kv_bytes = kv.k.numel() * kv.k.element_size() + kv.v.numel() * kv.v.element_size()
+    check(eng.chunk == 1 and eng.store.packed_nbytes == DENSE_BYTES and kv_bytes == DENSE_KV_BYTES,
+          f"dense engine: chunk {eng.chunk}, store {eng.store.packed_nbytes}, KV cache {kv_bytes} B")
+    check(all(r.status == "done" and len(r.out) == ZOO_MAX_NEW for r in reqs) and m.numeric_errors == 0,
+          f"dense engine: {[r.status for r in reqs]}, {m.numeric_errors} nonfinite")
+    want = {"floatsd_matmul": n_sites * m.steps, "qsigmoid": 0, "rwkv_wkv": 0, "flash_attention": 0}
+    check(launches == want and sum(n for (_, b), n in stats.items() if b == "ref") == 0,
+          f"dense engine launches {launches} != {want}; dispatch {stats}")
+    step = statistics.median(times)
+    out["engine"] = dict(launches=launches, step_ms=step * 1e3, gen_tok_s=m.report()["gen_tok_per_s"],
+                         lane_tok_s=ZOO_LANES / step)
+    print(f"dense engine: {m.format()}; KV cache {kv_bytes} B ({DENSE_CACHE_LEN} positions); median step "
+          f"{step * 1e3:.2f} ms over {len(times)} steps at {ZOO_LANES} lanes = {ZOO_LANES / step:.1f} tok/s ({smi}); "
+          f"launches {launches}", flush=True)
+    out["launches"] = {op: sum(out[p]["launches"][op] for p in ("prefill", "decode", "engine")) for op in want}
+    del eng, store, tree, kv
+    torch.cuda.empty_cache()
+    return out
+
+
+def dense_x_phase(torch, dev, smi):
+    """Phase 13: the dense path at full width and DENSE_X_LAYERS layers on
+    the kernels against backend="ref" (the plain versions) on the card."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import dispatch as kd
+    from repro_torch.serving import synthetic_prompts
+
+    cfg, model, store, _ = zoo_build(torch, dev, DENSE_X_LAYERS, arch=DENSE_ARCH)
+    tree = model.hoist(store.tree)
+    toks = torch.as_tensor(np.random.default_rng(SEED).integers(0, cfg.vocab, (ZOO_B, ZOO_S)), device=dev)
+    gaps = {}
+    for name in ("fp32", "floatsd8_table6"):
+        pol = get_policy(name).replace(weight_quant="none")
+        with torch.no_grad():
+            got = model.prefill(tree, {"tokens": toks}, pol)
+            t0 = time.perf_counter()
+            with kd.use_backend("ref"):
+                want = model.prefill(tree, {"tokens": toks}, pol)
+            torch.cuda.synchronize()
+            t_ref = time.perf_counter() - t0
+        gaps[name] = positions_gap(torch, got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1]),
+                                   DENSE_X_TOL)
+        gaps[name]["bit_equal"] = float((got == want).float().mean())
+        del got, want
+    g32, g8 = gaps["fp32"], gaps["floatsd8_table6"]
+    check(g32["max"] <= DENSE_X_TOL, f"dense-x prefill logits, no activation quantizer: max err {g32['max']:.3e} "
+                                     f"of the scale {g32['scale']:.3f} (bound {DENSE_X_TOL})")
+    prompts = synthetic_prompts(ZOO_LANES, cfg.vocab, np.random.default_rng(SEED))
+    pol8 = get_policy("floatsd8_table6")
+    _, reqs, _ = zoo_serve(torch, model, store.tree, pol8, prompts, cache_len=DENSE_CACHE_LEN)
+    _, refs, ref_times = zoo_serve(torch, model, store.tree, pol8, prompts, backend="ref", cache_len=DENSE_CACHE_LEN)
+    decisive = agree = 0
+    for r, ref in zip(reqs, refs):
+        n = next((i for i, g in enumerate(ref.margins) if g <= MARGIN_FLOOR), ZOO_MAX_NEW)
+        check(r.out[:n] == ref.out[:n], f"dense-x: request {r.rid}: {r.out} vs plain {ref.out} (decisive {n})")
+        decisive += n
+        agree += r.out == ref.out
+    check(decisive >= ZOO_LANES * ZOO_MAX_NEW // 2, f"dense-x: only {decisive} decisive tokens")
+    print(f"dense-x ({DENSE_X_LAYERS} of {get_config(DENSE_ARCH).n_layers} layers at full width, kernels vs "
+          f"backend='ref' on the card): prefill logits [{ZOO_B},{ZOO_S}] with no activation quantizer (policy "
+          f"fp32, the same codes) max err {g32['max']:.3e} of the scale {g32['scale']:.3f} (bound {DENSE_X_TOL}), "
+          f"{g32['bit_equal']:.2%} bit-equal; under floatsd8_table6 (reported) max err {g8['max']:.3e} of the "
+          f"scale {g8['scale']:.3f}, {g8['bit_equal']:.2%} bit-equal, every position within {DENSE_X_TOL} up to "
+          f"{g8['first']} of {ZOO_B * ZOO_S} (flattened), argmax equal at {g8['argmax']}; plain prefill "
+          f"{t_ref:.2f} s; engine ({ZOO_LANES} lanes, {ZOO_MAX_NEW} new tokens, floatsd8_table6): {decisive} of "
+          f"{ZOO_LANES * ZOO_MAX_NEW} tokens margin-decisive (floor {MARGIN_FLOOR}) and equal, {agree} of "
+          f"{ZOO_LANES} streams equal in full; plain decode step {statistics.median(ref_times) * 1e3:.1f} ms",
+          flush=True)
+    del store, tree
+    torch.cuda.empty_cache()
+    return gaps
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1211,6 +1602,8 @@ def main() -> int:
     mm4, quant, qsig = kernel_phase4(torch, dev, flush)
     wkv = wkv_phase(torch, dev, flush)
     zmm = zoo_matmul_phase(torch, dev, flush)
+    dmm = zoo_matmul_phase(torch, dev, flush, DENSE_ARCH, DENSE_MM_SITES, SEED + 5)
+    fa = flash_phase(torch, dev, flush)
     del flush
 
     # 4. the main path at full width
@@ -1270,11 +1663,18 @@ def main() -> int:
     zoo = zoo_phase(torch, dev, smi)
     zoo_x_phase(torch, dev, smi)
 
+    # 12-13. the dense family: h2o_danube3_4b at full width (the RWKV trees
+    # are freed), then its kernel-vs-plain cross-check
+    torch.cuda.empty_cache()
+    dense = dense_phase(torch, dev, smi)
+    dense_x_phase(torch, dev, smi)
+
     # result lines: each kernel's time per decode step (serving), per train
     # step, or per entry-point pass, from the kernel phase's per-launch times
     # and the launch counts of each path
     L, S = cfg.n_layers, 48
     ZL = zoo["prefill"]["launches"]["rwkv_wkv"]  # the zoo's layers
+    DL = dense["prefill"]["launches"]["flash_attention"]  # the dense model's layers
     serve_mm = [(2 * L, mm[("gate", 8)]), (1, mm[("head", 8)])]
     train_mm = [(2 * L * S, mm[("gate", 64)]), (2 * L, mm[("remat", 3072)])]
     entries = [
@@ -1306,9 +1706,13 @@ def main() -> int:
         ("rwkv_wkv", "rwkv_wkv/rwkv_wkv.cu", "rwkv_wkv/kernel.py:27", wkv.values(),
          [(ZL, wkv[(ZOO_S, -2.0)])], f"zoo prefill at B {ZOO_B} x S {ZOO_S}: {ZL} x r, k, w [2,1024,40,64], "
          "v [2,1024,40,64] -> y, final state; library call: none", None, None),
+        ("flash_attention", "flash_attention/flash_attention.cu", "flash_attention/kernel.py:27", fa.values(),
+         [(DL, fa["prefill"])], f"dense prefill at B {ZOO_B} x S {ZOO_S}: {DL} x q [2,1024,32,120], k, v "
+         "[2,1024,8,120] f32, causal (window 4096 inactive); library: scaled_dot_product_attention(is_causal=True, "
+         "enable_gqa=True)", None, None),
     ]
     paths = {"serve": launches, "train": tr_launches, "serve4": s4["launches"], "entry": ent["launches"],
-             "zoo": zoo["launches"]}
+             "zoo": zoo["launches"], "dense": dense["launches"]}
     # the zoo prefill's share of the kernels it shares with the LSTM paths
     zoo_prefill = {
         "floatsd_matmul": ([(6 * ZL, zmm[("dd", ZOO_B * ZOO_S)]), (ZL, zmm[("cmix-k", ZOO_B * ZOO_S)]),
@@ -1335,6 +1739,14 @@ def main() -> int:
             rec["zoo_prefill"] = {**composite(z_parts), "per": z_per}
         if name == "floatsd_matmul":
             rec["zoo_decode_step"] = {**composite(zoo_decode[0]), "per": zoo_decode[1]}
+            for key, m, what in (("dense_prefill", ZOO_B * ZOO_S, f"dense prefill at B {ZOO_B} x S {ZOO_S}"),
+                                 ("dense_decode_step", ZOO_LANES, f"dense decode step at {ZOO_LANES} lanes")):
+                parts = [(2 * DL, dmm[("wq-wo", m)]), (2 * DL, dmm[("wk-wv", m)]), (2 * DL, dmm[("wi-wg", m)]),
+                         (DL, dmm[("ffn-wo", m)]), (1, dmm[("head", m)])]
+                rec[key] = {**composite(parts), "per": f"{what}: {DENSE_SITES * DL + 1} sites at M = {m}"}
+        if name in dense["prefill"]["profile"]:
+            ms, n = dense["prefill"]["profile"][name]
+            rec["dense_prefill_profiled"] = {"device_ms": ms, "kernels": n}
         record["kernels"].append(rec)
     check(all(k["launches"] > 0 for k in record["kernels"]), "a kernel never launched on the main path")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -49,6 +49,7 @@ KERNELS = {
     # shares the cell's sigmoid (lstm_cell_common.cuh) and its rounding
     "qsigmoid": ("qsigmoid", ("--fmad=false",)),
     "rwkv_wkv": ("rwkv_wkv", ()),
+    "flash_attention": ("flash_attention", ()),
 }
 
 _LOCK = threading.Lock()

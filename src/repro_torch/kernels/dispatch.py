@@ -4,8 +4,9 @@ plain PyTorch version.
 Counterpart of ``repro.kernels.dispatch``: the serving ops over FloatSD8
 (``PackedTensor``) and FloatSD4 (``PackedTensor4``) weights, the backward
 ops and weight hoists of the fused quantized-BPTT training path, and the
-element-wise ``quantize`` and ``qsigmoid`` entry points, and the chunked
-RWKV-6 ``rwkv_wkv`` of the model zoo's prefill. The resolver
+element-wise ``quantize`` and ``qsigmoid`` entry points, the chunked
+RWKV-6 ``rwkv_wkv`` of the model zoo's prefill, and the dense family's
+``flash_attention``. The resolver
 has one rule: a tensor on the card goes to the kernel, a tensor on the CPU
 to the plain version. The only override is ``backend="ref"`` (an argument,
 or ``use_backend("ref")`` around a whole model call), which runs the plain
@@ -26,6 +27,8 @@ import numpy as np
 import torch
 
 from ..core import floatsd, floatsd4
+from .flash_attention import ops as fa_ops
+from .flash_attention.ref import flash_attention_gqa
 from .floatsd4_matmul import ops as fm4_ops
 from .floatsd4_matmul.ref import floatsd4_matmul_ref
 from .floatsd_matmul import ops as fm_ops
@@ -44,7 +47,7 @@ __all__ = [
     "DispatchStats", "STATS", "use_backend", "matmul", "lstm_cell",
     "packed_einsum", "hoist_packed", "matmul_dx", "matmul_dw", "lstm_cell_grad",
     "pack_train", "hoist_train", "PackedTensor4", "is_packed4", "is_any_packed", "pack4",
-    "unpack4", "matmul4", "quantize", "qsigmoid", "rwkv_wkv",
+    "unpack4", "matmul4", "quantize", "qsigmoid", "rwkv_wkv", "flash_attention",
 ]
 
 BACKENDS = ("ref", "cuda")
@@ -375,7 +378,7 @@ def qsigmoid(x: torch.Tensor, *, backend: str | None = None) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# the model zoo's recurrence
+# the model zoo's recurrence and attention
 # ---------------------------------------------------------------------------
 
 
@@ -394,3 +397,22 @@ def rwkv_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     out = wkv_ref(r, k, v, w, u) if dec.backend == "ref" else rw_ops.rwkv_wkv(r, k, v, w, u)
     STATS.record(dec)
     return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                    window: int | None = None, backend: str | None = None) -> torch.Tensor:
+    """Self-attention over contiguous positions from 0 in the model layout:
+    q [B, Sq, H, D], k, v [B, Skv, Kh, D] (query head h reads KV head h //
+    (H / Kh)), causal and an optional sliding window -> [B, Sq, H, D] in
+    q's dtype. The kernel walks KV tiles of its own size with the running
+    softmax state on chip; the plain version is the model's chunked online
+    softmax (1024 query rows against 512 keys at a time, the reference
+    model's split), the same function: both round p and v to bf16 before
+    their product."""
+    dec = _decide("flash_attention", q, backend)
+    if dec.backend == "ref":
+        o = flash_attention_gqa(q, k, v, causal=causal, window=window)
+    else:
+        o = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    STATS.record(dec)
+    return o

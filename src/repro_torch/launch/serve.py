@@ -6,14 +6,17 @@ random weights from ``--seed``, packs them to 1-byte FloatSD8 codes (or, with
 codes), and drains a synthetic workload through ``ServeEngine`` (continuous
 batching, chunked prefill, greedy decoding). On the card every weight site,
 the tied head and the cell run the hand-written CUDA kernels. A model-zoo
-arch (``--arch rwkv6_3b``) serves its reduced config, as the reference CLI
-does: lockstep one-token steps, each lane once, so ``--requests`` must not
-exceed ``--batch``; its full width is driven from the API (``chip_smoke.py``).
+arch (``--arch rwkv6_3b``, ``--arch h2o_danube3_4b`` or another dense
+config) serves its reduced config, as the reference CLI does: lockstep
+one-token steps, each lane once, so ``--requests`` must not exceed
+``--batch``, and an attention model gets a KV cache of 2048 positions; its
+full width is driven from the API (``chip_smoke.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu   # reduced, CPU
   PYTHONPATH=src python -m repro_torch.launch.serve --full         # 1024-wide LM, GPU
   PYTHONPATH=src python -m repro_torch.launch.serve --full --weight-format floatsd4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_3b --device cpu --requests 4 --batch 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o_danube3_4b --device cpu --requests 4 --batch 4
 """
 from __future__ import annotations
 
@@ -59,7 +62,8 @@ def main(argv=None):
     prompts = synthetic_prompts(args.requests, cfg.vocab, np.random.default_rng(args.seed))
 
     engine = ServeEngine(model, params, policy, lanes=args.batch, chunk=args.chunk,
-                         weight_format=args.weight_format)
+                         weight_format=args.weight_format,
+                         cache_len=None if cfg.family == "lstm" else 2048)
     s = engine.store
     print(
         f"weights: {s.dense_nbytes/2**20:.1f} MiB dense -> "

@@ -1,13 +1,14 @@
 """Causal language models of the model zoo, and the loss helpers.
 
 Counterpart of ``repro.models.lm``: ``CausalLM`` for the ``ssm`` family
-(RWKV-6: embedding -> stack of RWKV blocks -> final norm -> tied head),
-with the reference's parameter names (``embed/table``,
-``stack/b0/<leaf>`` stacked over the layers, ``final_norm``), so
-``repro_torch.bridge`` carries a JAX model or its packed store across
-unchanged. The other families raise until they are ported (``ROADMAP.md``
-Queue 1 item 10). Inference only (forward, loss, prefill, decode): the
-zoo's training is not ported.
+(RWKV-6) and the ``dense`` family (attention + FFN blocks): embedding ->
+stack of blocks -> final norm -> tied head, with the reference's parameter
+names (``embed/table``, ``stack/b0/<leaf>`` stacked over the layers,
+``final_norm``), so ``repro_torch.bridge`` carries a JAX model or its
+packed store across unchanged. The ``moe``, ``hybrid``, ``audio`` and
+``vlm`` families raise until they are ported (``ROADMAP.md`` Queue 1 item
+8). Inference only (forward, loss, prefill, decode): the zoo's training is
+not ported.
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ import torch
 from ..configs.base import ArchConfig
 from ..core.policy import Policy
 from ..device import resolve_device
+from ..nn.attention import Attention
+from ..nn.ffn import FFN
 from ..nn.linear import QuantEmbedding
 from ..nn.norms import LayerNorm, RMSNorm
 from ..nn.rwkv import RWKV6ChannelMix, RWKV6TimeMix
@@ -52,8 +55,8 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return (nll * mk).sum() / torch.clamp(mk.sum(), min=1.0)
 
 
-#: dtype of the decode cache's shift tokens (the wkv state is f32), as the
-#: reference's ``CausalLM.cache_dtype`` defaults
+#: dtype of the decode cache (the KV cache, the RWKV shift tokens; the wkv
+#: state is f32), as the reference's ``CausalLM.cache_dtype`` defaults
 CACHE_DTYPE = torch.bfloat16
 
 
@@ -62,16 +65,24 @@ class CausalLM:
     cfg: ArchConfig
 
     def __post_init__(self):
-        if self.cfg.family != "ssm":
+        if self.cfg.family not in ("ssm", "dense"):
             raise NotImplementedError(
-                f"the port's CausalLM builds the ssm family (RWKV-6) only; family "
-                f"{self.cfg.family!r} ({self.cfg.name}) is still to port (ROADMAP.md Queue 1 item 10)")
+                f"the port's CausalLM builds the ssm (RWKV-6) and dense families; family "
+                f"{self.cfg.family!r} ({self.cfg.name}) is still to port (ROADMAP.md Queue 1 item 8)")
+
+    def _block(self) -> Block:
+        """The stack's one block (the reference's one-block period)."""
+        c = self.cfg
+        if c.family == "dense":
+            attn = Attention(c.d_model, c.n_heads, c.kv_heads, head_dim=c.hd, window=c.window, rope=c.rope,
+                             rope_theta=c.rope_theta, qkv_bias=c.qkv_bias)
+            return Block(c.d_model, attn=attn, ffn_mod=FFN(c.d_model, c.d_ff, kind=c.ffn_kind),
+                         norm=c.norm)
+        return Block(c.d_model, rwkv_mod=RWKV6TimeMix(c.d_model, c.rwkv_head_dim),
+                     cmix_mod=RWKV6ChannelMix(c.d_model, c.d_ff), norm=c.norm)
 
     def _stack(self) -> Stack:
-        c = self.cfg
-        block = Block(c.d_model, RWKV6TimeMix(c.d_model, c.rwkv_head_dim),
-                      RWKV6ChannelMix(c.d_model, c.d_ff), norm=c.norm)
-        return Stack(block, c.n_layers)
+        return Stack(self._block(), self.cfg.n_layers)
 
     def _embed(self) -> QuantEmbedding:
         return QuantEmbedding(self.cfg.vocab_padded(), self.cfg.d_model)
@@ -112,12 +123,18 @@ class CausalLM:
         """The teacher-forced pass over a whole prompt: its logits."""
         return self.forward(p, batch_dict, policy)[0]
 
-    def init_cache(self, batch: int, policy: Policy | None = None, device=None):
-        """Zero decode state: per layer the [B, H, K, V] f32 wkv state and
-        the two shift tokens in ``CACHE_DTYPE``, layer-major. ``policy`` is
-        unused (the serving pool passes it to every model)."""
+    def init_cache(self, batch: int, policy: Policy | None = None, device=None,
+                   cache_len: int | None = None):
+        """Zero decode state, layer-major: per layer a KV cache of
+        min(cache_len, window) positions in ``CACHE_DTYPE`` (dense; the
+        reference's ``s_max``), or the [B, H, K, V] f32 wkv state and the
+        two shift tokens in ``CACHE_DTYPE`` (ssm; ``cache_len`` unused).
+        ``policy`` is unused (the serving pool passes it to every model)."""
         del policy
-        return {"stack": self._stack().init_cache(batch, CACHE_DTYPE, resolve_device(device))}
+        if self.cfg.family == "dense" and cache_len is None:
+            raise ValueError(f"{self.cfg.name}: an attention model's cache needs cache_len")
+        return {"stack": self._stack().init_cache(batch, cache_len, CACHE_DTYPE,
+                                                  resolve_device(device))}
 
     def decode_step(self, p, tokens: torch.Tensor, caches, policy: Policy):
         """tokens [B, 1] -> (logits [B, 1, vocab padded], new caches)."""

@@ -78,9 +78,9 @@ class WikiText2LM:
         lg = mask_padded_vocab(lg, self.vocab)
         return cross_entropy(lg, batch["labels"], batch.get("mask"))
 
-    def init_cache(self, batch: int, policy: Policy, device) -> list[LSTMState]:
+    def init_cache(self, batch: int, policy: Policy, device, cache_len: int | None = None) -> list[LSTMState]:
         """Zero recurrent state per layer: h in the compute dtype, c in the
-        cell dtype."""
+        cell dtype (``cache_len``, an attention model's, is unused)."""
         hdt = policy.cdt() or torch.float32
         return [
             LSTMState(

@@ -1,4 +1,5 @@
-"""Quantized weight sites: the embedding and the matmul primitives.
+"""Quantized weight sites: the embedding, the dense layer and the matmul
+primitives.
 
 Counterpart of ``repro.nn.linear``. Weights are FloatSD8 (dense fake-quant
 with a straight-through gradient to the master copy, or packed codes that
@@ -24,7 +25,7 @@ from ..kernels.floatsd_matmul.ref import no_tf32
 from .module import truncated_normal_init
 
 __all__ = [
-    "QuantEmbedding", "quant_act", "quant_weight", "policy_einsum",
+    "QuantDense", "QuantEmbedding", "quant_act", "quant_weight", "policy_einsum",
     "quant_einsum",
 ]
 
@@ -97,6 +98,29 @@ def quant_einsum(eq: str, x: torch.Tensor, w, policy: Policy, site: str = "hidde
     else:
         y = policy_einsum(eq, xq.to(cdt), quant_weight(w, policy).to(cdt), policy)
     return y.to(cdt)
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantDense:
+    """A weight site with an optional bias: x [..., in] @ w [in, out] (+ b),
+    both operands quantized per policy, f32 accumulation. A packed ``w``
+    runs the matmul kernel."""
+
+    in_dim: int
+    out_dim: int
+    use_bias: bool = True
+
+    def init(self, generator: torch.Generator):
+        p = {"w": truncated_normal_init(generator, (self.in_dim, self.out_dim))}
+        if self.use_bias:
+            p["b"] = torch.zeros((self.out_dim,), dtype=torch.float32, device=generator.device)
+        return p
+
+    def apply(self, p, x: torch.Tensor, policy: Policy, site: str = "hidden") -> torch.Tensor:
+        y = quant_einsum("...d,df->...f", x, p["w"], policy, site)
+        if self.use_bias:
+            y = y + p["b"].to(y.dtype)
+        return y
 
 
 class _GatherRows(torch.autograd.Function):

@@ -13,9 +13,12 @@ S > 1, S % 16 == 0) runs ``dispatch.rwkv_wkv``, the hand-written chunked
 kernel on the card. The reference computes that case with its XLA chunked
 scan (``_wkv_chunked``); its Pallas kernel computes the same function but
 no model module calls it, so routing the model to the kernel is a recorded
-deviation (``ROADMAP.md`` Queue 3). Every other call, each decode step
-included, runs the per-token recurrence ``_wkv_sequential`` in plain torch
-ops, as the reference does.
+deviation (``ROADMAP.md`` Queue 3). Every other call runs the per-token
+recurrence ``_wkv_sequential`` in plain torch ops. For S = 1 (each decode
+step) and S % 16 != 0 the reference does the same; for S > 1, S % 16 == 0
+from a carried state it takes its chunked scan from that state, and the
+port the per-token loop, the same function (no caller passes such a
+state: decode is S = 1, and a prefill starts from zero).
 
 A served model's weight sites (``WEIGHT_SITES``) may be FloatSD8-packed:
 they hand their codes to the kernel dispatch. Every other leaf is a

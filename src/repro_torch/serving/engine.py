@@ -29,7 +29,8 @@ A model whose ``decode_step`` takes no ``lengths`` (the zoo's
 ``CausalLM``) advances its lanes in lockstep, one token a step (``chunk``
 is forced to 1), and its layer-major cache cannot be reset per lane, so
 such an engine serves at most ``lanes`` requests: ``run`` refuses a larger
-queue, and re-arming a used lane raises, as in the reference.
+queue, and re-arming a used lane raises, as in the reference. An attention
+model's KV cache holds ``cache_len`` positions (at most its window).
 """
 from __future__ import annotations
 
@@ -72,7 +73,7 @@ class ServeEngine:
 
     def __init__(self, model, params, policy, lanes: int = 8, chunk: int = 8,
                  admission: str = "fifo", backend: str | None = None,
-                 weight_format: str = "floatsd8"):
+                 weight_format: str = "floatsd8", cache_len: int | None = None):
         if chunk < 1:
             raise ValueError("chunk must be >= 1")
         if weight_format not in WEIGHT_FORMATS:
@@ -107,7 +108,7 @@ class ServeEngine:
             x.codes.device for x in tree_leaves(self.serve_params, is_leaf=kd.is_any_packed)
             if kd.is_any_packed(x)
         )
-        self.pool = StatePool.for_model(model, lanes, policy, self.device)
+        self.pool = StatePool.for_model(model, lanes, policy, self.device, cache_len)
         # Re-arming a used lane needs a per-lane reset of every cache leaf:
         # lane-major leaves, and lengths support (a layer-major stack whose
         # layer count equals ``lanes`` would pass the shape test alone).

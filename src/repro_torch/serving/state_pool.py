@@ -5,8 +5,9 @@ decode lanes for the whole process; each lane's LSTM (h, c) lives at a fixed
 batch index of one list of per-layer states. Re-arming a lane zeroes exactly
 that lane's slices: ``masked_reset`` runs at the top of the engine's step.
 The zoo's ``CausalLM`` keeps a layer-major cache ([layers, lanes, ...] per
-leaf), which ``masked_reset`` passes through, as the reference's does; the
-engine serves such a model in lockstep, each lane once.
+leaf: the RWKV state, or the dense family's KV cache of ``cache_len``
+positions), which ``masked_reset`` passes through, as the reference's
+does; the engine serves such a model in lockstep, each lane once.
 """
 from __future__ import annotations
 
@@ -41,8 +42,11 @@ class StatePool:
         self.lanes = lanes
 
     @classmethod
-    def for_model(cls, model, lanes: int, policy, device) -> "StatePool":
-        return cls(model.init_cache(lanes, policy, device), lanes)
+    def for_model(cls, model, lanes: int, policy, device, cache_len: int | None = None) -> "StatePool":
+        """Allocate through the model's ``init_cache``: the LSTM's states
+        follow the policy; an attention model's KV cache takes
+        ``cache_len`` positions, as the reference's pool gives it."""
+        return cls(model.init_cache(lanes, policy, device, cache_len=cache_len), lanes)
 
     def reset(self, mask) -> None:
         """Host-initiated masked reset (the engine folds it into its step)."""

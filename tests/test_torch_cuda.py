@@ -24,7 +24,20 @@ chunked-vs-recurrence bound) or, where a value cancels far below its terms
 (slow decay over 1024 tokens), within 1e-5 of the sum of the terms'
 magnitudes, outputs and final states, and bit for bit
 from one launch to the next; the reduced RWKV-6 model on the kernels
-against its plain versions on the card within 1e-4 of the logit scale.
+against its plain versions on the card within 1e-4 of the logit scale;
+the flash-attention kernel against both its plain versions (the f32
+oracle and the model's chunked online softmax) within rtol 2e-2, atol 6e-3
+on f32 inputs and rtol 3e-2, atol 2e-2 on bf16 ones (the JAX package's
+kernel-vs-oracle bounds: p and v are rounded to bf16 before their
+product), and bit for bit from one launch to the next; the reduced dense
+model on the kernels against its plain versions within one bf16 step
+(2^-8) of the logit scale with no activation quantizer (the two attentions
+round p to bf16 from scores that differ in their last bits: a p on a
+rounding boundary lands one step apart; seen 1.1e-3), and its decode
+steps within 1e-2 of
+it from its prefill (a bf16 KV cache against bf16 p and v: at this config
+and a default init, whose logits stay below 1, the JAX package's own gap
+is 3.1e-3 to 3.9e-3 over three seeds).
 """
 import pytest
 
@@ -46,6 +59,8 @@ from repro_torch.kernels.floatsd4_matmul.ref import floatsd4_matmul_ref  # noqa:
 from repro_torch.kernels.floatsd_quantize.ops import floatsd_quantize  # noqa: E402
 from repro_torch.kernels.lstm_cell.ops import lstm_cell, lstm_cell_grad  # noqa: E402
 from repro_torch.kernels.qsigmoid.ops import qsigmoid  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import flash_attention_gqa, flash_attention_ref  # noqa: E402
 from repro_torch.kernels.rwkv_wkv.ops import rwkv_wkv  # noqa: E402
 from repro_torch.kernels.rwkv_wkv.ref import wkv_ref  # noqa: E402
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_bwd_ref, lstm_cell_ref  # noqa: E402
@@ -474,3 +489,120 @@ def test_reduced_rwkv_on_the_kernels_matches_its_plain_versions(dev):
     torch.cuda.synchronize()
     assert counts == {("rwkv_wkv", "cuda"): 2, ("qsigmoid", "cuda"): 4, ("floatsd_matmul", "cuda"): 17}
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+
+
+# (B, Sq, Skv, H, Kh, D, causal, window, dtype): MHA; GQA G = 4 at D 120 with
+# the window biting and a ragged S; MQA at S 1000 (ragged, D 128); no causal
+# mask; bf16; more queries than keys under a window (rows 109.. admit no
+# key: every tile runs and the row averages v, as the oracle's)
+FLASH_SHAPES = [
+    (2, 256, 256, 4, 4, 64, True, None, torch.float32),
+    (2, 200, 200, 8, 2, 120, True, 64, torch.float32),
+    (1, 1000, 1000, 4, 1, 128, True, 300, torch.float32),
+    (2, 130, 130, 4, 1, 120, False, None, torch.float32),
+    (1, 300, 300, 8, 2, 120, True, 100, torch.bfloat16),
+    (1, 150, 70, 2, 1, 32, True, 40, torch.float32),
+]
+
+
+def _flash_inputs(dev, b, sq, skv, h, kh, d, dtype, seed=0):
+    g = _gen(dev, seed + sq * h + d)
+    q = torch.randn((b, sq, h, d), device=dev, generator=g) * 2  # peaked attention
+    k, v = (torch.randn((b, skv, kh, d), device=dev, generator=g) for _ in range(2))
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def _flash_oracle(q, k, v, causal, window):
+    """The [BH, S, D] oracle on the model layout, K and V expanded."""
+    b, sq, h, d = q.shape
+    skv, g = k.shape[1], h // k.shape[2]
+    ex = lambda t: t.repeat_interleave(g, dim=2).permute(0, 2, 1, 3).reshape(b * h, skv, d)  # noqa: E731
+    o = flash_attention_ref(q.permute(0, 2, 1, 3).reshape(b * h, sq, d), ex(k), ex(v), causal, window)
+    return o.reshape(b, h, sq, d).permute(0, 2, 1, 3)
+
+
+def _assert_flash_close(got, want):
+    rtol, atol = (2e-2, 6e-3) if want.dtype == torch.float32 else (3e-2, 2e-2)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,kh,d,causal,window,dtype", FLASH_SHAPES)
+def test_flash_attention_kernel_matches_both_plain_versions(dev, b, sq, skv, h, kh, d, causal, window, dtype):
+    q, k, v = _flash_inputs(dev, b, sq, skv, h, kh, d, dtype)
+    n0 = flash_attention.launches
+    o = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1 and o.shape == q.shape and o.dtype == dtype and o.is_contiguous()
+    _assert_flash_close(o, _flash_oracle(q, k, v, causal, window))
+    _assert_flash_close(o, flash_attention_gqa(q, k, v, causal=causal, window=window))
+    o2 = flash_attention(q, k, v, causal=causal, window=window)  # a second launch: the same bits
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_reads_strided_inputs_and_raises(dev):
+    """q, k, v read in place from a fused [B, S, (H + 2 Kh) D] projection
+    (strided heads); an unsupported dtype, D or head split raises and
+    launches nothing."""
+    b, s, h, kh, d = 2, 77, 4, 2, 64
+    qkv = torch.randn((b, s, (h + 2 * kh) * d), device=dev, generator=_gen(dev, 9))
+    q = qkv[..., :h * d].view(b, s, h, d)
+    k = qkv[..., h * d:(h + kh) * d].view(b, s, kh, d)
+    v = qkv[..., (h + kh) * d:].view(b, s, kh, d)
+    assert not q.is_contiguous()
+    o = flash_attention(q, k, v, window=30)
+    _assert_flash_close(o, flash_attention_gqa(q.contiguous(), k.contiguous(), v.contiguous(), window=30))
+    n0 = flash_attention.launches
+    with pytest.raises(ValueError, match="f32 or all bf16"):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):
+        flash_attention(q, k[..., :32], v[..., :32])  # D disagrees
+    big = torch.zeros((1, 8, 1, 129), device=dev)
+    with pytest.raises(ValueError):
+        flash_attention(big, big, big)  # D > 128
+    with pytest.raises(ValueError):
+        flash_attention(q[:, :, :3], k, v)  # 2 KV heads do not divide 3
+    assert flash_attention.launches == n0
+
+
+@pytest.mark.cuda
+def test_dispatch_routes_flash_attention_to_the_kernel(dev):
+    q, k, v = _flash_inputs(dev, 1, 64, 64, 4, 2, 32, torch.float32)
+    kd.STATS.reset()
+    o = kd.flash_attention(q, k, v, window=16)
+    o_ref = kd.flash_attention(q, k, v, window=16, backend="ref")
+    torch.cuda.synchronize()
+    assert kd.STATS.snapshot() == {("flash_attention", "cuda"): 1, ("flash_attention", "ref"): 1}
+    _assert_flash_close(o, o_ref)
+
+
+@pytest.mark.cuda
+def test_reduced_dense_on_the_kernels_matches_its_plain_versions(dev):
+    """The reduced h2o_danube3_4b served on the card: the prefill (the
+    window of 64 biting at S 96) with flash_attention and floatsd_matmul on
+    their kernels against backend="ref" on the card, and its decode steps
+    against the prefill, with no activation quantizer."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import CausalLM
+    from repro_torch.serving import WeightStore
+
+    cfg = get_config("h2o_danube3_4b").reduced()
+    model = CausalLM(cfg)
+    pol = get_policy("fp32")
+    tree = model.hoist(WeightStore.pack(model.init(_gen(dev, 3))).tree)
+    toks = torch.randint(0, cfg.vocab, (2, 96), device=dev, generator=_gen(dev, 4))
+    kd.STATS.reset()
+    with torch.no_grad():
+        got = model.prefill(tree, {"tokens": toks}, pol)
+        counts = kd.STATS.snapshot()
+        with kd.use_backend("ref"):
+            want = model.prefill(tree, {"tokens": toks}, pol)
+        scale = max(1.0, float(want.abs().max()))
+        assert counts == {("flash_attention", "cuda"): 2, ("floatsd_matmul", "cuda"): 15}
+        torch.testing.assert_close(got, want, rtol=0, atol=2.0 ** -8 * scale)
+        cache = model.init_cache(2, pol, dev, cache_len=128)
+        for t in range(70):
+            lg, cache = model.decode_step(tree, toks[:, t:t + 1], cache, pol)
+            torch.testing.assert_close(lg[:, 0], got[:, t], rtol=0, atol=1e-2 * scale)

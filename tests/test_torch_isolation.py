@@ -78,3 +78,18 @@ def test_walk_reaches_the_rwkv_zoo_modules():
     assert {"repro_torch.kernels.rwkv_wkv.ops", "repro_torch.kernels.rwkv_wkv.ref"} <= names
     assert {f"repro_torch.nn.{m}" for m in ("module", "norms", "rwkv", "transformer")} <= names
     assert {"repro_torch.models.lm", "repro_torch.configs.rwkv6_3b"} <= names
+
+
+def test_walk_reaches_the_dense_modules():
+    """The blocked import above walks the dense slice too: the attention
+    kernel, the attention, RoPE and FFN modules, and the four dense
+    configs."""
+    import pkgutil
+
+    import repro_torch
+
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
+    assert {"repro_torch.kernels.flash_attention.ops", "repro_torch.kernels.flash_attention.ref"} <= names
+    assert {f"repro_torch.nn.{m}" for m in ("attention", "rotary", "ffn", "linear")} <= names
+    assert {f"repro_torch.configs.{c}" for c in ("h2o_danube3_4b", "stablelm_3b", "phi4_mini_3p8b",
+                                                 "granite_20b")} <= names
