@@ -32,7 +32,7 @@ from .flash_attention.ref import flash_attention_gqa
 from .floatsd4_matmul import ops as fm4_ops
 from .floatsd4_matmul.ref import floatsd4_matmul_ref
 from .floatsd_matmul import ops as fm_ops
-from .floatsd_matmul.ref import matmul_dw_ref, ordered_matmul
+from .floatsd_matmul.ref import matmul_dw_ref, split_matmul
 from .floatsd_quantize import ops as fq_ops
 from .floatsd_quantize.ref import quantize_ref
 from .lstm_cell import ops as lc_ops
@@ -174,22 +174,26 @@ def _decide(op: str, t: torch.Tensor, backend: str | None) -> Decision:
 
 
 def matmul(x: torch.Tensor, codes: torch.Tensor, bias, *, transposed: bool = False,
-           dense: torch.Tensor | None = None, backend: str | None = None) -> torch.Tensor:
+           dense: torch.Tensor | None = None, ordered: bool = False,
+           backend: str | None = None) -> torch.Tensor:
     """x [..., K] @ decode(codes) -> [..., N] f32, codes [K, N] or, when
     ``transposed``, [N, K]. x is taken in f32 (exact from bf16/fp16, and
     decoded FloatSD8 weights are exact in bf16, so a bf16 policy's product
     is its bf16-issue product with f32 accumulation). ``dense`` is the
     codes' decode from ``hoist_packed``: the plain version then skips its
-    own decode and sums in the same order."""
+    own decode and sums in the same order (``floatsd_matmul.ref.plan``'s).
+    ``ordered`` keeps the kernel on its ordered route at any M, so its bits
+    are the plain version's on exact products (the fused BPTT's batched
+    recompute and dXs)."""
     k = x.shape[-1]
     n = codes.shape[0] if transposed else codes.shape[1]
     x2 = x.reshape(-1, k).to(torch.float32).contiguous()
     dec = _decide("floatsd_matmul", x2, backend)
     if dec.backend == "ref":
         w = floatsd.decode(codes, bias, dtype=torch.float32) if dense is None else dense
-        y = ordered_matmul(x2, w.t() if transposed else w)
+        y = split_matmul(x2, w.t() if transposed else w, ordered)
     else:
-        y = fm_ops.floatsd_matmul(x2, codes, bias, transposed=transposed)
+        y = fm_ops.floatsd_matmul(x2, codes, bias, transposed=transposed, ordered=ordered)
     STATS.record(dec)
     return y.reshape(*x.shape[:-1], n)
 
@@ -275,7 +279,7 @@ def hoist_packed(w, *, backend: str | None = None):
 
 
 def matmul_dx(g: torch.Tensor, codes: torch.Tensor, bias, *, dense: torch.Tensor | None = None,
-              backend: str | None = None) -> torch.Tensor:
+              ordered: bool = False, backend: str | None = None) -> torch.Tensor:
     """Activation gradient of the FloatSD8 matmul: g [..., N] @
     decode(codes [K, N])^T -> [..., K] f32 (the precise datapath: FP8
     activation-gradient quantization lives at the act_quant nodes). The
@@ -286,9 +290,9 @@ def matmul_dx(g: torch.Tensor, codes: torch.Tensor, bias, *, dense: torch.Tensor
     dec = _decide("floatsd_matmul_dx", g2, backend)
     if dec.backend == "ref":
         w = floatsd.decode(codes, bias, dtype=torch.float32) if dense is None else dense
-        y = ordered_matmul(g2, w.t())
+        y = split_matmul(g2, w.t(), ordered)
     else:
-        y = fm_ops.matmul_dx(g2, codes, bias)
+        y = fm_ops.matmul_dx(g2, codes, bias, ordered=ordered)
     STATS.record(dec)
     return y.reshape(*g.shape[:-1], k)
 

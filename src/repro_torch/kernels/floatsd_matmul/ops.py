@@ -2,6 +2,11 @@
 ``matmul_dx`` use (``floatsd_matmul.cu``, the latter on the codes read in
 place as [out, contraction]), and ``matmul_dw`` (``floatsd_matmul_dw.cu``).
 
+``plan(M, N, K, ordered)`` (defined beside the plain versions, which sum in
+its order) picks ``floatsd_matmul.cu``'s route and its split of K from the
+shapes and the caller's ``ordered`` request; the wrapper passes both to the
+kernel as launch arguments, so the CUDA source holds no copy of the rule.
+
 Each takes its plain version for tensors on the CPU and launches its CUDA
 kernel for tensors on the card; there is no fallback between the two. Each
 counts its own launches in ``<wrapper>.launches``.
@@ -14,9 +19,11 @@ import torch
 
 from .. import _build
 from ...core.floatsd import EXP_LEVELS
-from .ref import floatsd_matmul_ref, matmul_dw_ref, matmul_dx_ref
+from .ref import Plan, floatsd_matmul_ref, matmul_dw_ref, matmul_dx_ref, plan
 
-__all__ = ["floatsd_matmul", "matmul_dx", "matmul_dw", "clamp_bias"]
+__all__ = ["floatsd_matmul", "matmul_dx", "matmul_dw", "clamp_bias", "plan", "Plan"]
+
+ROUTES = {"A": 0, "B": 1}  # the kernel's route argument
 
 
 def clamp_bias(bias) -> int:
@@ -29,7 +36,7 @@ def _launcher():
     fn = _build.load("floatsd_matmul").floatsd_matmul_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, p, i, i, i, i, p]
+        fn.argtypes = [p, p, i, p, p, p, p, i, i, i, i, i, i, i, p]
         fn.restype = i
     return fn
 
@@ -43,24 +50,26 @@ def _dw_launcher():
     return fn
 
 
-def floatsd_matmul(x: torch.Tensor, codes: torch.Tensor, bias, *,
-                   transposed: bool = False) -> torch.Tensor:
+def floatsd_matmul(x: torch.Tensor, codes: torch.Tensor, bias, *, transposed: bool = False,
+                   ordered: bool = False) -> torch.Tensor:
     """x [M, K] f32 @ decode(codes) -> y [M, N] f32, with codes uint8 [K, N]
-    or, when ``transposed``, [N, K] (read in place)."""
+    or, when ``transposed``, [N, K] (read in place). ``ordered`` takes route
+    A at any M: the plain version's bits on exact products."""
     if x.device.type == "cpu":
-        return floatsd_matmul_ref(x, codes, bias, transposed=transposed)
-    return _launch(x, codes, bias, transposed, floatsd_matmul)
+        return floatsd_matmul_ref(x, codes, bias, transposed=transposed, ordered=ordered)
+    return _launch(x, codes, bias, transposed, ordered, floatsd_matmul)
 
 
-def matmul_dx(g: torch.Tensor, codes: torch.Tensor, bias) -> torch.Tensor:
+def matmul_dx(g: torch.Tensor, codes: torch.Tensor, bias, *, ordered: bool = False) -> torch.Tensor:
     """g [M, N] f32 @ decode(codes [K, N])^T -> [M, K] f32: the forward
     kernel on the codes read in place as [out = K, contraction = N]."""
     if g.device.type == "cpu":
-        return matmul_dx_ref(g, codes, bias)
-    return _launch(g, codes, bias, True, matmul_dx)
+        return matmul_dx_ref(g, codes, bias, ordered=ordered)
+    return _launch(g, codes, bias, True, ordered, matmul_dx)
 
 
-def _launch(x: torch.Tensor, codes: torch.Tensor, bias, transposed: bool, owner) -> torch.Tensor:
+def _launch(x: torch.Tensor, codes: torch.Tensor, bias, transposed: bool, ordered: bool,
+            owner) -> torch.Tensor:
     """Launch floatsd_matmul.cu; counts the launch on ``owner``."""
     if x.device.type != "cuda" or codes.device != x.device:
         raise ValueError(f"floatsd_matmul: x on {x.device}, codes on {codes.device}")
@@ -75,11 +84,24 @@ def _launch(x: torch.Tensor, codes: torch.Tensor, bias, transposed: bool, owner)
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return y
+    p = plan(m, n, k, ordered)
+    # the chunks' sums, which the kernel's second pass adds in order; route A
+    # skips them where they would outgrow twice the codes (a block then adds
+    # its own chunks, in the same order)
+    partials = p.splits > 1 and (p.route == "B" or p.splits * m * 4 <= 2 * k)
+    part = torch.empty((p.splits, m, n), dtype=torch.float32, device=x.device) if partials else None
+    # route B's pre-pass: x's three bf16 pieces (rows padded to 8) and the
+    # nonzero pieces of each 128 x 64 tile
+    pieces = flags = None
+    if p.route == "B":
+        pieces = torch.empty((3, m, -(-k // 8) * 8), dtype=torch.bfloat16, device=x.device)
+        flags = torch.empty((-(-m // 128), -(-k // 64)), dtype=torch.int32, device=x.device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _launcher()(
-            x.data_ptr(), codes.data_ptr(), clamp_bias(bias), y.data_ptr(),
-            m, n, k, int(transposed), stream,
+            x.data_ptr(), codes.data_ptr(), clamp_bias(bias), y.data_ptr(), ptr(part), ptr(pieces),
+            ptr(flags), m, n, k, int(transposed), ROUTES[p.route], p.splits, p.chunk, stream,
         )
     if err != 0:
         raise RuntimeError(f"floatsd_matmul launch failed: cudaError {err}")

@@ -69,12 +69,12 @@ class LSTMCell:
 
 
 def _z_of(x: torch.Tensor, hq: torch.Tensor, wqx: kd.PackedTensor, wqh: kd.PackedTensor,
-          b: torch.Tensor) -> torch.Tensor:
+          b: torch.Tensor, ordered: bool = False) -> torch.Tensor:
     """Gate pre-activations x @ Wx + Q(h) @ Wh + b in f32, on the packed
     codes (the inference step's arithmetic, so the values agree bit for
-    bit)."""
-    return (kd.matmul(x, wqx.codes, wqx.bias, dense=wqx.dense)
-            + kd.matmul(hq, wqh.codes, wqh.bias, dense=wqh.dense) + b)
+    bit; ``ordered`` keeps that order over any number of rows)."""
+    return (kd.matmul(x, wqx.codes, wqx.bias, dense=wqx.dense, ordered=ordered)
+            + kd.matmul(hq, wqh.codes, wqh.bias, dense=wqh.dense, ordered=ordered) + b)
 
 
 class _LSTMBPTT(torch.autograd.Function):
@@ -84,7 +84,10 @@ class _LSTMBPTT(torch.autograd.Function):
     in one pass, all of zs recomputed as one GEMM pair over S*B rows, one
     reverse scan of ``lstm_cell_grad`` + the ``matmul_dx`` recurrence +
     FP8 gradient quantization, then dWx and dWh as one ``matmul_dw`` each
-    (FP8 at the kernel's flush), dXs as one ``matmul_dx``, and db.
+    (FP8 at the kernel's flush), dXs as one ``matmul_dx``, and db. The
+    batched recompute and dXs ask the matmul for its ordered route: the
+    recomputed zs equal the forward's per-step zs bit for bit, and the
+    kernel path trains bit for bit as the plain path does.
 
     dWx and dWh leave on the FP8 grid and go straight through to the dense
     masters (FP8 values are exact in fp16); the dc chain stays f32, as in
@@ -116,7 +119,7 @@ class _LSTMBPTT(torch.autograd.Function):
         h = hs.shape[-1]
         # step t consumed Q(h_{t-1}), h0 at t = 0: one batched fake-quant
         hqs = quantize_fp8(torch.cat([h0[None].to(hs.dtype), hs[:-1]]), afwd)
-        zs = _z_of(xs.reshape(s * bsz, d), hqs.reshape(s * bsz, h), wqx, wqh, b)
+        zs = _z_of(xs.reshape(s * bsz, d), hqs.reshape(s * bsz, h), wqx, wqh, b, ordered=True)
         zs = zs.reshape(s, bsz, 4 * h)
         dh, dc = g_ht.to(f32), g_ct.to(f32)
         dzs = [None] * s
@@ -129,7 +132,7 @@ class _LSTMBPTT(torch.autograd.Function):
         dzs_f = torch.stack(dzs).reshape(s * bsz, 4 * h)
         dwx = kd.matmul_dw(xs.reshape(s * bsz, d), dzs_f)
         dwh = kd.matmul_dw(hqs.reshape(s * bsz, h), dzs_f)
-        dxs = kd.matmul_dx(dzs_f, wqx.codes, wqx.bias, dense=wqx.dense)
+        dxs = kd.matmul_dx(dzs_f, wqx.codes, wqx.bias, dense=wqx.dense, ordered=True)
         return (dxs.reshape(s, bsz, d).to(xs.dtype), dh.to(h0.dtype), dc.to(c0.dtype),
                 dwx.to(wx_dtype), dwh.to(wh_dtype), dzs_f.sum(0).to(b.dtype),
                 None, None, None, None, None, None)

@@ -7,11 +7,15 @@ on a machine with the card and PyTorch alone:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerances: floatsd_matmul and matmul_dx |y - y_plain| <= 1e-5 * (|x| @
-|W|) elementwise (the same order of f32 sums; on arbitrary f32 inputs the
-products are not exact and a fused multiply-add may round differently from
-the plain version's); matmul_dw the same bound without the flush, and with
-it equal except at most 0.1% of elements, each one e5m2 step apart, with
-inf and NaN where the plain version has them; lstm_cell and lstm_cell_grad
+|W|) elementwise on both routes (route A, M <= 64, sums in the plain
+version's order, but on arbitrary f32 inputs the products are not exact and
+a fused multiply-add may round differently from the plain version's; route
+B, M > 64, sums on the tensor cores in their own order), bit for bit on
+route A with FP8 or FP16 activations (every product exact, the same order),
+and bit for bit from one launch to the next on both; matmul_dw the same
+bound without the flush, and with it equal except at most 0.1% of
+elements, each one e5m2 step apart, with inf and NaN where the plain
+version has them; lstm_cell and lstm_cell_grad
 bit for bit (the kernels round exactly where the plain versions round);
 fused layer gradients, kernels against the plain versions, within rtol
 2e-3, atol 1e-5 (the JAX package's kernel-vs-reference bound); two
@@ -50,7 +54,7 @@ from repro_torch.kernels import dispatch as kd  # noqa: E402
 from repro_torch._tree import tree_leaves  # noqa: E402
 from repro_torch.core.policy import get_policy  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
-from repro_torch.kernels.floatsd_matmul.ops import floatsd_matmul, matmul_dw, matmul_dx  # noqa: E402
+from repro_torch.kernels.floatsd_matmul.ops import floatsd_matmul, matmul_dw, matmul_dx, plan  # noqa: E402
 from repro_torch.kernels.floatsd_matmul.ref import (  # noqa: E402
     floatsd_matmul_ref, matmul_dw_ref, matmul_dx_ref,
 )
@@ -69,7 +73,10 @@ from repro_torch.nn.lstm import LSTMLayer  # noqa: E402
 from repro_torch.optim import sgd  # noqa: E402
 from repro_torch.optim.train_state import batch_to_device, init_state, make_train_step  # noqa: E402
 
-MATMUL_SHAPES = [(3, 100, 130), (8, 128, 256), (1, 64, 33), (24, 256, 512), (8, 1024, 4096)]
+# across the routes' boundary (route A for M <= 64, B above), ragged N and K
+MATMUL_SHAPES = [(3, 100, 130), (8, 128, 256), (1, 64, 33), (24, 256, 512), (8, 1024, 4096),
+                 (64, 1024, 4096), (64, 999, 130), (65, 1024, 4096), (65, 100, 130), (2048, 3840, 1000),
+                 (2048, 1000, 264)]
 CELL_SHAPES = [(5, 200), (8, 1024), (1, 33)]
 
 
@@ -102,6 +109,88 @@ def test_floatsd_matmul_kernel_matches_plain(dev, m, k, n, transposed):
     assert bool(((got.double() - want.double()).abs() <= bound + 1e-30).all())
 
 
+def _mm_bound(x, codes, bias, transposed):
+    wd = floatsd.decode(codes, bias).double().abs()
+    return 1e-5 * (x.double().abs() @ (wd.t() if transposed else wd)) + 1e-30
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", MATMUL_SHAPES)
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("act", ["fp8", "fp16"])
+def test_floatsd_matmul_routes_on_served_activations(dev, m, k, n, transposed, act):
+    """FP8 or FP16 activations, as served: route A equals the plain version
+    bit for bit, route B stays within the precise bound, and two launches
+    are bit-identical on either."""
+    g = _gen(dev, 3 * m + k + n)
+    x = torch.randn((m, k), device=dev, generator=g)
+    x = quantize_fp8(x) if act == "fp8" else quantize_fp8(x, torch.float16)
+    w = torch.randn((n, k) if transposed else (k, n), device=dev, generator=g) * 0.05
+    codes, bias = floatsd.encode(w)
+    bias = int(bias)
+    got = floatsd_matmul(x, codes, bias, transposed=transposed)
+    again = floatsd_matmul(x, codes, bias, transposed=transposed)
+    want = floatsd_matmul_ref(x, codes, bias, transposed=transposed)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    if plan(m, n, k).route == "A":
+        assert torch.equal(got, want)
+    else:
+        assert bool(((got.double() - want.double()).abs() <= _mm_bound(x, codes, bias, transposed)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(130, 1024, 200), (3072, 1024, 4096), (200, 1100, 140)])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_floatsd_matmul_ordered_route_at_large_m(dev, m, k, n, transposed):
+    """Asked for its ordered route, the kernel runs route A at any M (each
+    block adding its tile's chunks in order where the partials would be
+    large): bit for bit the plain version on FP8 activations, and each row
+    the bits that a 64-row launch gives it; matmul_dx likewise."""
+    g = _gen(dev, m + 5 * k + n)
+    x = quantize_fp8(torch.randn((m, k), device=dev, generator=g))
+    codes, bias = floatsd.encode(torch.randn((n, k) if transposed else (k, n), device=dev, generator=g) * 0.05)
+    bias = int(bias)
+    assert plan(m, n, k, True).route == "A"
+    got = floatsd_matmul(x, codes, bias, transposed=transposed, ordered=True)
+    assert torch.equal(got, floatsd_matmul_ref(x, codes, bias, transposed=transposed, ordered=True))
+    assert torch.equal(got[64:128], floatsd_matmul(x[64:128].contiguous(), codes, bias, transposed=transposed))
+    if not transposed:
+        gr = quantize_fp8(torch.randn((m, n), device=dev, generator=g))
+        dx = matmul_dx(gr, codes, bias, ordered=True)
+        assert torch.equal(dx, matmul_dx_ref(gr, codes, bias, ordered=True))
+        assert torch.equal(dx[:64], matmul_dx(gr[:64].contiguous(), codes, bias))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transposed", [False, True])
+def test_floatsd_matmul_route_b_tiny_x_and_a_moved_code(dev, transposed):
+    """Route B on f32 x near 2^-120 (its mid and lo pieces are bf16
+    subnormals) stays within the bound; the plain version on codes with one
+    code moved one mantissa step does not."""
+    m, k, n = 130, 512, 200
+    assert plan(m, n, k).route == "B"
+    g = _gen(dev, 120 + transposed)
+    x = torch.randn((m, k), device=dev, generator=g) * 2.0**-120
+    codes, bias = floatsd.encode(torch.randn((n, k) if transposed else (k, n), device=dev, generator=g))
+    bias = int(bias)
+    got = floatsd_matmul(x, codes, bias, transposed=transposed)
+    bound = _mm_bound(x, codes, bias, transposed)
+    torch.cuda.synchronize()
+    assert float(got.abs().max()) > 2.0**-120  # y is normal
+    assert bool(((got.double() - floatsd_matmul_ref(x, codes, bias, transposed=transposed).double()).abs()
+                 <= bound).all())
+    x = quantize_fp8(x * 2.0**120)
+    got = floatsd_matmul(x, codes, bias, transposed=transposed)
+    flat = codes.reshape(-1).clone()
+    i = int((((flat & 31) > 15) & ((flat & 31) < 30)).nonzero()[0])
+    flat[i] += 1
+    moved = floatsd_matmul_ref(x, flat.reshape(codes.shape), bias, transposed=transposed)
+    bound = _mm_bound(x, codes, bias, transposed)
+    torch.cuda.synchronize()
+    assert bool(((got.double() - moved.double()).abs() > bound).any())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h", CELL_SHAPES)
 @pytest.mark.parametrize("quantized", [True, False])
@@ -132,7 +221,7 @@ def test_dispatch_routes_cuda_tensors_to_the_kernels(dev):
 
 
 # (M rows of g, K = out, N = contraction): the recurrence and batched dXs shapes
-DX_SHAPES = [(3, 100, 130), (8, 128, 256), (64, 1024, 4096)]
+DX_SHAPES = [(3, 100, 130), (8, 128, 256), (64, 1024, 4096), (130, 300, 1000)]
 DW_SHAPES = [(36, 12, 64), (100, 70, 130), (3072, 64, 256)]
 
 
