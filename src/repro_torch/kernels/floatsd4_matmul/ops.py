@@ -3,6 +3,12 @@
 Takes the plain version for tensors on the CPU and launches the CUDA kernel
 for tensors on the card; there is no fallback between the two.
 ``floatsd4_matmul.launches`` counts kernel launches.
+
+Every call takes the FloatSD8 matmul's route A, ordered split-K on the CUDA
+cores, at any M: ``plan(M, N, K, ordered=True)`` (``floatsd_matmul/ref.py``)
+gives the split of K, which the wrapper passes to the kernel as launch
+arguments and the plain version sums in (``split_matmul``), so the two
+agree bit for bit on exact products.
 """
 from __future__ import annotations
 
@@ -12,6 +18,7 @@ import torch
 
 from .. import _build
 from ...core.floatsd4 import GROUP
+from ..floatsd_matmul.ops import plan, use_partials
 from .ref import floatsd4_matmul_ref
 
 __all__ = ["floatsd4_matmul"]
@@ -21,7 +28,7 @@ def _launcher():
     fn = _build.load("floatsd4_matmul").floatsd4_matmul_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
         fn.restype = i
     return fn
 
@@ -52,10 +59,13 @@ def floatsd4_matmul(x: torch.Tensor, codes: torch.Tensor, exps: torch.Tensor, ro
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return y
+    p = plan(m, n, k, ordered=True)
+    part = torch.empty((p.splits, m, n), dtype=torch.float32, device=x.device) if use_partials(p, m, k) else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _launcher()(x.data_ptr(), codes.data_ptr(), exps.data_ptr(), y.data_ptr(),
-                          m, n, k, int(transposed), stream)
+                          None if part is None else part.data_ptr(), m, n, k, int(transposed), p.splits,
+                          p.chunk, stream)
     if err != 0:
         raise RuntimeError(f"floatsd4_matmul launch failed: cudaError {err}")
     floatsd4_matmul.launches += 1

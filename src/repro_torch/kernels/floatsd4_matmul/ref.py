@@ -1,6 +1,8 @@
 """Plain PyTorch version of the FloatSD4 matmul: decode the nibble-packed
 codes, then an f32 sum over the contraction in the CUDA kernel's order
-(``ordered_matmul``: k = 0, 1, ..., K-1).
+(``split_matmul(x, w, ordered=True)``: K cut into the chunks of
+``floatsd_matmul.ref.plan(M, N, K, ordered=True)``, each summed in k order,
+the chunk sums added in chunk order).
 
 Two layouts of the packed weight, both nibble-packed along their axis 0:
 
@@ -19,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from ...core.floatsd4 import decode_packed
-from ..floatsd_matmul.ref import ordered_matmul
+from ..floatsd_matmul.ref import split_matmul
 
 __all__ = ["floatsd4_matmul_ref"]
 
@@ -30,4 +32,4 @@ def floatsd4_matmul_ref(x: torch.Tensor, codes: torch.Tensor, exps: torch.Tensor
     length of the packed axis (an odd one carries a pad nibble); ``dense``
     is the weight's decode [rows, ...] if the caller has it."""
     w = decode_packed(codes, exps, rows) if dense is None else dense
-    return ordered_matmul(x, w.t() if transposed else w)
+    return split_matmul(x, w.t() if transposed else w, ordered=True)

@@ -212,33 +212,20 @@ floatsd_matmul_mma_kernel(const uint16_t* __restrict__ pieces, const int* __rest
            reinterpret_cast<uint16_t*>(smem));
 }
 
-// Raise a kernel's dynamic shared memory limit, once per kernel.
-template <auto kKernel>
-cudaError_t allow_smem(size_t bytes) {
-  static const cudaError_t err = cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                      static_cast<int>(bytes));
-  return err;
-}
-
-// `blocks_z`: splits (a block a chunk, into partials) or 1 (a block adds its chunks itself)
-template <bool kT, int MT>
-cudaError_t launch_ordered(const float* x, const uint8_t* codes, int bias, float* out, int M, int N, int K,
-                           int splits, int chunk, int blocks_z, cudaStream_t s) {
-  const size_t smem = a_smem<MT>();
-  if (cudaError_t e = allow_smem<floatsd_matmul_ordered_kernel<kT, MT>>(smem)) return e;
-  const dim3 grid((N + kABN - 1) / kABN, (M + MT - 1) / MT, blocks_z);
-  floatsd_matmul_ordered_kernel<kT, MT><<<grid, kThreads, smem, s>>>(x, codes, bias, out, M, N, K, splits, chunk);
-  return cudaGetLastError();
-}
-
 template <bool kT>
 cudaError_t launch_route(const float* x, const uint8_t* codes, int bias, float* out, uint16_t* pieces, int* flags,
                          int M, int N, int K, int route, int splits, int chunk, int blocks_z, cudaStream_t s) {
-  if (route == 0) {  // the row tile is the smallest that holds M (the sum order does not depend on it)
-    if (M <= 8) return launch_ordered<kT, 8>(x, codes, bias, out, M, N, K, splits, chunk, blocks_z, s);
-    if (M <= 16) return launch_ordered<kT, 16>(x, codes, bias, out, M, N, K, splits, chunk, blocks_z, s);
-    if (M <= 32) return launch_ordered<kT, 32>(x, codes, bias, out, M, N, K, splits, chunk, blocks_z, s);
-    return launch_ordered<kT, 64>(x, codes, bias, out, M, N, K, splits, chunk, blocks_z, s);
+  if (route == 0) {
+    return with_row_tile(M, [&](auto mt) {
+      constexpr int MT = decltype(mt)::value;
+      const size_t smem = a_smem<MT>();
+      if (cudaError_t e = allow_smem<floatsd_matmul_ordered_kernel<kT, MT>>(smem)) return e;
+      // `blocks_z`: splits (a block a chunk, into partials) or 1 (a block adds its chunks itself)
+      const dim3 grid((N + kABN - 1) / kABN, (M + MT - 1) / MT, blocks_z);
+      floatsd_matmul_ordered_kernel<kT, MT><<<grid, kThreads, smem, s>>>(x, codes, bias, out, M, N, K, splits,
+                                                                          chunk);
+      return cudaGetLastError();
+    });
   }
   const int kp = (K + 7) & ~7, mblocks = (M + kBBM - 1) / kBBM;
   if (K > 0) {
@@ -278,7 +265,5 @@ extern "C" int floatsd_matmul_launch(const float* x, const uint8_t* codes, int b
       transposed ? launch_route<true>(x, codes, bias, out, pieces, flags, M, N, K, route, splits, chunk, blocks_z, s)
                  : launch_route<false>(x, codes, bias, out, pieces, flags, M, N, K, route, splits, chunk, blocks_z, s);
   if (e != cudaSuccess || !partials) return static_cast<int>(e);
-  const size_t mn = (size_t)M * N;
-  add_partials<<<add_partials_blocks(mn), kThreads, 0, s>>>(part, y, mn, splits);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_add_partials(part, y, (size_t)M * N, splits, s));
 }

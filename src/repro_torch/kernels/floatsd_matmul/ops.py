@@ -21,9 +21,17 @@ from .. import _build
 from ...core.floatsd import EXP_LEVELS
 from .ref import Plan, floatsd_matmul_ref, matmul_dw_ref, matmul_dx_ref, plan
 
-__all__ = ["floatsd_matmul", "matmul_dx", "matmul_dw", "clamp_bias", "plan", "Plan"]
+__all__ = ["floatsd_matmul", "matmul_dx", "matmul_dw", "clamp_bias", "plan", "Plan", "use_partials"]
 
 ROUTES = {"A": 0, "B": 1}  # the kernel's route argument
+
+
+def use_partials(p: Plan, m: int, k: int) -> bool:
+    """Whether a split K's chunk sums go through partials [splits, M, N] f32,
+    which the kernel's second pass adds in order: always on route B; on
+    route A while they stay within 2 x K x N bytes (twice FloatSD8's codes),
+    beyond which a block adds its own chunks, in the same order."""
+    return p.splits > 1 and (p.route == "B" or p.splits * m * 4 <= 2 * k)
 
 
 def clamp_bias(bias) -> int:
@@ -85,11 +93,7 @@ def _launch(x: torch.Tensor, codes: torch.Tensor, bias, transposed: bool, ordere
     if m == 0 or n == 0:
         return y
     p = plan(m, n, k, ordered)
-    # the chunks' sums, which the kernel's second pass adds in order; route A
-    # skips them where they would outgrow twice the codes (a block then adds
-    # its own chunks, in the same order)
-    partials = p.splits > 1 and (p.route == "B" or p.splits * m * 4 <= 2 * k)
-    part = torch.empty((p.splits, m, n), dtype=torch.float32, device=x.device) if partials else None
+    part = torch.empty((p.splits, m, n), dtype=torch.float32, device=x.device) if use_partials(p, m, k) else None
     # route B's pre-pass: x's three bf16 pieces (rows padded to 8) and the
     # nonzero pieces of each 128 x 64 tile
     pieces = flags = None

@@ -31,8 +31,9 @@ The backward (counterpart of ``repro.kernels.floatsd_matmul.bwd``):
 kernel reads the codes in place as [out, contraction]; the precise
 datapath: FP8 activation-gradient quantization lives at the ``act_quant``
 nodes), and ``matmul_dw_ref`` is x^T @ g summed over rows m = 0 .. M-1 in
-order (``ordered_matmul``, as are the FloatSD4 kernel's sums), snapped to
-the FP8 e5m2 grid unless ``quant=False``.
+order (``ordered_matmul``), snapped to the FP8 e5m2 grid unless
+``quant=False``. The FloatSD4 matmul (``floatsd4_matmul/ref.py``) runs route
+A at every M and sums in ``plan(..., ordered=True)``'s order.
 """
 from __future__ import annotations
 

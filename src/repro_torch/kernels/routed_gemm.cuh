@@ -1,7 +1,8 @@
-// The two tile loops of the FloatSD8 matmul on Hopper (sm_90a), one per
+// The two tile loops of the FloatSD matmuls on Hopper (sm_90a), one per
 // route; the caller picks the route and the K split from the shapes
-// (floatsd_matmul/ref.py's `plan`, which the wrapper in ops.py applies) and
-// passes them as launch arguments:
+// (floatsd_matmul/ref.py's `plan`, which the wrappers in ops.py apply) and
+// passes them as launch arguments. FloatSD8 (floatsd_matmul.cu) runs both
+// routes, FloatSD4 (floatsd4_matmul.cu) route A only:
 //     y[M, N] = x[M, K] @ W,   W decoded from a weight format tile by tile.
 //
 // Both routes cut K into `splits` chunks of `chunk` consecutive k. With a
@@ -56,11 +57,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "decode_gemm.cuh"  // the older single-route tile loop; its exact pow2i
+#include <type_traits>
 
 namespace routed_gemm {
 
-using decode_gemm::pow2i;
+// Exact 2^k for k in f32's normal range, built from the exponent bits.
+__device__ __forceinline__ float pow2i(int k) { return __int_as_float((k + 127) << 23); }
 
 constexpr int kThreads = 256;  // both routes: 8 warps
 
@@ -481,9 +483,33 @@ __global__ void __launch_bounds__(kThreads) add_partials(const float* __restrict
   }
 }
 
-inline unsigned add_partials_blocks(size_t mn) {
+// y = ((part[0] + part[1]) + ...) + part[splits - 1], on `s`
+inline cudaError_t launch_add_partials(const float* part, float* y, size_t mn, int splits, cudaStream_t s) {
   const size_t b = (mn + kThreads - 1) / kThreads;
-  return static_cast<unsigned>(b < 132 * 16 ? b : 132 * 16);
+  add_partials<<<static_cast<unsigned>(b < 132 * 16 ? b : 132 * 16), kThreads, 0, s>>>(part, y, mn, splits);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// launch helpers
+// ---------------------------------------------------------------------------
+
+// Raise a kernel's dynamic shared memory limit, once per kernel.
+template <auto kKernel>
+cudaError_t allow_smem(size_t bytes) {
+  static const cudaError_t err = cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                      static_cast<int>(bytes));
+  return err;
+}
+
+// Route A's row tile MT, the smallest of 8, 16, 32 and 64 that holds M (the
+// sum order does not depend on it): returns launch(integral_constant<MT>).
+template <class Launch>
+cudaError_t with_row_tile(int M, Launch&& launch) {
+  if (M <= 8) return launch(std::integral_constant<int, 8>());
+  if (M <= 16) return launch(std::integral_constant<int, 16>());
+  if (M <= 32) return launch(std::integral_constant<int, 32>());
+  return launch(std::integral_constant<int, 64>());
 }
 
 }  // namespace routed_gemm

@@ -15,12 +15,14 @@ route A with FP8 or FP16 activations (every product exact, the same order),
 and bit for bit from one launch to the next on both; matmul_dw the same
 bound without the flush, and with it equal except at most 0.1% of
 elements, each one e5m2 step apart, with inf and NaN where the plain
-version has them; lstm_cell and lstm_cell_grad
+version has them, and bit for bit on FP8 x and g (exact products, the
+same order over the rows); lstm_cell and lstm_cell_grad
 bit for bit (the kernels round exactly where the plain versions round);
 fused layer gradients, kernels against the plain versions, within rtol
 2e-3, atol 1e-5 (the JAX package's kernel-vs-reference bound); two
 identical train steps bit for bit; floatsd4_matmul bit for bit on FP8
-activations (every product exact) and within the matmul bound on f32 ones;
+and FP16 activations (every product exact, the plan's ordered split at any
+M) and within the matmul bound on f32 ones;
 the quantize kernel byte for byte against ``core.floatsd.encode``; the
 qsigmoid kernel bit for bit on f32; the chunked rwkv_wkv kernel against the
 per-token recurrence within rtol 2e-4, atol 2e-4 (the JAX package's
@@ -48,7 +50,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import floatsd, floatsd4  # noqa: E402
-from repro_torch.core.fp8 import quantize_fp8  # noqa: E402
+from repro_torch.core.fp8 import FP16, quantize_fp8  # noqa: E402
 from repro_torch.core.qsigmoid import qsigmoid_raw  # noqa: E402
 from repro_torch.kernels import dispatch as kd  # noqa: E402
 from repro_torch._tree import tree_leaves  # noqa: E402
@@ -222,7 +224,9 @@ def test_dispatch_routes_cuda_tensors_to_the_kernels(dev):
 
 # (M rows of g, K = out, N = contraction): the recurrence and batched dXs shapes
 DX_SHAPES = [(3, 100, 130), (8, 128, 256), (64, 1024, 4096), (130, 300, 1000)]
-DW_SHAPES = [(36, 12, 64), (100, 70, 130), (3072, 64, 256)]
+# the last two ragged in all of M, K and N (none a multiple of the 128 x 128
+# tile or of the 16-row stage): rows of a multiple of 4 floats, and not
+DW_SHAPES = [(36, 12, 64), (100, 70, 130), (3072, 64, 256), (517, 300, 260), (1000, 201, 259)]
 
 
 @pytest.mark.cuda
@@ -261,6 +265,27 @@ def test_matmul_dw_kernel_matches_plain(dev, m, k, n):
     assert int(off.sum()) <= 1e-3 * got.numel()
     step = _e5m2_step(torch.maximum(got.abs(), want.abs()))
     assert bool(((got - want).abs()[off] <= step[off]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", DW_SHAPES + [(3072, 1024, 512)])
+def test_matmul_dw_sums_rows_in_order_bit_for_bit(dev, m, k, n):
+    """FP8 x and g: every product is exact in f32, so the kernel's fmaf
+    chain over m = 0 .. M-1 and the plain version's ordered sum give the
+    same bits, raw and snapped; over exponents of 2^-6 .. 2^6 the sums
+    round, so another order would not."""
+    g = _gen(dev, 7 * m + k + n)
+
+    def wide(shape):
+        e = torch.randint(-6, 7, shape, device=dev, generator=g).float()
+        return quantize_fp8(torch.randn(shape, device=dev, generator=g) * torch.exp2(e))
+
+    x, gr = wide((m, k)), wide((m, n))
+    raw, raw_p = matmul_dw(x, gr, quant=False), matmul_dw_ref(x, gr, quant=False)
+    got, want = matmul_dw(x, gr), matmul_dw_ref(x, gr)
+    torch.cuda.synchronize()
+    assert torch.equal(raw, raw_p) and torch.equal(got, want)
+    assert not torch.equal(raw, matmul_dw_ref(x.flip(0), gr.flip(0), quant=False))  # the order shows
 
 
 @pytest.mark.cuda
@@ -394,6 +419,46 @@ def test_floatsd4_matmul_kernel_matches_plain(dev, m, rows, cols, transposed):
     torch.cuda.synchronize()
     assert floatsd4_matmul.launches == n0 + 2
     assert bool(((got.double() - want.double()).abs() <= bound + 1e-30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 64, 65, 200])
+@pytest.mark.parametrize("site", ["gate", "head"])
+def test_floatsd4_matmul_ordered_split_bit_for_bit_at_any_m(dev, m, site):
+    """Route A at every M, K split as plan(..., ordered=True) gives it: the
+    gate [M, 1024] @ [1024, 4096] (8 chunks of 128) and the transposed head
+    over a table of 2049 rows (an odd row count: a pad nibble), on FP8 and
+    FP16 activations, bit for bit with the plain version."""
+    rows, cols, tr = (1024, 4096, False) if site == "gate" else (2049, 1024, True)
+    codes, exps = _packed4(dev, rows, cols, m + rows)
+    k, n = (cols, rows) if tr else (rows, cols)
+    assert plan(m, n, k, True).splits > 1
+    x = torch.randn((m, k), device=dev, generator=_gen(dev, 3 * m))
+    for xq in (quantize_fp8(x), quantize_fp8(x, FP16)):
+        got = floatsd4_matmul(xq, codes, exps, rows, transposed=tr)
+        want = floatsd4_matmul_ref(xq, codes, exps, rows, transposed=tr)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_floatsd4_matmul_subnormal_groups_on_a_split_k(dev):
+    """Every other 32-row group at exponent -126 across a split K (8 chunks
+    of 128): subnormal weights beside normal ones, on exact products (x in
+    {-2, -1, 1, 2}), kept and summed as the plain version sums them."""
+    g = _gen(dev, 126)
+    codes = torch.randint(0, 16, (1024, 4096), device=dev, generator=g, dtype=torch.uint8)
+    exps = torch.randint(-8, 0, (32, 4096), device=dev, generator=g, dtype=torch.int8)
+    exps[::2] = -126
+    packed = floatsd4.pack_nibbles(codes)
+    x = torch.randint(1, 3, (8, 1024), device=dev, generator=g).float()
+    x *= torch.randint(0, 2, (8, 1024), device=dev, generator=g).float() * 2 - 1
+    got = floatsd4_matmul(x, packed, exps, 1024)
+    want = floatsd4_matmul_ref(x, packed, exps, 1024)
+    torch.cuda.synchronize()
+    w = floatsd4.decode_packed(packed, exps, 1024)
+    assert int(((w != 0) & (w.abs() < torch.finfo(torch.float32).tiny)).sum()) > 0
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

@@ -352,14 +352,17 @@ def test_new_cuda_source_tables_match_the_port():
 
 def test_build_hash_follows_included_headers(tmp_path, monkeypatch):
     """qsigmoid.cu includes the cell's header from another directory, and
-    both matmul kernels include the shared tile loop: each header is among
-    its includers' sources, and an edit to it changes the library name of
-    every kernel that includes it, and of no other."""
+    both decode matmul kernels include the shared tile loops: each header is
+    among its includers' sources, and an edit to it changes the library name
+    of every kernel that includes it, and of no other. The weight gradient's
+    source includes neither."""
     common = KERNELS_DIR / "lstm_cell" / "lstm_cell_common.cuh"
-    tiles = KERNELS_DIR / "decode_gemm.cuh"
+    tiles = KERNELS_DIR / "routed_gemm.cuh"
     assert common in _build._sources("qsigmoid") and common in _build._sources("lstm_cell_bwd")
     assert _build._sources("floatsd4_matmul") == [KERNELS_DIR / "floatsd4_matmul" / "floatsd4_matmul.cu", tiles]
-    assert tiles in _build._sources("floatsd_matmul") and tiles not in _build._sources("floatsd_matmul_dw")
+    assert _build._sources("floatsd_matmul") == [KERNELS_DIR / "floatsd_matmul" / "floatsd_matmul.cu", tiles]
+    assert _build._sources("floatsd_matmul_dw") == [KERNELS_DIR / "floatsd_matmul" / "floatsd_matmul_dw.cu"]
+    assert not (KERNELS_DIR / "decode_gemm.cuh").exists()
     assert "--fmad=false" in _build._target("qsigmoid")[1]
     import shutil
 
@@ -367,7 +370,7 @@ def test_build_hash_follows_included_headers(tmp_path, monkeypatch):
     shutil.copytree(KERNELS_DIR, copy, ignore=shutil.ignore_patterns("*.py", "__pycache__"))
     monkeypatch.setattr(_build, "_KERNELS_DIR", copy)
     for header, includers in [("lstm_cell/lstm_cell_common.cuh", {"lstm_cell", "lstm_cell_bwd", "qsigmoid"}),
-                              ("decode_gemm.cuh", {"floatsd_matmul", "floatsd4_matmul"})]:
+                              ("routed_gemm.cuh", {"floatsd_matmul", "floatsd4_matmul"})]:
         before = {op: _build._target(op)[0].name for op in _build.KERNELS}
         path = copy / header
         path.write_text(path.read_text() + "\n// edited\n")

@@ -1,6 +1,8 @@
 """The FloatSD8 matmul's route and sum order (``floatsd_matmul.ref.plan``),
 on the CPU: which route each main path's shape takes, and that the plain
-version sums in the order the CUDA kernel's route A does, exactly.
+version sums in the order the CUDA kernel's route A does, exactly. The
+FloatSD4 matmul runs route A at every M (``plan(..., ordered=True)``), and
+its plain version sums in that order too.
 
 ``plan(M, N, K)`` picks route A (ordered split-K on CUDA cores) for M <= 64
 or when the caller asks for ``ordered`` (the fused BPTT's batched recompute
@@ -21,13 +23,14 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import floatsd as jfsd  # noqa: E402
 from repro.kernels.floatsd_matmul.bwd import matmul_dx_ref as jdx_ref  # noqa: E402
 from repro.kernels.floatsd_matmul.ref import floatsd_matmul_ref as jmm_ref  # noqa: E402
-from repro_torch.core import floatsd  # noqa: E402
+from repro_torch.core import floatsd, floatsd4  # noqa: E402
 from repro_torch.core.fp8 import FP16, quantize_fp8  # noqa: E402
 from repro_torch.kernels import dispatch as kd  # noqa: E402
 from repro_torch.kernels.floatsd_matmul import ops, ref  # noqa: E402
 from repro_torch.kernels.floatsd_matmul.ref import (  # noqa: E402
     Plan, floatsd_matmul_ref, matmul_dx_ref, plan, split_matmul,
 )
+from repro_torch.kernels.floatsd4_matmul.ref import floatsd4_matmul_ref  # noqa: E402
 
 # (M, N, K, ordered, route) of every floatsd_matmul launch shape on the main paths
 MAIN_PATH_SHAPES = [
@@ -168,10 +171,56 @@ def test_route_a_rows_do_not_depend_on_the_batch():
     assert torch.equal(matmul_dx_ref(g, codes, bias, ordered=True)[:64], matmul_dx_ref(g[:64], codes, bias))
 
 
+# (M, K, N) of the FloatSD4 matmul, for both layouts (transposed: N table
+# rows): odd K and N, K % 32 != 0, ragged last chunks, M above route A's
+# 64, one chunk
+ORDER4_SHAPES = [(8, 999, 301), (65, 1000, 77), (3, 100, 131), (64, 2048, 40)]
+
+
+def _inputs4(m, k, n, act, transposed, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    x = quantize_fp8(x) if act == "fp8" else quantize_fp8(x, FP16) if act == "fp16" else x
+    w = torch.from_numpy((rng.standard_normal((n, k) if transposed else (k, n)) * 0.05).astype(np.float32))
+    codes, exps = floatsd4.encode(w)
+    return x, floatsd4.pack_nibbles(codes), exps, w.shape[0]
+
+
+def test_floatsd4_shapes_split_k_on_route_a():
+    """Every FloatSD4 shape takes route A, split as FloatSD8's ordered
+    route: the serving gate into 8 chunks of 128, the head into 2 of 512,
+    and the test shapes with ragged last chunks."""
+    assert plan(8, 4096, 1024, True) == plan(64, 4096, 1024, True) == Plan("A", 8, 128)
+    assert plan(8, 33280, 1024, True) == plan(64, 33280, 1024, True) == Plan("A", 2, 512)
+    for m, k, n in ORDER4_SHAPES:
+        p = plan(m, n, k, True)
+        assert p.route == "A" and (p.splits == 1 or p.chunk % 64 == 0)
+    assert plan(8, 301, 999, True) == Plan("A", 6, 192) and plan(65, 77, 1000, True) == Plan("A", 6, 192)
+    assert plan(3, 131, 100, True).splits == 1
+
+
+@pytest.mark.parametrize("m,k,n", ORDER4_SHAPES)
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("act", ["fp8", "fp16", None])
+def test_floatsd4_plain_version_is_the_ordered_split(m, k, n, transposed, act):
+    """floatsd4_matmul_ref equals split_matmul(x, decode4, ordered=True) bit
+    for bit in both layouts (any activations), and on exact products (FP8,
+    FP16) the chunked loop the kernel runs."""
+    x, codes, exps, rows = _inputs4(m, k, n, act, transposed, 3 * m + k + n)
+    w = floatsd4.decode_packed(codes, exps, rows)
+    wk = w.t() if transposed else w
+    got = floatsd4_matmul_ref(x, codes, exps, rows, transposed=transposed)
+    assert torch.equal(got, split_matmul(x, wk, ordered=True))
+    assert torch.equal(floatsd4_matmul_ref(x, codes, exps, rows, transposed=transposed, dense=w), got)
+    if act is not None:
+        np.testing.assert_array_equal(got.numpy(), _chunked_loop(x, wk, plan(m, n, k, True)))
+
+
 def test_dispatch_plain_paths_sum_in_the_plan_order():
     """dispatch.matmul and dispatch.matmul_dx on the plain path, with the
     decode hoisted or not, equal the plain versions bit for bit at a split
-    shape (f32 activations)."""
+    shape (f32 activations); dispatch.matmul4 likewise on the FloatSD4
+    matmul's ordered split, gate and tied head."""
     x, codes, bias = _inputs(8, 1024, 200, None, False, 11)
     assert plan(8, 200, 1024).splits > 1 and plan(8, 1024, 200).splits == 1
     dense = floatsd.decode(codes, bias)
@@ -185,3 +234,9 @@ def test_dispatch_plain_paths_sum_in_the_plan_order():
     tk = codes.t().contiguous()  # the tied head's layout: [N, K] read in place
     assert torch.equal(kd.matmul(x, tk, bias, transposed=True, dense=dense.t().contiguous()),
                        floatsd_matmul_ref(x, tk, bias, transposed=True))
+    w = dense.t().contiguous()  # [200, 1024]: the head's table, and transposed a [1024, 200] gate
+    for transposed, w4 in ((False, kd.pack4(w.t())), (True, kd.pack4(w))):
+        assert plan(8, w4.k if transposed else w4.codes.shape[1], 1024, True).splits > 1
+        want4 = split_matmul(x, kd.unpack4(w4).t() if transposed else kd.unpack4(w4), ordered=True)
+        assert torch.equal(kd.matmul4(x, w4, transposed=transposed), want4)
+        assert torch.equal(kd.matmul4(x, kd.hoist_packed(w4), transposed=transposed), want4)
