@@ -11,7 +11,10 @@ Phases, in order; the first failure exits non-zero:
   1. device     a CUDA device is present; prints nvidia-smi's name and
                 power limit.
   2. build      builds every hand-written kernel from the checkout's
-                sources (one nvcc per source, started together).
+                sources (one nvcc per source, started together); prints
+                ptxas's registers, shared memory and spills of every device
+                function, and the tensor-core instructions (HGMMA) in the
+                flash_attention library by cuobjdump, which must hold some.
   3. kernels    each kernel against its plain PyTorch version on the card,
                 at the serving, training, entry and zoo paths' shapes:
                 error, mismatches, median time beside the plain version,
@@ -29,7 +32,10 @@ Phases, in order; the first failure exits non-zero:
                 the window rejected there), at a ragged S, without the
                 causal mask and on bf16, two launches bit-identical, beside
                 scaled_dot_product_attention where it computes the same
-                function.
+                function; at the prefill shape its f32 scores' precision
+                control (against the chunked plain version, at most a
+                quarter of the error of that version on bf16-rounded q and
+                k).
   4. main path  the full-width WikiText-2 FloatSD8 LM (vocab 33278 padded
                 to 33280, 1024 wide, 2 layers, tied embeddings, seeded
                 random weights) packed to 1-byte codes and served by
@@ -80,8 +86,10 @@ Phases, in order; the first failure exits non-zero:
                 freed: CausalLM.prefill on 2 x 1024 synthetic tokens (every
                 weight site and the head on floatsd_matmul, every receptance
                 gate on qsigmoid, one rwkv_wkv a layer, none on the plain
-                path; finite logits); sequence 0's first 64 tokens through
-                decode_step one at a time, against the prefill's logits
+                path; finite logits), once more timed and once under
+                torch.profiler (device time by kernel); sequence 0's first
+                64 tokens through decode_step one at a time, against the
+                prefill's logits
                 (held within the stated tolerance with no activation
                 quantizer, the same codes; reported under the served
                 policy); ServeEngine with 8 lanes and 8 requests (lockstep
@@ -262,6 +270,42 @@ def moved_code_control(torch, x, codes, bias, tr, y) -> int:
 def fmt_bound(bd: dict) -> str:
     return (f"bound {bd['bound_ms']:.5f} ms ({bd['bound_by']}; bytes {bd['bytes_ms']:.5f} ms, operations "
             f"{bd['ops_ms']:.5f} ms at the {bd['ops_peak'].upper().replace('+', ' + ')} peak)")
+
+
+def ptxas_report(log: str) -> list[str]:
+    """ptxas's per-function lines of a build log, one string each: the
+    function (its name without the mangling), registers, shared memory,
+    spills."""
+    out, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            name = next((part for part in ("flash_split_kv", "flash_fwd_kernel", "wkv_chunk_prep", "rwkv_wkv_kernel",
+                                           "split_pieces", "add_partials") if part in mangled), mangled[-48:])
+            name += "<f32>" if "IfLi" in mangled or "IfEE" in mangled else "<bf16>" if "bfloat16" in mangled else ""
+            for dp in ("Li64", "Li128"):
+                if dp in mangled:
+                    name += f"[{dp[2:]}]"
+        elif name and ("registers" in line or "spill" in line):
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}" if "registers" in line else f"{name}: {line.strip()}")
+    return [x for x in out if "registers" in x or "0 bytes spill stores" not in x]
+
+
+def sass_count(build, op: str, opcodes) -> dict | None:
+    """How many instructions of each opcode the SASS of ``op``'s library
+    holds (cuobjdump from the CUDA toolkit), or None without cuobjdump."""
+    import shutil
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cands = ([str(Path(CUDA_HOME) / "bin" / "cuobjdump")] if CUDA_HOME else []) + [shutil.which("cuobjdump") or ""]
+    tool = next((c for c in cands if c and Path(c).exists()), None)
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", str(build._target(op)[0])], capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    words = [w.split(".")[0] for line in sass.splitlines() for w in line.replace(";", " ").split()]
+    return {code: words.count(code) for code in opcodes}
 
 
 def timed_ms(torch, fn, reps: int, flush) -> float:
@@ -1169,12 +1213,15 @@ def zoo_phase(torch, dev, smi):
         model.prefill(tree, {"tokens": toks}, pol)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    out["prefill"] = dict(launches=launches, wall_s=wall, tok_s=ZOO_B * ZOO_S / wall)
+    groups, wall_prof = profile_prefill(torch, model, tree, toks, pol)
+    busy = sum(ms for ms, _ in groups.values())
+    out["prefill"] = dict(launches=launches, wall_s=wall, tok_s=ZOO_B * ZOO_S / wall, profile=groups)
     print(f"zoo prefill: B {ZOO_B} x S {ZOO_S}: {wall * 1e3:.1f} ms wall ({wall_first * 1e3:.1f} ms the first, "
           f"with warm-up), {ZOO_B * ZOO_S / wall:.0f} tok/s ({smi}); launches {launches} (per layer "
           f"{ZOO_SITES} weight sites, 2 receptance gates, 1 wkv; + the head); dispatch "
           f"{dict((f'{o}/{b}', n) for (o, b), n in stats.items())}; logits finite, |max| "
-          f"{float(logits.abs().max()):.3f}", flush=True)
+          f"{float(logits.abs().max()):.3f}. Profiled prefill: {wall_prof:.1f} ms wall, device busy {busy:.1f} ms: "
+          + ", ".join(f"{grp} {ms:.1f} ms ({n} kernels)" for grp, (ms, n) in groups.items()), flush=True)
 
     # token-by-token decode of sequence 0 against the prefill's logits
     kd.STATS.reset()
@@ -1360,6 +1407,22 @@ def attend_pairs(sq: int, skv: int, causal: bool, window) -> int:
     return total
 
 
+def flash_ops(pair_d: float, q, k) -> list:
+    """The operations of flash attention over ``pair_d`` = admitted (query,
+    key) pairs x D, at the peak of the fastest tensor-core type that holds
+    every operand value (matmul_peak's rule): PV at the 16-bit peak (p and
+    v are rounded to bf16); QK^T at the 16-bit peak on bf16 operands, and on
+    f32 ones at the cheaper of the FP32 peak and six exact-piece bf16
+    products (the pieces whose weight reaches 2^-16) at the 16-bit peak."""
+    qk = 2.0 * pair_d
+    if matmul_peak(q, k) == "bf16":
+        qk_part = (qk, "bf16")
+    else:
+        rate = {"fp32": FP32_OPS_PER_S, "bf16": BF16_OPS_PER_S}
+        qk_part = min([(qk, "fp32"), (6 * qk, "bf16")], key=lambda part: part[0] / rate[part[1]])
+    return [qk_part, (2.0 * pair_d, "bf16")]
+
+
 def flash_oracle(torch, q, k, v, causal, window, heads_per_call=4):
     """``flash_attention_ref`` (the [BH, S, D] oracle, f32 scores and PV) on
     the model layout, K and V expanded to the query heads, a few heads at a
@@ -1412,6 +1475,12 @@ def flash_phase(torch, dev, flush):
                                f"(max err {float(e.max()):.3e})")
             errs[ref_name] = (float(e.max()), int((o != want).sum()))
         caught = None
+        if name == "prefill":  # the f32 scores' precision control
+            one_piece = flash_attention_gqa(q.bfloat16().float(), k.bfloat16().float(), v, causal=causal, window=window)
+            ratio = float((o - plain).abs().max()) / float((one_piece - plain).abs().max())
+            check(ratio <= 0.25, f"flash_attention: f32 scores less precise than a quarter of one bf16 pass ({ratio:.3f})")
+            precision = ratio
+            del one_piece
         if name == "window":  # negative control: the plain version without the window
             nowin = flash_attention_gqa(q, k, v, causal=causal, window=None)
             e = (nowin.float() - oracle.float()).abs()
@@ -1438,17 +1507,15 @@ def flash_phase(torch, dev, flush):
             t_lib = timed_ms(torch, lambda: sdpa(qt, kt, vt, enable_gqa=True, **lib_kw), 10, flush)
             del qt, kt, vt, lib, lib_kw
         pairs = b * h * attend_pairs(s, s, causal, window)
-        # QK^T at the peak its operands allow, PV at the TF32 peak (p and v
-        # are rounded to bf16, so every product is exact): 2 D operations
-        # a pair each
-        bd = bound(q.element_size() * (2 * q.numel() + k.numel() + v.numel()),
-                   [(2.0 * pairs * d, matmul_peak(q, k)), (2.0 * pairs * d, "tf32")])
+        bd = bound(q.element_size() * (2 * q.numel() + k.numel() + v.numel()), flash_ops(pairs * d, q, k))
         rows[name] = dict(ms=t, plain_ms=t_plain, library_ms=t_lib, err=max(e for e, _ in errs.values()), **bd)
         print(f"  {name:8s} q [{b},{s},{h},{d}], k, v [{b},{s},{kh},{d}] {str(dt)[6:]}, causal {causal}, window "
               f"{window}: vs oracle max_abs_err {errs['oracle'][0]:.3e} ({errs['oracle'][1]} of {o.numel()} not "
               f"bit-identical), vs plain {errs['plain'][0]:.3e} ({errs['plain'][1]} not bit-identical); |o| max "
               f"{float(oracle.float().abs().max()):.3f}; two launches bit-identical"
               + (f"; without the window {caught:.2%} beyond the bound" if caught is not None else "")
+              + (f"; vs plain {precision:.3f} of the error of one bf16 pass of the scores (bound 0.25)"
+                 if name == "prefill" else "")
               + f" | kernel {t:.4f} ms, plain {t_plain:.3f} ms, "
               + f"SDPA ({lib_call}, enable_gqa; 0 beyond the bound of the oracle) {t_lib:.4f} ms"
               + f", {pairs * d * 4 / 1e9:.2f} GFLOP, {fmt_bound(bd)}", flush=True)
@@ -1469,8 +1536,10 @@ def profile_prefill(torch, model, tree, toks, policy):
         model.prefill(tree, {"tokens": toks}, policy)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    names = [("floatsd_matmul_", "floatsd_matmul"), ("add_partials", "floatsd_matmul"),
-             ("flash_fwd_kernel", "flash_attention")]
+    names = [("flash_fwd_kernel", "flash_attention"), ("flash_split_kv", "flash_attention"),
+             ("rwkv_wkv_kernel", "rwkv_wkv"), ("wkv_chunk_prep", "rwkv_wkv"), ("qsigmoid_kernel", "qsigmoid"),
+             ("floatsd_matmul_", "floatsd_matmul"), ("add_partials", "floatsd_matmul"),
+             ("split_pieces", "floatsd_matmul")]
     groups = {g: [0.0, 0] for _, g in names + [("", "other torch ops")]}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.is_user_annotation:
@@ -1478,7 +1547,7 @@ def profile_prefill(torch, model, tree, toks, policy):
         grp = next((grp for key, grp in names if key in e.key), "other torch ops")
         groups[grp][0] += e.self_device_time_total / 1e3
         groups[grp][1] += e.count
-    return groups, wall
+    return {grp: v for grp, v in groups.items() if v[1]}, wall
 
 
 def dense_phase(torch, dev, smi):
@@ -1690,9 +1759,11 @@ def main() -> int:
     _build.build_all()
     print(f"build: {', '.join(_build.KERNELS)} in {time.perf_counter() - t0:.1f} s (sm_90a)", flush=True)
     for op in _build.KERNELS:
-        for line in _build.build_log(op).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {op}: {line.strip()}")
+        print(f"  {op}: " + "; ".join(ptxas_report(_build.build_log(op))))
+    tensor_ops = sass_count(_build, "flash_attention", ("HGMMA", "HMMA"))
+    if tensor_ops is not None:
+        check(tensor_ops["HGMMA"] > 0, f"flash_attention: no wgmma (HGMMA) in its SASS: {tensor_ops}")
+    print(f"  flash_attention SASS (cuobjdump): {tensor_ops if tensor_ops is not None else 'cuobjdump not found'}")
 
     # 3. kernels against their plain versions
     flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev)  # > 50 MB L2
@@ -1842,9 +1913,10 @@ def main() -> int:
                 parts = [(2 * DL, dmm[("wq-wo", m)]), (2 * DL, dmm[("wk-wv", m)]), (2 * DL, dmm[("wi-wg", m)]),
                          (DL, dmm[("ffn-wo", m)]), (1, dmm[("head", m)])]
                 rec[key] = {**composite(parts), "per": f"{what}: {DENSE_SITES * DL + 1} sites at M = {m}"}
-        if name in dense["prefill"]["profile"]:
-            ms, n = dense["prefill"]["profile"][name]
-            rec["dense_prefill_profiled"] = {"device_ms": ms, "kernels": n}
+        for key, path in (("zoo_prefill_profiled", zoo), ("dense_prefill_profiled", dense)):
+            ms, n = path["prefill"]["profile"].get(name, (0.0, 0))
+            if n:
+                rec[key] = {"device_ms": ms, "kernels": n}
         record["kernels"].append(rec)
     check(all(k["launches"] > 0 for k in record["kernels"]), "a kernel never launched on the main path")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)

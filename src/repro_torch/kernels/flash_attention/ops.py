@@ -1,8 +1,10 @@
 """Wrapper of the flash-attention forward kernel (``flash_attention.cu``).
 
 Takes the plain version for tensors on the CPU and launches the CUDA kernel
-for tensors on the card; there is no fallback between the two.
-``flash_attention.launches`` counts kernel launches.
+for tensors on the card; there is no fallback between the two. A call on
+the card is two device kernels, the K/V pre-pass (``flash_split_kv``) and
+the forward (``flash_fwd_kernel``), and counts as one launch:
+``flash_attention.launches`` counts wrapper calls that launched them.
 """
 from __future__ import annotations
 
@@ -19,14 +21,16 @@ D_MAX = 128  # the kernel's largest head size
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _launcher():
-    fn = _build.load("flash_attention").flash_attention_launch
-    if fn.argtypes is None:
+def _library():
+    lib = _build.load("flash_attention")
+    if lib.flash_attention_launch.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, ll, ll, ll, ll, ll, ll, ll, ll, ll,
-                       ctypes.c_float, i, ll, i, p]
-        fn.restype = i
-    return fn
+        lib.flash_attention_scratch_bytes.argtypes = [i, i, i, i, i]
+        lib.flash_attention_scratch_bytes.restype = ll
+        lib.flash_attention_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ll, ll, ll, ll, ll, ll, ll, ll, ll,
+                                               ctypes.c_float, i, ll, i, p]
+        lib.flash_attention_launch.restype = i
+    return lib
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
@@ -60,11 +64,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
         return o
     if skv == 0:
         raise ValueError("flash_attention: no keys (Skv = 0)")
+    lib, dtype = _library(), _DTYPES[q.dtype]
+    # the pre-pass's K pieces and bf16 V (see flash_attention.cu)
+    scratch = torch.empty(lib.flash_attention_scratch_bytes(b, skv, kh, d, dtype), dtype=torch.uint8,
+                          device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, sq, skv, h, kh, d,
-                          *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], softmax_scale(d), int(causal),
-                          -1 if window is None else int(window), _DTYPES[q.dtype], stream)
+        err = lib.flash_attention_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), scratch.data_ptr(),
+                                         b, sq, skv, h, kh, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                                         softmax_scale(d), int(causal), -1 if window is None else int(window),
+                                         dtype, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
     flash_attention.launches += 1

@@ -22,6 +22,17 @@ softmax, times v):
     ``backend="ref"``, so on the CPU the model computes what the JAX model
     computes.
 
+The kernel's f32 scores, in plain PyTorch (nothing on the main path calls
+them; the CPU tests hold them against f64 and the JAX oracle):
+
+  * ``split_pieces``: x = hi + mid + lo, three bf16 values by truncation,
+    as the kernel splits q * scale and k;
+  * ``piece_scores``: q . k from the six products of the pieces whose
+    weight reaches 2^-16 (each exact), summed in f32 in the kernel's order,
+    the five smaller first, then hi . hi;
+  * ``flash_attention_pieces``: ``flash_attention_ref`` on those scores,
+    with p and v rounded to bf16 before their product, as the kernel.
+
 Every product here is f32 with TF32 off.
 """
 from __future__ import annotations
@@ -31,7 +42,7 @@ import torch
 from ..floatsd_matmul.ref import no_tf32
 
 __all__ = ["NEG_INF", "softmax_scale", "flash_attention_ref", "flash_attention_chunked",
-           "flash_attention_gqa"]
+           "flash_attention_gqa", "split_pieces", "PIECE_PRODUCTS", "piece_scores", "flash_attention_pieces"]
 
 NEG_INF = -1e30
 
@@ -125,3 +136,55 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, ca
     out = flash_attention_chunked(q.reshape(b, sq, kh, h // kh, d), k, v, q_pos, k_pos, causal=causal,
                                   window=window, chunk=chunk, kv_chunk=kv_chunk)
     return out.reshape(b, sq, h, d)
+
+
+def split_pieces(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """f32 x -> (hi, mid, lo), bf16 values (as f32) with hi + mid + lo == x
+    wherever lo stays a normal f32 (|x| above about 2^-100): hi is x with
+    its low 16 bits cleared, mid the same of r = x - hi, lo = r - mid (both
+    differences exact). A non-finite x goes whole into hi."""
+    x = x.to(torch.float32).contiguous()
+    top = torch.tensor(-65536, dtype=torch.int32)  # 0xFFFF0000
+
+    def trunc(t):
+        return (t.view(torch.int32) & top).view(torch.float32)
+
+    finite = torch.isfinite(x)
+    hi = torch.where(finite, trunc(x), x)
+    r = torch.where(finite, x - hi, torch.zeros_like(x))
+    mid = trunc(r)
+    return hi, mid, r - mid
+
+
+#: the six products (q piece, k piece) whose weight reaches 2^-16, in the
+#: kernel's order: the five smaller ones, then hi . hi
+PIECE_PRODUCTS = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
+
+
+def piece_scores(q: torch.Tensor, k: torch.Tensor, products=PIECE_PRODUCTS) -> torch.Tensor:
+    """[..., Sq, D] x [..., Skv, D] -> [..., Sq, Skv]: q . k from the
+    products of their pieces, each product's sum over d taken in f64 (the
+    products are exact) and the products added in f32 in the given order."""
+    qp, kp = split_pieces(q), split_pieces(k)
+    out = None
+    for a, c in products:
+        part = torch.einsum("...qd,...kd->...qk", qp[a].double(), kp[c].double()).float()
+        out = part if out is None else out + part
+    return out
+
+
+def flash_attention_pieces(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+                           window: int | None = None, products=PIECE_PRODUCTS) -> torch.Tensor:
+    """The oracle's attention, q [BH, Sq, D], k, v [BH, Skv, D] -> [BH, Sq,
+    D] in q's dtype, on ``piece_scores`` of q * scale and k, with p and v
+    rounded to bf16 before their product, as the kernel forms them."""
+    d = q.shape[-1]
+    qpos = torch.arange(q.shape[1], device=q.device)
+    kpos = torch.arange(k.shape[1], device=q.device)
+    with no_tf32():
+        s = piece_scores(q.to(torch.float32) * softmax_scale(d), k.to(torch.float32), products)
+        s = torch.where(_mask(qpos, kpos, causal, window)[None], s, NEG_INF)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        o = torch.einsum("bqk,bkd->bqd", _bf16(p), _bf16(v.to(torch.float32))) / p.sum(dim=-1, keepdim=True)
+        return o.to(q.dtype)

@@ -1,8 +1,10 @@
 """Wrapper of the chunked RWKV-6 wkv kernel (``rwkv_wkv.cu``).
 
 Takes the plain version for tensors on the CPU and launches the CUDA kernel
-for tensors on the card; there is no fallback between the two.
-``rwkv_wkv.launches`` counts kernel launches.
+for tensors on the card; there is no fallback between the two. A call on
+the card is two device kernels, the chunk pre-pass (``wkv_chunk_prep``) and
+the state walk (``rwkv_wkv_kernel``), and counts as one launch:
+``rwkv_wkv.launches`` counts wrapper calls that launched them.
 """
 from __future__ import annotations
 
@@ -11,21 +13,22 @@ import ctypes
 import torch
 
 from .. import _build
-from .ref import wkv_ref
+from .ref import CHUNK, wkv_ref
 
 __all__ = ["rwkv_wkv", "CHUNK", "K_MAX"]
 
-CHUNK = 16  # the kernel's chunk length
 K_MAX = 128  # the kernel's largest head size K
 
 
-def _launcher():
-    fn = _build.load("rwkv_wkv").rwkv_wkv_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, ctypes.c_longlong, p]
-        fn.restype = i
-    return fn
+def _library():
+    lib = _build.load("rwkv_wkv")
+    if lib.rwkv_wkv_launch.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.rwkv_wkv_scratch_bytes.argtypes = [i, i, i, i]
+        lib.rwkv_wkv_scratch_bytes.restype = ll
+        lib.rwkv_wkv_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, ll, p]
+        lib.rwkv_wkv_launch.restype = i
+    return lib
 
 
 def rwkv_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
@@ -58,12 +61,16 @@ def rwkv_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         u3 = u3.contiguous()
     y = torch.empty((b, s, h, vv), dtype=torch.float32, device=r.device)
     s_fin = torch.zeros((b, h, kk, vv), dtype=torch.float32, device=r.device)
-    if b * h == 0:
+    if b * h == 0 or s == 0:
         return y, s_fin
+    lib = _library()
+    # each chunk's decays and tile, formed once by the pre-pass (see rwkv_wkv.cu)
+    scratch = torch.empty(lib.rwkv_wkv_scratch_bytes(b, h, s, kk), dtype=torch.uint8, device=r.device)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _launcher()(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u3.data_ptr(),
-                          y.data_ptr(), s_fin.data_ptr(), b, h, s, kk, vv, u3.stride(0), stream)
+        err = lib.rwkv_wkv_launch(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u3.data_ptr(),
+                                  y.data_ptr(), s_fin.data_ptr(), scratch.data_ptr(), b, h, s, kk, vv, u3.stride(0),
+                                  stream)
     if err != 0:
         raise RuntimeError(f"rwkv_wkv launch failed: cudaError {err}")
     rwkv_wkv.launches += 1

@@ -35,7 +35,11 @@ the flash-attention kernel against both its plain versions (the f32
 oracle and the model's chunked online softmax) within rtol 2e-2, atol 6e-3
 on f32 inputs and rtol 3e-2, atol 2e-2 on bf16 ones (the JAX package's
 kernel-vs-oracle bounds: p and v are rounded to bf16 before their
-product), and bit for bit from one launch to the next; the reduced dense
+product), and bit for bit from one launch to the next; its f32 scores
+against the chunked plain version (which rounds p and v as the kernel
+does, so only the scores differ) within a quarter of the error of that
+plain version on bf16-rounded q and k (one bf16 pass of the scores); the
+wkv bound rejects the recurrence with the bonus u dropped; the reduced dense
 model on the kernels against its plain versions within one bf16 step
 (2^-8) of the logit scale with no activation quantizer (the two attentions
 round p to bf16 from scores that differ in their last bits: a p on a
@@ -557,10 +561,11 @@ def test_dispatch_routes_new_entry_points_to_the_kernels(dev):
 
 
 # (B, S, H, K, V): the reduced model's prefill, ragged S (a short last chunk),
-# V not a multiple of the kernel's 16-column slice, the largest K, one head
-# per batch row (the JAX kernel's [BH, S, K] layout), the full-width prefill
+# V not a multiple of the walk's 16-column slice, the largest K, one head
+# per batch row (the JAX kernel's [BH, S, K] layout), the full-width prefill,
+# K = V = 128 over 1024 positions, a ragged S at the full head count
 WKV_SHAPES = [(3, 32, 4, 32, 32), (2, 50, 2, 64, 64), (1, 33, 2, 64, 40), (1, 20, 1, 128, 128),
-              (4, 16, 1, 32, 32), (2, 1024, 40, 64, 64)]
+              (4, 16, 1, 32, 32), (2, 1024, 40, 64, 64), (1, 1024, 2, 128, 128), (1, 1000, 40, 64, 64)]
 
 
 def _wkv_inputs(dev, b, s, h, k, v, w0, seed=0):
@@ -597,6 +602,19 @@ def test_rwkv_wkv_kernel_matches_plain(dev, b, s, h, k, v, w0):
     y2, s2 = rwkv_wkv(r, kk, vv, w, u)  # a second launch: the same bits
     torch.cuda.synchronize()
     assert torch.equal(y, y2) and torch.equal(s_fin, s2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w0", [-6.0, -2.0, 1.0])
+def test_rwkv_wkv_bound_rejects_the_recurrence_without_u(dev, w0):
+    """The bound's negative control on the card: the kernel passes it, the
+    recurrence with the bonus u dropped does not, at the full-width prefill
+    shape."""
+    r, kk, vv, w, u = _wkv_inputs(dev, 2, 1024, 40, 64, 64, w0)
+    y_r, s_r = wkv_ref(r, kk, vv, w, u)
+    _assert_wkv_close(*rwkv_wkv(r, kk, vv, w, u), y_r, s_r, (r, kk, vv, w, u))
+    with pytest.raises(AssertionError):
+        _assert_wkv_close(*wkv_ref(r, kk, vv, w, torch.zeros_like(u)), y_r, s_r, (r, kk, vv, w, u))
 
 
 @pytest.mark.cuda
@@ -656,6 +674,12 @@ FLASH_SHAPES = [
     (2, 130, 130, 4, 1, 120, False, None, torch.float32),
     (1, 300, 300, 8, 2, 120, True, 100, torch.bfloat16),
     (1, 150, 70, 2, 1, 32, True, 40, torch.float32),
+    # head sizes the kernel pads to its 64 or 128 (zeros past D), and the
+    # dense model's heads (32 over 8, D 120) at its prefill length
+    (2, 100, 100, 2, 1, 16, True, None, torch.float32),
+    (1, 190, 190, 4, 2, 72, True, 50, torch.bfloat16),
+    (2, 150, 150, 2, 2, 100, False, None, torch.float32),
+    (1, 1024, 1024, 32, 8, 120, True, 4096, torch.float32),
 ]
 
 
@@ -693,6 +717,21 @@ def test_flash_attention_kernel_matches_both_plain_versions(dev, b, sq, skv, h, 
     o2 = flash_attention(q, k, v, causal=causal, window=window)  # a second launch: the same bits
     torch.cuda.synchronize()
     assert torch.equal(o, o2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,kh,d", [(1, 1024, 32, 8, 120), (2, 300, 4, 2, 64), (1, 500, 8, 1, 128)])
+def test_flash_attention_f32_scores_keep_f32_precision(dev, b, s, h, kh, d):
+    """The f32 precision control. The chunked plain version rounds p and v
+    to bf16 as the kernel does, so against it only the scores differ: the
+    kernel's max error must be at most a quarter of that of the same plain
+    version run on q and k rounded to bf16 (a one-piece emulation), which a
+    single bf16 pass of the scores would not meet."""
+    q, k, v = _flash_inputs(dev, b, s, s, h, kh, d, torch.float32, seed=1)
+    plain = flash_attention_gqa(q, k, v)
+    one_piece = flash_attention_gqa(q.bfloat16().float(), k.bfloat16().float(), v)
+    err = float((flash_attention(q, k, v) - plain).abs().max())
+    assert err <= 0.25 * float((one_piece - plain).abs().max()), err
 
 
 @pytest.mark.cuda

@@ -351,16 +351,21 @@ def test_new_cuda_source_tables_match_the_port():
 
 
 def test_build_hash_follows_included_headers(tmp_path, monkeypatch):
-    """qsigmoid.cu includes the cell's header from another directory, and
-    both decode matmul kernels include the shared tile loops: each header is
-    among its includers' sources, and an edit to it changes the library name
-    of every kernel that includes it, and of no other. The weight gradient's
-    source includes neither."""
+    """qsigmoid.cu includes the cell's header from another directory, both
+    decode matmul kernels include the shared tile loops, and those loops,
+    the flash-attention and the wkv kernels include the warp-level
+    instructions (through the tile loops, a header of a header): each header
+    is among its includers' sources, and an edit to it changes the library
+    name of every kernel that includes it, and of no other. The weight
+    gradient's source includes none."""
     common = KERNELS_DIR / "lstm_cell" / "lstm_cell_common.cuh"
     tiles = KERNELS_DIR / "routed_gemm.cuh"
+    warp = KERNELS_DIR / "warp_mma.cuh"
     assert common in _build._sources("qsigmoid") and common in _build._sources("lstm_cell_bwd")
-    assert _build._sources("floatsd4_matmul") == [KERNELS_DIR / "floatsd4_matmul" / "floatsd4_matmul.cu", tiles]
-    assert _build._sources("floatsd_matmul") == [KERNELS_DIR / "floatsd_matmul" / "floatsd_matmul.cu", tiles]
+    assert _build._sources("floatsd4_matmul") == [KERNELS_DIR / "floatsd4_matmul" / "floatsd4_matmul.cu", tiles, warp]
+    assert _build._sources("floatsd_matmul") == [KERNELS_DIR / "floatsd_matmul" / "floatsd_matmul.cu", tiles, warp]
+    assert _build._sources("flash_attention") == [KERNELS_DIR / "flash_attention" / "flash_attention.cu", warp]
+    assert _build._sources("rwkv_wkv") == [KERNELS_DIR / "rwkv_wkv" / "rwkv_wkv.cu", warp]
     assert _build._sources("floatsd_matmul_dw") == [KERNELS_DIR / "floatsd_matmul" / "floatsd_matmul_dw.cu"]
     assert not (KERNELS_DIR / "decode_gemm.cuh").exists()
     assert "--fmad=false" in _build._target("qsigmoid")[1]
@@ -370,7 +375,8 @@ def test_build_hash_follows_included_headers(tmp_path, monkeypatch):
     shutil.copytree(KERNELS_DIR, copy, ignore=shutil.ignore_patterns("*.py", "__pycache__"))
     monkeypatch.setattr(_build, "_KERNELS_DIR", copy)
     for header, includers in [("lstm_cell/lstm_cell_common.cuh", {"lstm_cell", "lstm_cell_bwd", "qsigmoid"}),
-                              ("routed_gemm.cuh", {"floatsd_matmul", "floatsd4_matmul"})]:
+                              ("routed_gemm.cuh", {"floatsd_matmul", "floatsd4_matmul"}),
+                              ("warp_mma.cuh", {"floatsd_matmul", "floatsd4_matmul", "flash_attention", "rwkv_wkv"})]:
         before = {op: _build._target(op)[0].name for op in _build.KERNELS}
         path = copy / header
         path.write_text(path.read_text() + "\n// edited\n")
