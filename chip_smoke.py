@@ -35,7 +35,14 @@ Phases, in order; the first failure exits non-zero:
                 function; at the prefill shape its f32 scores' precision
                 control (against the chunked plain version, at most a
                 quarter of the error of that version on bf16-rounded q and
-                k).
+                k). The element-wise kernels: lstm_cell and lstm_cell_grad
+                bit for bit at the decode and train shapes, at H 1023 and
+                with c_prev at an odd fp16 offset; qsigmoid bit for bit at
+                the entry and zoo shapes and on every one of the 2^32 f32
+                bit patterns (the seconds printed); two launches
+                bit-identical; for each of the three, ptxas's registers and
+                spills, SASS instructions an element (cuobjdump) and the
+                timing floor (the same timer around a one-element op).
   4. main path  the full-width WikiText-2 FloatSD8 LM (vocab 33278 padded
                 to 33280, 1024 wide, 2 layers, tied embeddings, seeded
                 random weights) packed to 1-byte codes and served by
@@ -130,6 +137,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -168,6 +176,7 @@ CELL_BWD_OPS = CELL_OPS + 10 + 22
 QUANT_OPS = 10
 # qsigmoid: the negated |x|, a gate, the mirror's subtract and select
 QSIG_OPS = GATE_OPS + 3
+QSIG_SWEEP_LOG2_CHUNK = 26  # the all-f32 sweep's chunk: the plain version holds ~40 B an element at once
 # FloatSD4 store of the full-width model: per 2-D leaf ceil(K/2)*N code bytes +
 # ceil(K/32)*N exponent bytes (embedding [33280,1024], four [1024,4096] gate
 # weights), plus the two f32 [4096] biases
@@ -291,9 +300,9 @@ def ptxas_report(log: str) -> list[str]:
     return [x for x in out if "registers" in x or "0 bytes spill stores" not in x]
 
 
-def sass_count(build, op: str, opcodes) -> dict | None:
-    """How many instructions of each opcode the SASS of ``op``'s library
-    holds (cuobjdump from the CUDA toolkit), or None without cuobjdump."""
+def cuobjdump(build, op: str, flag: str) -> str | None:
+    """cuobjdump's ``flag`` listing of ``op``'s library (the CUDA toolkit's
+    tool), or None without cuobjdump."""
     import shutil
 
     from torch.utils.cpp_extension import CUDA_HOME
@@ -302,10 +311,109 @@ def sass_count(build, op: str, opcodes) -> dict | None:
     tool = next((c for c in cands if c and Path(c).exists()), None)
     if tool is None:
         return None
-    sass = subprocess.run([tool, "-sass", str(build._target(op)[0])], capture_output=True, text=True, timeout=120,
+    return subprocess.run([tool, flag, str(build._target(op)[0])], capture_output=True, text=True, timeout=120,
                           check=True).stdout
-    words = [w.split(".")[0] for line in sass.splitlines() for w in line.replace(";", " ").split()]
+
+
+def sass(build, op: str) -> str | None:
+    """The SASS of ``op``'s library, or None without cuobjdump."""
+    return cuobjdump(build, op, "-sass")
+
+
+def res_usage(build, op: str) -> list[str]:
+    """Registers and local memory (where spills go) of each kernel function
+    in ``op``'s library, read from the built library by cuobjdump
+    -res-usage: the report for a library this process loaded from the build
+    cache, whose ptxas output it never saw."""
+    text = cuobjdump(build, op, "-res-usage")
+    if text is None:
+        return ["cached build, not reported (no ptxas log, cuobjdump not found)"]
+    out = []
+    for name, usage in re.findall(r"Function (\S+?):?\s*\n\s*(REG:.*)", text):
+        m = re.search(r"_kernelI(.*?)EEv", name)
+        fields = dict(re.findall(r"(\w+):(\d+)", usage))
+        out.append(f"<{m.group(1) if m else name}>: {fields.get('REG')} registers, {fields.get('LOCAL')} bytes local "
+                   "(cuobjdump -res-usage of the cached build)")
+    return out or ["cached build, not reported (cuobjdump -res-usage listed no function)"]
+
+
+def sass_count(build, op: str, opcodes) -> dict | None:
+    """How many instructions of each opcode the SASS of ``op``'s library
+    holds, or None without cuobjdump."""
+    text = sass(build, op)
+    if text is None:
+        return None
+    words = [w.split(".")[0] for line in text.splitlines() for w in line.replace(";", " ").split()]
     return {code: words.count(code) for code in opcodes}
+
+
+def _stored_per_element(op: str, args: str) -> int:
+    """Bytes an element of an element-wise kernel stores: qsigmoid its output
+    (2 for fp16/bf16), the cell backward dz (4 f32) + dc_prev (f32), the cell
+    h (f32) + c (fp16 or f32); ``args`` are the mangled template arguments."""
+    if op == "qsigmoid":
+        return 2 if ("half" in args or "bfloat16" in args) else 4
+    if op == "lstm_cell_bwd":
+        return 20
+    return 6 if (args.endswith("6__half") or args.endswith("S1_")) else 8
+
+
+def sass_per_element(build, op: str) -> dict | None:
+    """SASS instructions an element of each kernel function in ``op``'s
+    library: the static instructions of its store loop (of the backward
+    branches whose body stores, the longest) or, where no loop stores, of
+    the whole function, over the elements that body stores (STG widths over
+    the bytes an element stores). Keyed by the function's template
+    arguments as mangled; None without cuobjdump."""
+    text = sass(build, op)
+    if text is None:
+        return None
+    widths = (("128", 16), ("64", 8), ("16", 2), ("8", 1))
+    out = {}
+    for block in text.split("Function : ")[1:]:
+        name = block.split()[0]
+        m = re.search(r"_kernelI(.*?)EEv", name)
+        args = m.group(1) if m else name
+        ins = [(int(a, 16), t.strip()) for a, t in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", block)]
+        ins = [(a, t) for a, t in ins if not t.startswith("NOP")]
+
+        def stored(body):
+            ops = [re.sub(r"^@!?U?P[T0-9]+\s+", "", t).split()[0] for t in body]
+            return sum(next((v for k, v in widths if o.endswith(k)), 4) for o in ops if o.startswith("STG"))
+
+        loops = []
+        for a, t in ins:
+            br = re.search(r"\bBRA\s+(?:\S+\s+)?0x([0-9a-f]+)", t)
+            if br and int(br.group(1), 16) < a:
+                loops.append([u for b, u in ins if int(br.group(1), 16) <= b <= a])
+        loops = [body for body in loops if stored(body)]
+        body = max(loops, key=len) if loops else [t for _, t in ins]
+        out[args] = dict(instructions=len(ins), body=len(body), loop=bool(loops),
+                         per_element=len(body) * _stored_per_element(op, args) / max(1, stored(body)))
+    return out
+
+
+def fmt_sass(per: dict | None) -> str:
+    if per is None:
+        return "SASS: cuobjdump not found"
+    return "SASS instructions an element " + ", ".join(
+        f"<{k}> {v['per_element']:.1f} ({'loop' if v['loop'] else 'kernel'} of {v['body']})" for k, v in per.items())
+
+
+def element_report(build, op: str, floor_ms: float) -> str:
+    """ptxas's registers and spills, SASS instructions an element and the
+    timing floor, for one element-wise kernel's rows."""
+    regs = ptxas_report(build.build_log(op)) or res_usage(build, op)
+    return (f"  {op}: ptxas " + "; ".join(regs) + f" | {fmt_sass(sass_per_element(build, op))}"
+            f" | timing floor {floor_ms:.4f} ms (the timer around a one-element torch.neg)")
+
+
+def odd_view(torch, t):
+    """t's values in a contiguous view one element into a larger buffer (not
+    16-byte aligned)."""
+    v = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    v.copy_(t)
+    return v
 
 
 def timed_ms(torch, fn, reps: int, flush) -> float:
@@ -328,13 +436,14 @@ def timed_ms(torch, fn, reps: int, flush) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def kernel_phase(torch, dev, flush):
+def kernel_phase(torch, dev, flush, floor_ms):
     from repro_torch.core import floatsd
     from repro_torch.core.fp8 import FP16, quantize_fp8
     from repro_torch.kernels.floatsd_matmul.ops import floatsd_matmul, matmul_dw, matmul_dx, plan
     from repro_torch.kernels.floatsd_matmul.ref import (
         floatsd_matmul_ref, matmul_dw_ref, matmul_dx_ref, no_tf32,
     )
+    from repro_torch.kernels import _build
     from repro_torch.kernels.lstm_cell.ops import lstm_cell, lstm_cell_grad
     from repro_torch.kernels.lstm_cell.ref import lstm_cell_bwd_ref, lstm_cell_ref
 
@@ -383,24 +492,31 @@ def kernel_phase(torch, dev, flush):
               f"two launches bit-identical | kernel {t:.4f} ms, plain {t_plain:.3f} ms, torch.matmul {t_lib:.4f} "
               f"ms, {fmt_bound(bd)}")
 
-    print("kernels: lstm_cell vs plain version (at most 0.1% flipped, |dh| <= 2^-3)")
+    print("kernels: lstm_cell vs plain version (bit for bit; two launches bit-identical)")
+    print(element_report(_build, "lstm_cell", floor_ms))
     cell = {}
-    for b, h in [(8, 1024), (64, 1024), (5, 200)]:
+    # the decode and train shapes, a ragged one, H = 1023 (no vector width
+    # divides it), and the train shape with c_prev at an odd fp16 offset
+    for b, h, odd in [(8, 1024, False), (64, 1024, False), (5, 200, False), (64, 1023, False), (64, 1024, True)]:
         z = torch.randn((b, 4 * h), device=dev, generator=g) * 2
         c = torch.randn((b, h), device=dev, generator=g).to(torch.float16)
+        if odd:
+            c = odd_view(torch, c)
         h_k, c_k = lstm_cell(z, c)
+        h_2, c_2 = lstm_cell(z, c)
         h_r, c_r = lstm_cell_ref(z, c)
         torch.cuda.synchronize()
         flips = int(((h_k != h_r) | (c_k != c_r)).sum())
         err = max(float((h_k - h_r).abs().max()), float((c_k.float() - c_r.float()).abs().max()))
-        check(flips <= 1e-3 * b * h and float((h_k - h_r).abs().max()) <= 2.0**-3,
-              f"lstm_cell {b}x{h}: {flips} flips, max err {err}")
+        check(flips == 0, f"lstm_cell {b}x{h}{' (odd c_prev)' if odd else ''}: {flips} outputs differ, max err {err}")
+        check(torch.equal(h_k, h_2) and torch.equal(c_k, c_2), f"lstm_cell {b}x{h}: two launches differ")
         t = timed_ms(torch, lambda: lstm_cell(z, c), 50, flush)
         t_plain = timed_ms(torch, lambda: lstm_cell_ref(z, c), 10, flush)
         bd = bound(b * 4 * h * 4 + b * h * 2 + b * h * 4 + b * h * 2, float(b * h * CELL_OPS))
-        cell[(b, h)] = dict(ms=t, plain_ms=t_plain, err=err, **bd)
-        print(f"  [{b},{4 * h}] -> h,c [{b},{h}]: max_abs_err {err:.3e}, {flips} of {b * h} flipped | "
-              f"kernel {t:.4f} ms, plain {t_plain:.3f} ms, {fmt_bound(bd)}")
+        cell[(b, h, odd) if odd else (b, h)] = dict(ms=t, plain_ms=t_plain, err=err, **bd)
+        print(f"  [{b},{4 * h}] -> h,c [{b},{h}]{', c_prev at an odd fp16 offset' if odd else ''}: max_abs_err "
+              f"{err:.3e}, {flips} of {b * h} differ, two launches bit-identical | kernel {t:.4f} ms, plain "
+              f"{t_plain:.3f} ms, {fmt_bound(bd)}")
 
     print("kernels: matmul_dx (floatsd_matmul.cu on codes [K,N] read as [out, contraction]) vs plain "
           "version (tolerance |err| <= 1e-5 * (|g| @ |W|^T))")
@@ -462,28 +578,36 @@ def kernel_phase(torch, dev, flush):
               f"{t / bd['bound_ms']:.2f}x the bound, {t / t_lib:.2f}x torch.matmul), plain {t_plain:.3f} ms, "
               f"torch.matmul(x.t(), g) (no FP8 snap) {t_lib:.4f} ms, {fmt_bound(bd)}")
 
-    print("kernels: lstm_cell_grad vs plain version (bit for bit)")
+    print("kernels: lstm_cell_grad vs plain version (bit for bit; two launches bit-identical)")
+    print(element_report(_build, "lstm_cell_bwd", floor_ms))
     cell_bwd = {}
-    for b, h in [(64, 1024), (5, 200)]:
+    # the train shape, a ragged one, H = 1023, and the train shape with
+    # c_prev at an odd fp16 offset (cs_prev[t] when B * H % 8 != 0)
+    for b, h, odd in [(64, 1024, False), (5, 200, False), (64, 1023, False), (64, 1024, True)]:
         z = torch.randn((b, 4 * h), device=dev, generator=g) * 2
         c = torch.randn((b, h), device=dev, generator=g).to(torch.float16)  # fp16 storage, as trained
+        if odd:
+            c = odd_view(torch, c)
         dh, dc = (torch.randn((b, h), device=dev, generator=g) for _ in range(2))
         dz, dcp = lstm_cell_grad(z, c, dh, dc)
+        dz2, dcp2 = lstm_cell_grad(z, c, dh, dc)
         dz_r, dcp_r = lstm_cell_bwd_ref(z, c.float(), dh, dc)
         torch.cuda.synchronize()
         flips = int((dz != dz_r).sum()) + int((dcp != dcp_r).sum())
         err = max(float((dz - dz_r).abs().max()), float((dcp - dcp_r).abs().max()))
-        check(flips == 0, f"lstm_cell_grad {b}x{h}: {flips} outputs differ, max err {err}")
+        check(flips == 0, f"lstm_cell_grad {b}x{h}{' (odd c_prev)' if odd else ''}: {flips} outputs differ, max err {err}")
+        check(torch.equal(dz, dz2) and torch.equal(dcp, dcp2), f"lstm_cell_grad {b}x{h}: two launches differ")
         t = timed_ms(torch, lambda: lstm_cell_grad(z, c, dh, dc), 50, flush)
         t_plain = timed_ms(torch, lambda: lstm_cell_bwd_ref(z, c.float(), dh, dc), 10, flush)
         bd = bound(46.0 * b * h, float(b * h * CELL_BWD_OPS))
-        cell_bwd[(b, h)] = dict(ms=t, plain_ms=t_plain, err=err, **bd)
-        print(f"  [{b},{4 * h}] + 3 x [{b},{h}] -> dz, dc_prev: max_abs_err {err:.3e}, {flips} differ | "
-              f"kernel {t:.4f} ms, plain {t_plain:.3f} ms, {fmt_bound(bd)}")
+        cell_bwd[(b, h, odd) if odd else (b, h)] = dict(ms=t, plain_ms=t_plain, err=err, **bd)
+        print(f"  [{b},{4 * h}] + 3 x [{b},{h}] -> dz, dc_prev{', c_prev at an odd fp16 offset' if odd else ''}: "
+              f"max_abs_err {err:.3e}, {flips} differ, two launches bit-identical | kernel {t:.4f} ms, plain "
+              f"{t_plain:.3f} ms, {fmt_bound(bd)}")
     return mm, cell, dx, dw, cell_bwd
 
 
-def kernel_phase4(torch, dev, flush):
+def kernel_phase4(torch, dev, flush, floor_ms):
     """Phase 3, continued: floatsd4_matmul, the quantize kernel and the
     qsigmoid kernel against their plain versions."""
     from repro_torch.core import floatsd, floatsd4
@@ -492,6 +616,7 @@ def kernel_phase4(torch, dev, flush):
     from repro_torch.kernels.floatsd4_matmul.ops import floatsd4_matmul
     from repro_torch.kernels.floatsd4_matmul.ref import floatsd4_matmul_ref
     from repro_torch.kernels.floatsd_matmul.ref import no_tf32, plan
+    from repro_torch.kernels import _build
     from repro_torch.kernels.floatsd_quantize.ops import floatsd_quantize
     from repro_torch.kernels.qsigmoid.ops import qsigmoid
 
@@ -574,15 +699,18 @@ def kernel_phase4(torch, dev, flush):
         print(f"  edge values (±0, grid points, midpoints and their neighbours, above the top) at bias {bias}, "
               f"f32 and fp16: 0 of {n_vals} codes differ")
 
-    print("kernels: qsigmoid vs core.qsigmoid.qsigmoid_raw (bit for bit on f32; bf16 counted)")
+    print("kernels: qsigmoid vs core.qsigmoid.qsigmoid_raw (bit for bit on f32; bf16 counted; two launches "
+          "bit-identical)")
+    print(element_report(_build, "qsigmoid", floor_ms))
     qsig = {}
     for shape in [(64, 4096), (1_000_003,), (2, 1024, 2560)]:  # the last: a zoo prefill gate
         x = torch.randn(shape, device=dev, generator=g) * 4
-        y, y_ref = qsigmoid(x), qsigmoid_raw(x)
+        y, y2, y_ref = qsigmoid(x), qsigmoid(x), qsigmoid_raw(x)
         torch.cuda.synchronize()
         mism = int((y != y_ref).sum())
         err = float((y - y_ref).abs().max())
         check(mism == 0, f"qsigmoid {shape}: {mism} outputs differ (max err {err})")
+        check(torch.equal(y, y2), f"qsigmoid {shape}: two launches differ")
         xb = x.to(torch.bfloat16)
         yb, yb_ref = qsigmoid(xb), qsigmoid_raw(xb)
         torch.cuda.synchronize()
@@ -592,9 +720,19 @@ def kernel_phase4(torch, dev, flush):
         t_plain = timed_ms(torch, lambda: qsigmoid_raw(x), 10, flush)
         bd = bound(x.numel() * 8, float(x.numel() * QSIG_OPS))
         qsig[shape] = dict(ms=t, plain_ms=t_plain, library_ms=None, err=err, bf16_differ=n_bf, **bd)
-        print(f"  {list(shape)} f32: max_abs_err {err:.3e}, {mism} of {x.numel()} differ | bf16 input: {n_bf} of "
+        print(f"  {list(shape)} f32: max_abs_err {err:.3e}, {mism} of {x.numel()} differ, two launches bit-identical | bf16 input: {n_bf} of "
               f"{x.numel()} differ (kernel sigma in f32, plain in bf16), max {err_bf:.3e} | kernel {t:.4f} ms, "
               f"plain {t_plain:.3f} ms, {fmt_bound(bd)}; no library call")
+    # every f32 bit pattern, in chunks, against the plain version
+    t0 = time.perf_counter()
+    chunk, differ = 1 << QSIG_SWEEP_LOG2_CHUNK, 0
+    for start in range(-(1 << 31), 1 << 31, chunk):
+        x = torch.arange(start, start + chunk, dtype=torch.int64, device=dev).to(torch.int32).view(torch.float32)
+        differ += int((qsigmoid(x) != qsigmoid_raw(x)).sum())
+    sweep_s = time.perf_counter() - t0
+    check(differ == 0, f"qsigmoid: {differ} of the 2^32 f32 bit patterns differ from the plain version")
+    print(f"  every f32 bit pattern (2^32, {(1 << 32) // chunk} chunks of 2^{QSIG_SWEEP_LOG2_CHUNK}): 0 differ from the "
+          f"plain version, in {sweep_s:.1f} s")
     return mm4, quant, qsig
 
 
@@ -1767,8 +1905,11 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev)  # > 50 MB L2
-    mm, cell, dx, dw, cell_bwd = kernel_phase(torch, dev, flush)
-    mm4, quant, qsig = kernel_phase4(torch, dev, flush)
+    one = torch.zeros(1, device=dev)
+    floor_ms = timed_ms(torch, lambda: torch.neg(one), 50, flush)
+    print(f"kernels: timing floor {floor_ms:.4f} ms (the timer below around a one-element torch.neg)", flush=True)
+    mm, cell, dx, dw, cell_bwd = kernel_phase(torch, dev, flush, floor_ms)
+    mm4, quant, qsig = kernel_phase4(torch, dev, flush, floor_ms)
     wkv = wkv_phase(torch, dev, flush)
     zmm = zoo_matmul_phase(torch, dev, flush)
     dmm = zoo_matmul_phase(torch, dev, flush, DENSE_ARCH, DENSE_MM_SITES, SEED + 5)

@@ -29,8 +29,8 @@ template <typename CIn, typename COut>
 __global__ void __launch_bounds__(kThreads)
 lstm_cell_kernel(const float* __restrict__ z, const CIn* __restrict__ c_prev,
                  float* __restrict__ h, COut* __restrict__ c_out, int B, int H, int quantized) {
-  __shared__ float grid[43];
-  if (threadIdx.x < 43) grid[threadIdx.x] = kSigGrid[threadIdx.x];
+  __shared__ float table[kSigTable];
+  stage_sig_table(table);
   __syncthreads();
 
   const long long n = (long long)B * H;
@@ -38,7 +38,7 @@ lstm_cell_kernel(const float* __restrict__ z, const CIn* __restrict__ c_prev,
   if (idx >= n) return;
   const int b = (int)(idx / H), j = (int)(idx % H);
   const float* zr = z + (size_t)b * 4 * H;
-  const Gates a = gates(zr[j], zr[H + j], zr[2 * H + j], zr[3 * H + j], quantized, grid);
+  const Gates a = gates(zr[j], zr[H + j], zr[2 * H + j], zr[3 * H + j], quantized, table);
   const float c_stored = store(c_out + idx, cell_update(a, load(c_prev + idx)));
   const float tc = quantized ? e5m2(tanhf(c_stored)) : tanhf(c_stored);
   h[idx] = __fmul_rn(a.o, tc);

@@ -36,7 +36,10 @@ def qsigmoid(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"qsigmoid: needs an f32, fp16 or bf16 tensor on the card, got "
                          f"{x.dtype} on {x.device}")
     x = x.contiguous()
-    y = torch.empty_like(x)
+    # y starts at x's offset within 16 bytes, so the kernel's vectors of the
+    # two line up (x may be a view at any element offset)
+    off = x.data_ptr() % 16 // x.element_size()
+    y = torch.empty(x.numel() + off, dtype=x.dtype, device=x.device)[off:].view(x.shape)
     if x.numel() == 0:
         return y
     with torch.cuda.device(x.device):

@@ -799,3 +799,124 @@ def test_reduced_dense_on_the_kernels_matches_its_plain_versions(dev):
         for t in range(70):
             lg, cache = model.decode_step(tree, toks[:, t:t + 1], cache, pol)
             torch.testing.assert_close(lg[:, 0], got[:, t], rtol=0, atol=1e-2 * scale)
+
+
+# The redesigned element-wise kernels: the gate function's O(1) LUT index at
+# its edges, qsigmoid's vector path at every alignment and ragged length,
+# and both cells at a ragged H, an odd B * H and misaligned views.
+
+def _qsig_x_edges(dev) -> torch.Tensor:
+    """Every f32 within 256 ulps of each of the 84 x where sigma(-|x|)
+    crosses a LUT midpoint, and 0, +-inf, NaN."""
+    from repro_torch.core.qsigmoid import sigmoid_lut_values
+
+    grid = torch.as_tensor(sigmoid_lut_values(), dtype=torch.float64)
+    mids = ((grid[1:] + grid[:-1]) / 2).float().double()
+    xm = torch.log(1.0 / mids - 1.0).float()  # sigma(-xm) = mid
+    steps = torch.arange(-256, 257, dtype=torch.int64)
+    xs = (xm.view(torch.int32).long()[:, None] + steps).to(torch.int32).view(torch.float32).reshape(-1)
+    special = torch.tensor([0.0, -0.0, float("inf"), float("-inf"), float("nan")])
+    assert mids.numel() == 42
+    return torch.cat([xs, -xs, special]).to(dev)
+
+
+@pytest.mark.cuda
+def test_qsigmoid_kernel_bit_for_bit_around_every_midpoint_crossing(dev):
+    x = _qsig_x_edges(dev)
+    n0 = qsigmoid.launches
+    got = qsigmoid(x)
+    torch.cuda.synchronize()
+    assert qsigmoid.launches == n0 + 1
+    assert torch.equal(got, qsigmoid_raw(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("n", [1, 7, 4099, 1_000_003])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+def test_qsigmoid_kernel_at_any_start_offset_and_ragged_length(dev, offset, n, dtype):
+    """A view that starts 1-3 elements past a 16-byte boundary: the head,
+    the vectors and the ragged tail. f32 bit for bit with the plain version;
+    fp16/bf16 equal to the f32 kernel on the widened input, rounded back."""
+    base = (torch.randn(n + 8, device=dev, generator=_gen(dev, n + offset)) * 4).to(dtype)
+    x = base[offset:offset + n]
+    assert x.data_ptr() % 16 != 0
+    got = qsigmoid(x)
+    want = qsigmoid_raw(x) if dtype == torch.float32 else qsigmoid(x.float()).to(dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_qsigmoid_kernel_on_every_16_bit_pattern(dev, dtype):
+    x = torch.arange(-2**15, 2**15, dtype=torch.int32, device=dev).to(torch.int16).view(dtype)
+    got = qsigmoid(x)
+    want = qsigmoid(x.float()).to(dtype)
+    torch.cuda.synchronize()
+    assert got.numel() == 65536 and torch.equal(got, want)
+
+
+def _odd_view(t: torch.Tensor, offset: int = 1) -> torch.Tensor:
+    """t's values in a contiguous view that starts `offset` elements into a
+    larger buffer (not 16-byte aligned)."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    v = buf[offset:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+# a ragged H (no vector width divides it), B * H odd, and the train step's
+# width with the cell state at an odd fp16 offset, as cs_prev[t] can be
+CELL_EDGE_SHAPES = [(64, 1023), (3, 1023), (5, 333), (64, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h", CELL_EDGE_SHAPES)
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("c_dtype", [torch.float16, torch.float32])
+def test_lstm_cell_grad_kernel_at_ragged_h_and_a_misaligned_cell_state(dev, b, h, quantized, c_dtype):
+    g = _gen(dev, b * h + 2)
+    z = torch.randn((b, 4 * h), device=dev, generator=g) * 2
+    c = _odd_view(torch.randn((b, h), device=dev, generator=g).to(torch.float16).to(c_dtype))
+    dh, dc = (torch.randn((b, h), device=dev, generator=g) for _ in range(2))
+    n0 = lstm_cell_grad.launches
+    dz_k, dcp_k = lstm_cell_grad(z, c, dh, dc, quantized=quantized, c_dtype=c_dtype)
+    dz_2, dcp_2 = lstm_cell_grad(z, c, dh, dc, quantized=quantized, c_dtype=c_dtype)
+    dz_r, dcp_r = lstm_cell_bwd_ref(z, c.float(), dh, dc, quantized, c_dtype=c_dtype)
+    torch.cuda.synchronize()
+    assert lstm_cell_grad.launches == n0 + 2
+    assert torch.equal(dz_k, dz_r) and torch.equal(dcp_k, dcp_r)
+    assert torch.equal(dz_k, dz_2) and torch.equal(dcp_k, dcp_2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [True, False])
+def test_lstm_cell_grad_kernel_with_every_input_misaligned(dev, quantized):
+    """z, dh and dc one f32 past a 16-byte boundary: the scalar path."""
+    b, h = 64, 1024
+    g = _gen(dev, 11)
+    z = _odd_view(torch.randn((b, 4 * h), device=dev, generator=g) * 2)
+    c = _odd_view(torch.randn((b, h), device=dev, generator=g).to(torch.float16), 3)
+    dh, dc = (_odd_view(torch.randn((b, h), device=dev, generator=g)) for _ in range(2))
+    dz_k, dcp_k = lstm_cell_grad(z, c, dh, dc, quantized=quantized)
+    dz_r, dcp_r = lstm_cell_bwd_ref(z, c.float(), dh, dc, quantized)
+    torch.cuda.synchronize()
+    assert torch.equal(dz_k, dz_r) and torch.equal(dcp_k, dcp_r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h", CELL_EDGE_SHAPES)
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("c_dtype", [torch.float16, torch.float32])
+def test_lstm_cell_kernel_at_ragged_h_and_a_misaligned_cell_state(dev, b, h, quantized, c_dtype):
+    g = _gen(dev, b * h + 3)
+    z = torch.randn((b, 4 * h), device=dev, generator=g) * 2
+    c = _odd_view(torch.randn((b, h), device=dev, generator=g).to(c_dtype))
+    n0 = lstm_cell.launches
+    h_k, c_k = lstm_cell(z, c, quantized=quantized, c_dtype=c_dtype)
+    h_r, c_r = lstm_cell_ref(z, c, quantized, c_dtype=c_dtype)
+    torch.cuda.synchronize()
+    assert lstm_cell.launches == n0 + 1
+    assert torch.equal(h_k, h_r) and torch.equal(c_k, c_r)
