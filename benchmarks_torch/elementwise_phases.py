@@ -7,15 +7,18 @@ toolkit:
 
     python3 benchmarks_torch/elementwise_phases.py
 
-For ``qsigmoid`` at a zoo prefill gate ([2,1024,2560] f32) and
-``lstm_cell_grad`` at the train step's [64,4096] (fp16 cell state,
-quantized) it prints:
+For ``qsigmoid`` at a zoo prefill gate ([2,1024,2560] f32),
+``lstm_cell_grad`` and ``lstm_cell`` at the train step's [64,4096] (fp16
+cell state, quantized) and ``floatsd_quantize`` at the tied embedding's
+[33280,1024] (f32 and fp16) and a gate weight's [1024,4096] (f32) it prints:
 
   * each kernel's median time by CUDA events with L2 flushed before each
     call, and with L2 left warm, beside a copy kernel that moves the same
     bytes with the same thread mapping (the share of the time that is
-    memory and occupancy, not arithmetic), the byte bound and the timing
-    floor (the same timer around a one-element torch op);
+    memory and occupancy, not arithmetic; for the quantize kernel a copy
+    of 16-byte loads and stores that reads the input and writes a byte an
+    element), the byte bound and the timing floor (the same timer around a
+    one-element torch op);
   * the latency, in SM cycles, of one dependent call of each piece of the
     gate function on a single warp (clock64): sigma(-|z|) as the cell's
     header forms it, expf, the reciprocal, the IEEE divide, the header's
@@ -42,6 +45,11 @@ HEADER_DIR = ROOT / "src" / "repro_torch" / "kernels" / "lstm_cell"
 BUILD_DIR = ROOT / "build" / "phases"
 QSIG_SHAPE = (2, 1024, 2560)  # one receptance gate of the zoo's prefill
 CELL_B, CELL_H = 64, 1024  # the train step's cell: z [64, 4096]
+# the tied embedding in f32 and fp16 (the entry pass's largest master), and a
+# gate weight in f32
+QUANT_CASES = [("floatsd_quantize float32", (33280, 1024), "float32"),
+               ("floatsd_quantize float16", (33280, 1024), "float16"),
+               ("floatsd_quantize float32 gate weight", (1024, 4096), "float32")]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 REPS = 50
 SPIN_CYCLES = 40_000_000  # device time that covers the host's enqueueing of a timing loop
@@ -49,6 +57,8 @@ LAT_ITERS = 4096
 CHASE_WORDS = 16 * 2**20  # 64 MiB of int32: beyond the 50 MB L2
 
 MICRO = r"""
+#include <cstring>
+
 #include "lstm_cell_common.cuh"
 
 // One warp, every lane the same value: cycles of `iters` dependent calls
@@ -56,7 +66,7 @@ MICRO = r"""
 template <int W>
 __global__ void lat_kernel(int iters, const int* chase, long long* cycles, float* sink) {
   __shared__ float table[kSigTable];
-  stage_sig_table(table);
+  stage_sig_table<32>(table);
   __syncthreads();
   float v = 0.3f;
   int j = 0;
@@ -112,6 +122,47 @@ __global__ void copy_cell_bwd_kernel(const float* __restrict__ z, const __half* 
   dcp[row] = d;
 }
 
+// lstm_cell.cu's bytes and mapping with no arithmetic: a block of 128
+// threads a (row, column block), one column a thread; z's four gates and
+// the fp16 c_prev in, h (f32) and c (fp16) out.
+__global__ void copy_cell_kernel(const float* __restrict__ z, const __half* __restrict__ c,
+                                 float* __restrict__ h, __half* __restrict__ c_out, int H) {
+  const int b = blockIdx.x, j = blockIdx.y * 128 + threadIdx.x;
+  if (j >= H) return;
+  const size_t row = (size_t)b * H + j;
+  const float* zr = z + (size_t)b * 4 * H + j;
+  const float zi = zr[0], zf = zr[H], zg = zr[2 * H], zo = zr[3 * H];
+  const float cp = __half2float(c[row]);
+  h[row] = zi + zf + zg + zo;
+  c_out[row] = __float2half_rn(cp);
+}
+
+// floatsd_quantize.cu's mapping with no arithmetic: groups of 16 elements,
+// V 16-byte loads (V = 4 for f32, 2 for fp16) and one 16-byte store of a
+// byte an element (xor of the group's words), the next group loaded before
+// this one is stored, 132 x 8 blocks of 256 threads striding through it.
+template <int V>
+__global__ void copy_quant_kernel(const uint4* __restrict__ x, uint4* __restrict__ y, long long groups) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  uint4 v[V];
+  if (tid < groups) {
+    for (int k = 0; k < V; ++k) v[k] = x[tid * V + k];
+  }
+  for (long long i = tid; i < groups; i += stride) {
+    const long long next = i + stride;
+    uint4 w[V];
+    if (next < groups) {
+      for (int k = 0; k < V; ++k) w[k] = x[next * V + k];
+    }
+    unsigned u[4 * V], o[4] = {0u, 0u, 0u, 0u};
+    memcpy(u, v, sizeof(u));
+    for (int k = 0; k < 4 * V; ++k) o[k / V] ^= u[k];
+    y[i] = make_uint4(o[0], o[1], o[2], o[3]);
+    for (int k = 0; k < V; ++k) v[k] = w[k];
+  }
+}
+
 template <int W>
 int lat(int iters, const void* chase, void* cycles, void* sink, cudaStream_t s) {
   lat_kernel<W><<<1, 32, 0, s>>>(iters, (const int*)chase, (long long*)cycles, (float*)sink);
@@ -125,6 +176,21 @@ extern "C" int launch_lat(int what, int iters, const void* chase, void* cycles, 
 }
 extern "C" int launch_copy_vec(const void* x, void* y, long long nv, void* stream) {
   copy_vec_kernel<<<132 * 8, 256, 0, (cudaStream_t)stream>>>((const float4*)x, (float4*)y, nv);
+  return (int)cudaGetLastError();
+}
+extern "C" int launch_copy_cell(const void* z, const void* c, void* h, void* c_out, int B, int H, void* stream) {
+  copy_cell_kernel<<<dim3(B, (H + 127) / 128), 128, 0, (cudaStream_t)stream>>>(
+      (const float*)z, (const __half*)c, (float*)h, (__half*)c_out, H);
+  return (int)cudaGetLastError();
+}
+extern "C" int launch_copy_quant(const void* x, int x_half, void* y, long long n, void* stream) {
+  const long long groups = n / 16, want = (groups + 255) / 256;
+  const unsigned blocks = (unsigned)(want < 1 ? 1 : want < 132 * 8 ? want : 132 * 8);
+  if (x_half) {
+    copy_quant_kernel<2><<<blocks, 256, 0, (cudaStream_t)stream>>>((const uint4*)x, (uint4*)y, groups);
+  } else {
+    copy_quant_kernel<4><<<blocks, 256, 0, (cudaStream_t)stream>>>((const uint4*)x, (uint4*)y, groups);
+  }
   return (int)cudaGetLastError();
 }
 extern "C" int launch_copy_cell_bwd(const void* z, const void* c, const void* dh, const void* dc, void* dz,
@@ -162,6 +228,8 @@ def build_micro() -> ctypes.CDLL:
     micro.launch_lat.argtypes = [i, i, p, p, p, p]
     micro.launch_copy_vec.argtypes = [p, p, ll, p]
     micro.launch_copy_cell_bwd.argtypes = [p, p, p, p, p, p, i, i, p]
+    micro.launch_copy_cell.argtypes = [p, p, p, p, i, i, p]
+    micro.launch_copy_quant.argtypes = [p, i, p, ll, p]
     return micro
 
 
@@ -190,7 +258,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("elementwise_phases: no CUDA device")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels.lstm_cell.ops import lstm_cell_grad
+    from repro_torch.core import floatsd
+    from repro_torch.kernels.floatsd_quantize.ops import floatsd_quantize
+    from repro_torch.kernels.lstm_cell.ops import lstm_cell, lstm_cell_grad
     from repro_torch.kernels.qsigmoid.ops import qsigmoid
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -253,10 +323,36 @@ def main() -> int:
             "copy, L2 warm": timed_ms(torch, copy, warm)}
     res["lstm_cell_bwd"] = dict(shape=[b, 4 * h], bound_ms=46.0 * b * h / HBM_BYTES_PER_S * 1e3, rows=rows)
 
-    for op in ("qsigmoid", "lstm_cell_bwd"):
+    h_out, c_out = torch.empty_like(dh), torch.empty_like(c)
+    copy = lambda: micro.launch_copy_cell(z.data_ptr(), c.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),  # noqa: E731
+                                          b, h, stream())
+    rows = {"kernel": timed_ms(torch, lambda: lstm_cell(z, c), cold),
+            "kernel, c_prev at an odd fp16 offset": timed_ms(torch, lambda: lstm_cell(z, c_odd), cold),
+            "kernel, not quantized": timed_ms(torch, lambda: lstm_cell(z, c, quantized=False), cold),
+            "copy": timed_ms(torch, copy, cold),
+            "kernel, L2 warm": timed_ms(torch, lambda: lstm_cell(z, c), warm),
+            "copy, L2 warm": timed_ms(torch, copy, warm)}
+    res["lstm_cell"] = dict(shape=[b, 4 * h], bound_ms=24.0 * b * h / HBM_BYTES_PER_S * 1e3, rows=rows)
+
+    ops = ["qsigmoid", "lstm_cell_bwd", "lstm_cell"]
+    for op, shape, dtype in QUANT_CASES:
+        dt = getattr(torch, dtype)
+        w = (torch.randn(shape, device=dev, generator=g) * 0.03).to(dt)
+        bias = floatsd.fit_bias(w)  # a device int32: the kernel reads it in place
+        out = torch.empty(w.numel(), dtype=torch.uint8, device=dev)
+        copy = lambda: micro.launch_copy_quant(w.data_ptr(), int(dt == torch.float16),  # noqa: E731
+                                               out.data_ptr(), w.numel(), stream())
+        rows = {"kernel": timed_ms(torch, lambda: floatsd_quantize(w, bias), cold), "copy": timed_ms(torch, copy, cold),
+                "kernel, L2 warm": timed_ms(torch, lambda: floatsd_quantize(w, bias), warm),
+                "copy, L2 warm": timed_ms(torch, copy, warm)}
+        res[op] = dict(shape=list(shape),
+                       bound_ms=w.numel() * (w.element_size() + 1) / HBM_BYTES_PER_S * 1e3, rows=rows)
+        ops.append(op)
+
+    for op in ops:
         r = res[op]
         print(f"  {op} {r['shape']} (bound {r['bound_ms']:.5f} ms, bytes): "
-              + "; ".join(f"{k} {v:.4f} ms" for k, v in r["rows"].items()))
+              + "; ".join(f"{k} {v:.4f} ms" for k, v in r["rows"].items()) + f"; timing floor {res['floor_ms']:.4f} ms")
     print(json.dumps(res))
     return 0
 

@@ -39,10 +39,16 @@ Phases, in order; the first failure exits non-zero:
                 bit for bit at the decode and train shapes, at H 1023 and
                 with c_prev at an odd fp16 offset; qsigmoid bit for bit at
                 the entry and zoo shapes and on every one of the 2^32 f32
-                bit patterns (the seconds printed); two launches
-                bit-identical; for each of the three, ptxas's registers and
-                spills, SASS instructions an element (cuobjdump) and the
-                timing floor (the same timer around a one-element op).
+                bit patterns (the seconds printed); floatsd_quantize byte
+                for byte with core.floatsd.encode at the entry pass's
+                shapes, at odd start offsets of a ragged length (f32 and
+                fp16), at edge values of the extreme biases, on every
+                finite fp16 bit pattern at biases -126, -7, 0 and 120 and
+                on every finite f32 bit pattern at bias 0 (the seconds
+                printed); two launches bit-identical; for each of the four,
+                ptxas's registers and spills, SASS instructions an element
+                (cuobjdump) and the timing floor (the same timer around a
+                one-element op).
   4. main path  the full-width WikiText-2 FloatSD8 LM (vocab 33278 padded
                 to 33280, 1024 wide, 2 layers, tied embeddings, seeded
                 random weights) packed to 1-byte codes and served by
@@ -75,7 +81,10 @@ Phases, in order; the first failure exits non-zero:
                 ran on its kernel, as often as the fused BPTT implies, none
                 on the plain path; every loss is finite and no step was
                 skipped. Then one more step under torch.profiler: device
-                time by kernel, and the device's busy share of a step.
+                time by kernel, and the device's busy share of a step; and
+                pack_train's cost a step: the host's waits at its four bias
+                reads in one more step, and the device time of its four
+                encodes (core.floatsd.encode in torch ops) run alone.
   8. train-x    the same init and batches trained with backend="ref" on
                 the card: losses within 1e-3 relative at every step, and
                 each trained master leaf within 1e-3 of its change (L2)
@@ -176,7 +185,7 @@ CELL_BWD_OPS = CELL_OPS + 10 + 22
 QUANT_OPS = 10
 # qsigmoid: the negated |x|, a gate, the mirror's subtract and select
 QSIG_OPS = GATE_OPS + 3
-QSIG_SWEEP_LOG2_CHUNK = 26  # the all-f32 sweep's chunk: the plain version holds ~40 B an element at once
+F32_SWEEP_LOG2_CHUNK = 26  # the all-f32 sweeps' chunk: the plain versions hold ~40 B an element at once
 # FloatSD4 store of the full-width model: per 2-D leaf ceil(K/2)*N code bytes +
 # ceil(K/32)*N exponent bytes (embedding [33280,1024], four [1024,4096] gate
 # weights), plus the two f32 [4096] biases
@@ -350,12 +359,17 @@ def sass_count(build, op: str, opcodes) -> dict | None:
 def _stored_per_element(op: str, args: str) -> int:
     """Bytes an element of an element-wise kernel stores: qsigmoid its output
     (2 for fp16/bf16), the cell backward dz (4 f32) + dc_prev (f32), the cell
-    h (f32) + c (fp16 or f32); ``args`` are the mangled template arguments."""
+    h (f32) + c (fp16 or f32), the quantize kernel a code; ``args`` are the
+    mangled template arguments (the cell's: CIn, COut, then the quantizer
+    flag as ``Lb0E`` or ``Lb1E``)."""
     if op == "qsigmoid":
         return 2 if ("half" in args or "bfloat16" in args) else 4
     if op == "lstm_cell_bwd":
         return 20
-    return 6 if (args.endswith("6__half") or args.endswith("S1_")) else 8
+    if op == "floatsd_quantize":
+        return 1
+    c_out = re.sub(r"Lb[01]E$", "", args)
+    return 6 if (c_out.endswith("6__half") or c_out.endswith("S1_")) else 8
 
 
 def sass_per_element(build, op: str) -> dict | None:
@@ -664,29 +678,37 @@ def kernel_phase4(torch, dev, flush, floor_ms):
               f"{t:.4f} ms ({t / t_lib:.2f}x torch.matmul), plain {t_plain:.3f} ms, torch.matmul on the decoded f32 "
               f"weight {t_lib:.4f} ms, {fmt_bound(bd)}")
 
-    print("kernels: floatsd_quantize vs core.floatsd.encode (byte for byte)")
+    print("kernels: floatsd_quantize vs core.floatsd.encode (byte for byte; two launches bit-identical)")
+    print(element_report(_build, "floatsd_quantize", floor_ms))
     quant = {}
     grid = torch.as_tensor(floatsd._GRID_POS, dtype=torch.float32, device=dev)
     mids = torch.as_tensor(floatsd._GRID_MID, dtype=torch.float32, device=dev)
     edge = torch.cat([grid, mids, torch.nextafter(mids, torch.full_like(mids, 1e9)),
                       torch.tensor([600.0, 1e4], device=dev)])
     edge = torch.cat([torch.tensor([0.0, -0.0], device=dev), edge, -edge])
-    cases = [("weight", (1024, 4096), torch.float32), ("table", (33280, 1024), torch.float32),
-             ("flat", (1_000_003,), torch.float32), ("weight16", (1024, 4096), torch.float16),
-             ("table16", (33280, 1024), torch.float16)]
-    for name, shape, dt in cases:
+    # the entry pass's shapes (the gate weights, the tied embedding), a
+    # ragged length, and views at an odd start offset of a ragged length
+    cases = [("weight", (1024, 4096), torch.float32, 0), ("table", (33280, 1024), torch.float32, 0),
+             ("flat", (1_000_003,), torch.float32, 0), ("weight16", (1024, 4096), torch.float16, 0),
+             ("table16", (33280, 1024), torch.float16, 0), ("odd", (1_000_003,), torch.float32, 3),
+             ("odd16", (1_000_003,), torch.float16, 7)]
+    for name, shape, dt, offset in cases:
         x = (torch.randn(shape, device=dev, generator=g) * 0.03).to(dt)
+        if offset:
+            x = torch.empty(x.numel() + offset, dtype=dt, device=dev)[offset:].view(shape).copy_(x)
         bias = floatsd.fit_bias(x)
-        codes = floatsd_quantize(x, bias)
+        codes, again = floatsd_quantize(x, bias), floatsd_quantize(x, bias)
         want = floatsd.encode(x, bias)[0]
         torch.cuda.synchronize()
         mism = int((codes != want).sum())
         check(mism == 0, f"quantize {name} {shape}: {mism} codes differ")
+        check(torch.equal(codes, again), f"quantize {name} {shape}: two launches differ")
         t = timed_ms(torch, lambda: floatsd_quantize(x, bias), 20, flush)
         t_plain = timed_ms(torch, lambda: floatsd.encode(x, bias), 5, flush)
         bd = bound(x.numel() * (x.element_size() + 1) + 4, float(x.numel() * QUANT_OPS))
         quant[name] = dict(ms=t, plain_ms=t_plain, library_ms=None, err=0.0, **bd)
-        print(f"  {name:8s} {list(shape)} {str(dt)[6:]}: {mism} of {x.numel()} codes differ | kernel {t:.4f} ms, "
+        print(f"  {name:8s} {list(shape)} {str(dt)[6:]}{f', {offset} elements past a 16-element boundary' if offset else ''}: "
+              f"{mism} of {x.numel()} codes differ, two launches bit-identical | kernel {t:.4f} ms, "
               f"plain {t_plain:.3f} ms, {fmt_bound(bd)}; no library call")
     for bias in (-126, 127):
         n_vals = 0
@@ -698,6 +720,29 @@ def kernel_phase4(torch, dev, flush, floor_ms):
             n_vals += x.numel()
         print(f"  edge values (±0, grid points, midpoints and their neighbours, above the top) at bias {bias}, "
               f"f32 and fp16: 0 of {n_vals} codes differ")
+    # every finite fp16 bit pattern at four biases, and every finite f32 bit
+    # pattern at bias 0, in chunks, against the plain version
+    t0 = time.perf_counter()
+    x16 = torch.arange(-2**15, 2**15, dtype=torch.int32, device=dev).to(torch.int16).view(torch.float16)
+    x16 = x16[torch.isfinite(x16)]
+    for bias in (-126, -7, 0, 120):
+        mism = int((floatsd_quantize(x16, bias) != floatsd.encode(x16, bias)[0]).sum())
+        check(mism == 0, f"quantize: {mism} of the finite fp16 bit patterns differ at bias {bias}")
+    sweep16_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    chunk, differ, finite = 1 << F32_SWEEP_LOG2_CHUNK, 0, 0
+    bias0 = torch.zeros((), dtype=torch.int32, device=dev)
+    for start in range(-(1 << 31), 1 << 31, chunk):
+        x = torch.arange(start, start + chunk, dtype=torch.int64, device=dev).to(torch.int32).view(torch.float32)
+        ok = torch.isfinite(x)
+        differ += int(((floatsd_quantize(x, bias0) != floatsd.encode(x, bias0)[0]) & ok).sum())
+        finite += int(ok.sum())
+    sweep_s = time.perf_counter() - t0
+    check(differ == 0, f"quantize: {differ} of the finite f32 bit patterns differ from encode at bias 0")
+    check(finite == (1 << 32) - (1 << 24), f"quantize sweep saw {finite} finite f32 patterns")
+    print(f"  every finite fp16 bit pattern ({x16.numel()}) at biases -126, -7, 0 and 120: 0 differ, in "
+          f"{sweep16_s:.2f} s; every finite f32 bit pattern ({finite}, {(1 << 32) // chunk} chunks of "
+          f"2^{F32_SWEEP_LOG2_CHUNK}) at bias 0: 0 differ from encode, in {sweep_s:.1f} s")
 
     print("kernels: qsigmoid vs core.qsigmoid.qsigmoid_raw (bit for bit on f32; bf16 counted; two launches "
           "bit-identical)")
@@ -725,13 +770,13 @@ def kernel_phase4(torch, dev, flush, floor_ms):
               f"plain {t_plain:.3f} ms, {fmt_bound(bd)}; no library call")
     # every f32 bit pattern, in chunks, against the plain version
     t0 = time.perf_counter()
-    chunk, differ = 1 << QSIG_SWEEP_LOG2_CHUNK, 0
+    chunk, differ = 1 << F32_SWEEP_LOG2_CHUNK, 0
     for start in range(-(1 << 31), 1 << 31, chunk):
         x = torch.arange(start, start + chunk, dtype=torch.int64, device=dev).to(torch.int32).view(torch.float32)
         differ += int((qsigmoid(x) != qsigmoid_raw(x)).sum())
     sweep_s = time.perf_counter() - t0
     check(differ == 0, f"qsigmoid: {differ} of the 2^32 f32 bit patterns differ from the plain version")
-    print(f"  every f32 bit pattern (2^32, {(1 << 32) // chunk} chunks of 2^{QSIG_SWEEP_LOG2_CHUNK}): 0 differ from the "
+    print(f"  every f32 bit pattern (2^32, {(1 << 32) // chunk} chunks of 2^{F32_SWEEP_LOG2_CHUNK}): 0 differ from the "
           f"plain version, in {sweep_s:.1f} s")
     return mm4, quant, qsig
 
@@ -812,6 +857,50 @@ def profile_step(torch, step_fn, state, batch):
     return groups, wall
 
 
+def pack_train_cost(torch, step_fn, state, batch) -> dict:
+    """pack_train's share of a train step: the host's waits at its four bias
+    reads inside one more warm step (pack_train replaced, for that step, by
+    the same encode with each read timed), and the device time of those four
+    encodes run alone under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import floatsd
+    from repro_torch.kernels import dispatch as kd
+
+    real, waits, packed = kd.pack_train, [], []
+
+    def timed(w):
+        codes, bias = floatsd.encode(w.detach())
+        t0 = time.perf_counter()
+        b = int(bias)  # the read pack_train makes: the host waits for the device
+        waits.append((time.perf_counter() - t0) * 1e3)
+        packed.append((w.detach(), kd.PackedTensor(codes, b)))
+        return packed[-1][1]
+
+    kd.pack_train = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = step_fn(state, batch)
+        float(m["loss"])
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        kd.pack_train = real
+    check(len(packed) == 4, f"pack_train ran {len(packed)} times in a step, not 4")
+    for w, got in packed:
+        want = real(w)
+        check(torch.equal(want.codes, got.codes) and want.bias == got.bias,
+              "the timed pack_train differs from pack_train")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for w, _ in packed:
+            real(w)
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    return dict(waits_ms=waits, wait_ms=sum(waits), step_ms=wall,
+                device_ms=sum(e.self_device_time_total for e in events) / 1e3, kernels=sum(e.count for e in events))
+
+
 def train_phase(torch, smi):
     """Phases 7 and 8: the full-width model through the training CLI."""
     from repro_torch.core.policy import get_policy
@@ -854,6 +943,11 @@ def train_phase(torch, smi):
           f"unprofiled median step is {step_ms:.2f} ms) in "
           f"{sum(n for _, n in groups.values())} device operations; "
           + ", ".join(f"{k} {ms:.3f} ms ({n})" for k, (ms, n) in groups.items()), flush=True)
+    enc = pack_train_cost(torch, step_fn, out["state"], batch_to_device(batch, "cuda"))
+    print(f"train step pack_train (core.floatsd.encode on the 4 masters, each bias read to the host): "
+          f"device {enc['device_ms']:.3f} ms in {enc['kernels']} kernels (the four encodes alone, "
+          f"torch.profiler); host waits at the bias reads {enc['wait_ms']:.3f} ms ("
+          + ", ".join(f"{w:.3f}" for w in enc["waits_ms"]) + f") in a step of {enc['step_ms']:.2f} ms wall", flush=True)
 
     # 8. the same init and batches on the plain versions, then the kernels again
     with kd.use_backend("ref"):

@@ -44,7 +44,10 @@ def floatsd_quantize(x: torch.Tensor, bias) -> torch.Tensor:
     if x.dtype not in (torch.float32, torch.float16):
         x = x.to(torch.float32)
     x = x.contiguous()
-    codes = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+    # the codes start at x's element index modulo 16, so the kernel's
+    # 16-element groups of the two line up (x may be a view at any offset)
+    off = x.data_ptr() // x.element_size() % 16
+    codes = torch.empty(x.numel() + off, dtype=torch.uint8, device=x.device)[off:].view(x.shape)
     if x.numel() == 0:
         return codes
     with torch.cuda.device(x.device):

@@ -72,7 +72,7 @@ lstm_cell_bwd_kernel(const float* __restrict__ z, const C* __restrict__ c_prev,
   }
   __shared__ float table[Q ? kSigTable : 1];
   if (Q) {
-    stage_sig_table(table);
+    stage_sig_table<kThreads>(table);
     __syncthreads();
   }
   if (!active) return;

@@ -92,10 +92,25 @@ constexpr SigBucketTable make_sig_buckets() {
 }
 __device__ const SigBucketTable kSigBucket = make_sig_buckets();
 
-// Copies kSigBucket into table[0 .. kSigTable) in shared memory; the caller
-// synchronises the block before the first sig_lut().
+// Copies kSigBucket into table[0 .. kSigTable) in shared memory, a block
+// of kBlock threads striding over it. The stride is a compile-time constant,
+// so every load is issued before the first store and the copy costs one
+// load's latency, not one a stride. The caller synchronises the block before
+// the first sig_lut().
+template <int kBlock>
 __device__ __forceinline__ void stage_sig_table(float* table) {
-  for (int b = threadIdx.x; b < kSigTable; b += blockDim.x) table[b] = kSigBucket.v[b];
+  constexpr int kPer = (kSigTable + kBlock - 1) / kBlock;
+  float v[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int b = threadIdx.x + k * kBlock;
+    if (b < kSigTable) v[k] = kSigBucket.v[b];
+  }
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int b = threadIdx.x + k * kBlock;
+    if (b < kSigTable) table[b] = v[k];
+  }
 }
 
 // Q(s) for s = sigma(-|z|) in [0, 0.5] or NaN: the LUT value whose index

@@ -89,7 +89,7 @@ qsigmoid_kernel(const T* __restrict__ x, T* __restrict__ y, long long n, int hea
     if (tid + k * stride < nv) v[k] = xv[tid + k * stride];
   }
   __shared__ float table[kSigTable];
-  stage_sig_table(table);
+  stage_sig_table<kThreads>(table);
   __syncthreads();
 
   // the head before the first aligned vector and the tail after the last

@@ -920,3 +920,85 @@ def test_lstm_cell_kernel_at_ragged_h_and_a_misaligned_cell_state(dev, b, h, qua
     torch.cuda.synchronize()
     assert lstm_cell.launches == n0 + 1
     assert torch.equal(h_k, h_r) and torch.equal(c_k, c_r)
+
+
+# the cell's grid is (B rows, 128-column blocks): one row, fewer columns
+# than a block, a ragged last block, and the decode and train widths
+CELL_GRID_SHAPES = [(1, 1024), (1, 100), (7, 64), (1, 1023), (64, 1023), (64, 1024), (8, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h", CELL_GRID_SHAPES)
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("c_in", [torch.float16, torch.float32])
+@pytest.mark.parametrize("c_out", [torch.float16, torch.float32])
+def test_lstm_cell_kernel_on_its_grid_bit_for_bit(dev, b, h, quantized, c_in, c_out):
+    """Every (cell-in, cell-out) dtype pair and both instantiations of the
+    quantizer, with c_prev at 0, 1 and 3 elements past a 16-byte boundary;
+    two launches bit-identical."""
+    g = _gen(dev, b * h + 5)
+    z = torch.randn((b, 4 * h), device=dev, generator=g) * 2
+    z.view(-1)[:6] = torch.tensor([0.0, -0.0, 30.0, -30.0, 1e-30, -1e-30], device=dev)
+    c0 = torch.randn((b, h), device=dev, generator=g).to(c_in)
+    for offset in (0, 1, 3):
+        c = _odd_view(c0, offset) if offset else c0
+        n0 = lstm_cell.launches
+        h_k, c_k = lstm_cell(z, c, quantized=quantized, c_dtype=c_out)
+        h_2, c_2 = lstm_cell(z, c, quantized=quantized, c_dtype=c_out)
+        h_r, c_r = lstm_cell_ref(z, c, quantized, c_dtype=c_out)
+        torch.cuda.synchronize()
+        assert lstm_cell.launches == n0 + 2 and c_k.dtype == c_out
+        assert torch.equal(h_k, h_r) and torch.equal(c_k, c_r), offset
+        assert torch.equal(h_k, h_2) and torch.equal(c_k, c_2)
+
+
+QUANT_LENGTHS = [1, 2, 15, 16, 17, 31, 33, 255, 4099, 65_537, 1_000_003]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", range(1, 16))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_quantize_kernel_at_any_start_offset_and_ragged_length(dev, offset, dtype):
+    """Views that start 1-15 elements past a 16-element boundary, of every
+    length from one element (all head) to a million and three (head, groups
+    and a ragged tail): byte for byte with encode, the codes placed at x's
+    offset modulo 16, two launches bit-identical."""
+    g = _gen(dev, 31 + offset)
+    for n in QUANT_LENGTHS:
+        base = (torch.randn(n + 16, device=dev, generator=g) * 0.05).to(dtype)
+        x = base[offset:offset + n]
+        bias = floatsd.fit_bias(x)
+        n0 = floatsd_quantize.launches
+        got, again = floatsd_quantize(x, bias), floatsd_quantize(x, bias)
+        want = floatsd.encode(x, bias)[0]
+        torch.cuda.synchronize()
+        assert floatsd_quantize.launches == n0 + 2
+        assert got.shape == x.shape and got.dtype == torch.uint8
+        assert got.data_ptr() % 16 == x.data_ptr() // x.element_size() % 16
+        assert torch.equal(got, want), n
+        assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [-126, -7, 0, 120])
+def test_quantize_kernel_on_every_finite_fp16_pattern(dev, bias):
+    x = torch.arange(-2**15, 2**15, dtype=torch.int32, device=dev).to(torch.int16).view(torch.float16)
+    x = x[torch.isfinite(x)]
+    got = floatsd_quantize(x, bias)
+    want = floatsd.encode(x, bias)[0]
+    torch.cuda.synchronize()
+    assert x.numel() == 65536 - 2048 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_quantize_kernel_reads_the_bias_on_the_device(dev):
+    """A device int32 bias (read by the kernel, clamped to [-126, 120] as
+    encode clamps it) gives the codes of the same host int."""
+    x = torch.randn((333, 77), device=dev, generator=_gen(dev, 41)) * 3
+    for b in (-200, -126, -7, 0, 1, 120, 127, 300):
+        dev_bias = torch.tensor(b, dtype=torch.int32, device=dev)
+        got = floatsd_quantize(x * 2.0 ** max(-120, min(120, b)), dev_bias)
+        host = floatsd_quantize(x * 2.0 ** max(-120, min(120, b)), b)
+        want = floatsd.encode(x * 2.0 ** max(-120, min(120, b)), b)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(host, want), b
