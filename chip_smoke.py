@@ -90,12 +90,32 @@ Phases, in order; the first failure exits non-zero:
                 each trained master leaf within 1e-3 of its change (L2)
                 from a second kernel-path run, whose losses must be
                 bit-identical to the first's.
-  9. entry      dispatch.quantize on every trained fp16 master weight of
+  9. tasks      the paper's other three tasks at their Table III widths
+                (make_task(name, full=True), seed 0, Adam, lr 1e-3,
+                floatsd8_table6): UDPOS (B 64 x S 32, 2 BiLSTM layers),
+                SNLI (B 128 x S 24, one BiLSTM over premise and
+                hypothesis, max-pooled), Multi30K (B 128 x S 20, encoder
+                to decoder). First the fused BPTT at B 128 x K 300 x H
+                300: every forward z equals the backward's recompute bit
+                for bit. Each trains 5 steps through the training CLI
+                on the kernels: launches as the fused BPTT implies for its
+                engine calls (4, 4, 2 a step, reverse scans included),
+                every dispatch record cuda, finite losses, no step
+                skipped; one more step profiled; 3 steps on
+                backend="ref" and 3 on the kernels again (losses within
+                1e-3 relative, masters within 1e-3 of their change, the
+                two kernel runs bit-identical); the task's metric on 2
+                eval batches with no gradient (the inference scans, the
+                reverse one included: lstm_cell only); one FP32 step
+                through autodiff (no dispatched op). The kernel phase holds
+                the engine's kernels at these shapes against their plain
+                versions and times each, route B beside route A at M 128.
+ 10. entry      dispatch.quantize on every trained fp16 master weight of
                 phase 7: codes byte-identical to pack_tree's and the same
                 bias; dispatch.qsigmoid on a [64,4096] gate block (layer 0's
                 first-step pre-activations of 64 sequences), bit-identical
                 to the plain version; both on their kernels.
- 10. zoo        the model zoo's RWKV-6 (rwkv6_3b at its published width:
+ 11. zoo        the model zoo's RWKV-6 (rwkv6_3b at its published width:
                 32 layers, d_model 2560, 40 heads of 64, d_ff 8960, vocab
                 65536, tied, layernorm) from seed 0, packed to FloatSD8
                 (2,905,722,960 resident bytes, asserted) with the f32 tree
@@ -111,13 +131,13 @@ Phases, in order; the first failure exits non-zero:
                 policy); ServeEngine with 8 lanes and 8 requests (lockstep
                 one-token steps), 16 new tokens each. Counters are zeroed
                 before and read after each of the three.
- 11. zoo-x      the same path at full width and 2 layers on the kernels
+ 12. zoo-x      the same path at full width and 2 layers on the kernels
                 against backend="ref" on the card: prefill logits within the
                 stated tolerance with no activation quantizer (the served
                 policy's gap reported: FP8 flips cascade through the state),
                 greedy tokens of the engine equal over the plain path's
                 margin-decisive prefix.
- 12. dense      the zoo's dense family: h2o_danube3_4b at its published
+ 13. dense      the zoo's dense family: h2o_danube3_4b at its published
                 width (24 layers, d_model 3840, 32 heads of 120 over 8 KV
                 heads, d_ff 10240, vocab 32000, window 4096, rmsnorm,
                 SwiGLU, tied) from seed 0, after the RWKV trees are freed,
@@ -132,7 +152,7 @@ Phases, in order; the first failure exits non-zero:
                 policy); ServeEngine with 8 lanes, 8 requests, 16 new tokens
                 and a KV cache of 2048 positions (1,509,949,440 B,
                 asserted). Counters are zeroed before and read after each.
- 13. dense-x    the same path at full width and 2 layers on the kernels
+ 14. dense-x    the same path at full width and 2 layers on the kernels
                 against backend="ref" on the card: prefill logits within the
                 stated tolerance with no activation quantizer (the served
                 policy's gap reported), greedy tokens of the engine equal
@@ -450,16 +470,161 @@ def timed_ms(torch, fn, reps: int, flush) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def mm_row(torch, flush, x, codes, bias, tr, served: bool, what: str, ordered: bool = False,
+           route_b: bool = False) -> dict:
+    """floatsd_matmul at one shape: ``matmul_vs_plain``'s checks, then the
+    kernel, its plain version and torch.matmul timed (L2 flushed). With
+    ``route_b``, where this M plans route B, also the unordered launch's
+    time. Prints the row and returns it."""
+    from repro_torch.core import floatsd
+    from repro_torch.kernels.floatsd_matmul.ops import floatsd_matmul, plan
+    from repro_torch.kernels.floatsd_matmul.ref import floatsd_matmul_ref, no_tf32
+
+    (m, k), n = x.shape, codes.shape[0] if tr else codes.shape[1]
+    y, err, mism, route = matmul_vs_plain(torch, x, codes, bias, tr, served, f"floatsd_matmul {what} {m}x{k}x{n}",
+                                          ordered)
+    del y
+    wd = floatsd.decode(codes, bias)
+    wk = wd.t() if tr else wd
+    with no_tf32():
+        t = timed_ms(torch, lambda: floatsd_matmul(x, codes, bias, transposed=tr, ordered=ordered), 20, flush)
+        t_plain = timed_ms(torch, lambda: floatsd_matmul_ref(x, codes, bias, transposed=tr, ordered=ordered),
+                           3, flush)
+        t_lib = timed_ms(torch, lambda: torch.matmul(x, wk), 20, flush)
+    row = dict(ms=t, plain_ms=t_plain, library_ms=t_lib, err=err, route=route,
+               **bound(x.numel() * 4 + codes.numel() + 4 + m * n * 4, 2.0 * m * n * k,
+                       matmul_peak(x, floatsd.decode(codes, 0))))
+    extra = ""
+    if route_b and plan(m, n, k).route == "B":
+        row["route_b_ms"] = timed_ms(torch, lambda: floatsd_matmul(x, codes, bias, transposed=tr), 20, flush)
+        extra = f"; route B (unordered) {row['route_b_ms']:.4f} ms"
+    print(f"  {what:6s} [{m},{k}] x {'[N,K]^T' if tr else '[K,N]'} N={n}, route {route}"
+          f"{' (ordered)' if ordered else ''}: max_abs_err {err:.3e}, {mism} of {m * n} not bit-identical, "
+          f"two launches bit-identical | kernel {t:.4f} ms{extra}, plain {t_plain:.3f} ms, torch.matmul "
+          f"{t_lib:.4f} ms, {fmt_bound(row)}", flush=True)
+    return row
+
+
+def dx_row(torch, flush, gr, codes, bias, ordered: bool) -> dict:
+    """matmul_dx (g [M, N] @ codes [K, N]^T) at one shape against its plain
+    version (|err| <= 1e-5 * (|g| @ |W|^T)), two launches bit-identical,
+    then timed beside the plain version and torch.matmul. Prints the row
+    and returns it."""
+    from repro_torch.core import floatsd
+    from repro_torch.kernels.floatsd_matmul.ops import matmul_dx, plan
+    from repro_torch.kernels.floatsd_matmul.ref import matmul_dx_ref, no_tf32
+
+    (m, n), k = gr.shape, codes.shape[0]
+    wd = floatsd.decode(codes, bias)
+    y, y2 = matmul_dx(gr, codes, bias, ordered=ordered), matmul_dx(gr, codes, bias, ordered=ordered)
+    y_ref = matmul_dx_ref(gr, codes, bias, ordered=ordered)
+    torch.cuda.synchronize()
+    err = (y.double() - y_ref.double()).abs()
+    route = plan(m, k, n, ordered).route
+    check(bool((err <= 1e-5 * (gr.double().abs() @ wd.double().abs().t()) + 1e-30).all()),
+          f"matmul_dx {m}x{n} -> {k} (route {route}) exceeds 1e-5")
+    check(torch.equal(y, y2), f"matmul_dx {m}x{n} -> {k} (route {route}): two launches differ")
+    mism = int((y != y_ref).sum())
+    with no_tf32():
+        t = timed_ms(torch, lambda: matmul_dx(gr, codes, bias, ordered=ordered), 20, flush)
+        t_plain = timed_ms(torch, lambda: matmul_dx_ref(gr, codes, bias, ordered=ordered), 3, flush)
+        t_lib = timed_ms(torch, lambda: torch.matmul(gr, wd.t()), 20, flush)
+    row = dict(ms=t, plain_ms=t_plain, library_ms=t_lib, err=float(err.max()), route=route,
+               **bound(gr.numel() * 4 + codes.numel() + 4 + m * k * 4, 2.0 * m * n * k,
+                       matmul_peak(gr, floatsd.decode(codes, 0))))
+    print(f"  [{m},{n}] x codes[{k},{n}]^T, route {route}{' (ordered)' if ordered else ''}: max_abs_err "
+          f"{row['err']:.3e}, {mism} of {m * k} not bit-identical, two launches bit-identical | kernel {t:.4f} ms, "
+          f"plain {t_plain:.3f} ms, torch.matmul {t_lib:.4f} ms, {fmt_bound(row)}", flush=True)
+    return row
+
+
+def dw_row(torch, flush, x, gr, quant: bool) -> dict:
+    """matmul_dw (x [M, K]^T @ g [M, N]) at one shape against its plain
+    version (quant=False: |err| <= 1e-5 * (|x|^T @ |g|); quant=True: at most
+    0.1% of outputs differ, each by at most one e5m2 step), two launches
+    bit-identical, then timed beside the plain version and torch.matmul
+    (no snap). Prints the row and returns it."""
+    from repro_torch.kernels.floatsd_matmul.ops import matmul_dw
+    from repro_torch.kernels.floatsd_matmul.ref import matmul_dw_ref, no_tf32
+
+    (m, k), n = x.shape, gr.shape[1]
+    y, y2, y_ref = matmul_dw(x, gr, quant=quant), matmul_dw(x, gr, quant=quant), matmul_dw_ref(x, gr, quant)
+    torch.cuda.synchronize()
+    err = (y.double() - y_ref.double()).abs()
+    off = y != y_ref
+    if quant:
+        step = torch.exp2(torch.floor(torch.log2(torch.maximum(y.abs(), y_ref.abs()).clamp(min=2.0**-14))) - 2)
+        check(int(off.sum()) <= 1e-3 * y.numel() and bool((err[off] <= step[off]).all()),
+              f"matmul_dw quant {m}x{k}x{n}: {int(off.sum())} outputs differ")
+    else:
+        check(bool((err <= 1e-5 * (x.double().abs().t() @ gr.double().abs()) + 1e-30).all()),
+              f"matmul_dw {m}x{k}x{n} exceeds 1e-5")
+    check(torch.equal(y, y2), f"matmul_dw quant={quant} {m}x{k}x{n}: two launches differ")
+    with no_tf32():
+        t = timed_ms(torch, lambda: matmul_dw(x, gr, quant=quant), 10, flush)
+        t_plain = timed_ms(torch, lambda: matmul_dw_ref(x, gr, quant), 3, flush)
+        t_lib = timed_ms(torch, lambda: torch.matmul(x.t(), gr), 10, flush)
+    row = dict(ms=t, plain_ms=t_plain, library_ms=t_lib, err=float(err.max()),
+               **bound(4.0 * (m * k + m * n + k * n), 2.0 * m * k * n, matmul_peak(x, gr)))
+    print(f"  quant={quant} [{m},{k}]^T x [{m},{n}]: max_abs_err {row['err']:.3e}, {int(off.sum())} of "
+          f"{k * n} not bit-identical, two launches bit-identical | kernel {t:.4f} ms "
+          f"({2.0 * m * k * n / t / 1e9:.1f} TFLOP/s, {t / row['bound_ms']:.2f}x the bound, {t / t_lib:.2f}x "
+          f"torch.matmul), plain {t_plain:.3f} ms, torch.matmul(x.t(), g) (no FP8 snap) {t_lib:.4f} ms, "
+          f"{fmt_bound(row)}", flush=True)
+    return row
+
+
+def cell_row(torch, flush, z, c, what: str = "") -> dict:
+    """lstm_cell at one shape against its plain version, bit for bit, two
+    launches bit-identical, then timed. Prints the row and returns it."""
+    from repro_torch.kernels.lstm_cell.ops import lstm_cell
+    from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
+
+    b, h = c.shape
+    h_k, c_k = lstm_cell(z, c)
+    h_2, c_2 = lstm_cell(z, c)
+    h_r, c_r = lstm_cell_ref(z, c)
+    torch.cuda.synchronize()
+    flips = int(((h_k != h_r) | (c_k != c_r)).sum())
+    err = max(float((h_k - h_r).abs().max()), float((c_k.float() - c_r.float()).abs().max()))
+    check(flips == 0, f"lstm_cell {b}x{h}{what}: {flips} outputs differ, max err {err}")
+    check(torch.equal(h_k, h_2) and torch.equal(c_k, c_2), f"lstm_cell {b}x{h}{what}: two launches differ")
+    t = timed_ms(torch, lambda: lstm_cell(z, c), 50, flush)
+    t_plain = timed_ms(torch, lambda: lstm_cell_ref(z, c), 10, flush)
+    row = dict(ms=t, plain_ms=t_plain, err=err,
+               **bound(b * 4 * h * 4 + b * h * 2 + b * h * 4 + b * h * 2, float(b * h * CELL_OPS)))
+    print(f"  [{b},{4 * h}] -> h,c [{b},{h}]{what}: max_abs_err {err:.3e}, {flips} of {b * h} differ, two "
+          f"launches bit-identical | kernel {t:.4f} ms, plain {t_plain:.3f} ms, {fmt_bound(row)}", flush=True)
+    return row
+
+
+def cell_grad_row(torch, flush, z, c, dh, dc, what: str = "") -> dict:
+    """lstm_cell_grad at one shape against its plain version, bit for bit,
+    two launches bit-identical, then timed. Prints the row and returns it."""
+    from repro_torch.kernels.lstm_cell.ops import lstm_cell_grad
+    from repro_torch.kernels.lstm_cell.ref import lstm_cell_bwd_ref
+
+    b, h = c.shape
+    dz, dcp = lstm_cell_grad(z, c, dh, dc)
+    dz2, dcp2 = lstm_cell_grad(z, c, dh, dc)
+    dz_r, dcp_r = lstm_cell_bwd_ref(z, c.float(), dh, dc)
+    torch.cuda.synchronize()
+    flips = int((dz != dz_r).sum()) + int((dcp != dcp_r).sum())
+    err = max(float((dz - dz_r).abs().max()), float((dcp - dcp_r).abs().max()))
+    check(flips == 0, f"lstm_cell_grad {b}x{h}{what}: {flips} outputs differ, max err {err}")
+    check(torch.equal(dz, dz2) and torch.equal(dcp, dcp2), f"lstm_cell_grad {b}x{h}{what}: two launches differ")
+    t = timed_ms(torch, lambda: lstm_cell_grad(z, c, dh, dc), 50, flush)
+    t_plain = timed_ms(torch, lambda: lstm_cell_bwd_ref(z, c.float(), dh, dc), 10, flush)
+    row = dict(ms=t, plain_ms=t_plain, err=err, **bound(46.0 * b * h, float(b * h * CELL_BWD_OPS)))
+    print(f"  [{b},{4 * h}] + 3 x [{b},{h}] -> dz, dc_prev{what}: max_abs_err {err:.3e}, {flips} differ, two "
+          f"launches bit-identical | kernel {t:.4f} ms, plain {t_plain:.3f} ms, {fmt_bound(row)}", flush=True)
+    return row
+
+
 def kernel_phase(torch, dev, flush, floor_ms):
     from repro_torch.core import floatsd
     from repro_torch.core.fp8 import FP16, quantize_fp8
-    from repro_torch.kernels.floatsd_matmul.ops import floatsd_matmul, matmul_dw, matmul_dx, plan
-    from repro_torch.kernels.floatsd_matmul.ref import (
-        floatsd_matmul_ref, matmul_dw_ref, matmul_dx_ref, no_tf32,
-    )
     from repro_torch.kernels import _build
-    from repro_torch.kernels.lstm_cell.ops import lstm_cell, lstm_cell_grad
-    from repro_torch.kernels.lstm_cell.ref import lstm_cell_bwd_ref, lstm_cell_ref
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     mm = {}
@@ -486,25 +651,7 @@ def kernel_phase(torch, dev, flush, floor_ms):
             x = quantize_fp8(x, FP16)
         w = torch.randn((n, k) if tr else (k, n), device=dev, generator=g) * (0.02 if tr else 0.03)
         codes, bias = floatsd.encode(w)
-        bias = int(bias)
-        wd = floatsd.decode(codes, bias)
-        wk = wd.t() if tr else wd
-        y, err, mism, route = matmul_vs_plain(torch, x, codes, bias, tr, act is not None,
-                                              f"floatsd_matmul {site} {m}x{k}x{n}", ordered)
-        del y
-        with no_tf32():
-            lib = lambda: torch.matmul(x, wk)  # noqa: E731 — the library yardstick
-            t = timed_ms(torch, lambda: floatsd_matmul(x, codes, bias, transposed=tr, ordered=ordered), 20, flush)
-            t_plain = timed_ms(torch, lambda: floatsd_matmul_ref(x, codes, bias, transposed=tr, ordered=ordered),
-                               3, flush)
-            t_lib = timed_ms(torch, lib, 20, flush)
-        bd = bound(x.numel() * 4 + codes.numel() + 4 + m * n * 4, 2.0 * m * n * k,
-                   matmul_peak(x, floatsd.decode(codes, 0)))
-        mm[(site, m)] = dict(ms=t, plain_ms=t_plain, library_ms=t_lib, err=err, route=route, **bd)
-        print(f"  {site:6s} [{m},{k}] x {'[N,K]^T' if tr else '[K,N]'} N={n}, route {route}"
-              f"{' (ordered)' if ordered else ''}: max_abs_err {err:.3e}, {mism} of {m * n} not bit-identical, "
-              f"two launches bit-identical | kernel {t:.4f} ms, plain {t_plain:.3f} ms, torch.matmul {t_lib:.4f} "
-              f"ms, {fmt_bound(bd)}")
+        mm[(site, m)] = mm_row(torch, flush, x, codes, int(bias), tr, act is not None, site, ordered)
 
     print("kernels: lstm_cell vs plain version (bit for bit; two launches bit-identical)")
     print(element_report(_build, "lstm_cell", floor_ms))
@@ -516,81 +663,25 @@ def kernel_phase(torch, dev, flush, floor_ms):
         c = torch.randn((b, h), device=dev, generator=g).to(torch.float16)
         if odd:
             c = odd_view(torch, c)
-        h_k, c_k = lstm_cell(z, c)
-        h_2, c_2 = lstm_cell(z, c)
-        h_r, c_r = lstm_cell_ref(z, c)
-        torch.cuda.synchronize()
-        flips = int(((h_k != h_r) | (c_k != c_r)).sum())
-        err = max(float((h_k - h_r).abs().max()), float((c_k.float() - c_r.float()).abs().max()))
-        check(flips == 0, f"lstm_cell {b}x{h}{' (odd c_prev)' if odd else ''}: {flips} outputs differ, max err {err}")
-        check(torch.equal(h_k, h_2) and torch.equal(c_k, c_2), f"lstm_cell {b}x{h}: two launches differ")
-        t = timed_ms(torch, lambda: lstm_cell(z, c), 50, flush)
-        t_plain = timed_ms(torch, lambda: lstm_cell_ref(z, c), 10, flush)
-        bd = bound(b * 4 * h * 4 + b * h * 2 + b * h * 4 + b * h * 2, float(b * h * CELL_OPS))
-        cell[(b, h, odd) if odd else (b, h)] = dict(ms=t, plain_ms=t_plain, err=err, **bd)
-        print(f"  [{b},{4 * h}] -> h,c [{b},{h}]{', c_prev at an odd fp16 offset' if odd else ''}: max_abs_err "
-              f"{err:.3e}, {flips} of {b * h} differ, two launches bit-identical | kernel {t:.4f} ms, plain "
-              f"{t_plain:.3f} ms, {fmt_bound(bd)}")
+        cell[(b, h, odd) if odd else (b, h)] = cell_row(torch, flush, z, c,
+                                                        ", c_prev at an odd fp16 offset" if odd else "")
 
     print("kernels: matmul_dx (floatsd_matmul.cu on codes [K,N] read as [out, contraction]) vs plain "
-          "version (tolerance |err| <= 1e-5 * (|g| @ |W|^T))")
+          "version (tolerance |err| <= 1e-5 * (|g| @ |W|^T); two launches bit-identical)")
     dx = {}
     # g [M, N], codes [K, N]: the recurrence's per-step dh, and the batched dXs
     # (on the ordered route, as the fused BPTT asks)
     for m, k, n in [(64, 1024, 4096), (3072, 1024, 4096)]:
         gr = torch.randn((m, n), device=dev, generator=g) * 1e-2
         codes, bias = floatsd.encode(torch.randn((k, n), device=dev, generator=g) * 0.03)
-        bias = int(bias)
-        wd = floatsd.decode(codes, bias)
-        ordered = m > 64
-        y, y2 = matmul_dx(gr, codes, bias, ordered=ordered), matmul_dx(gr, codes, bias, ordered=ordered)
-        y_ref = matmul_dx_ref(gr, codes, bias, ordered=ordered)
-        torch.cuda.synchronize()
-        err = (y.double() - y_ref.double()).abs()
-        route = plan(m, k, n, ordered).route
-        check(bool((err <= 1e-5 * (gr.double().abs() @ wd.double().abs().t()) + 1e-30).all()),
-              f"matmul_dx {m}x{n} -> {k} (route {route}) exceeds 1e-5")
-        check(torch.equal(y, y2), f"matmul_dx {m}x{n} -> {k} (route {route}): two launches differ")
-        mism = int((y != y_ref).sum())
-        with no_tf32():
-            t = timed_ms(torch, lambda: matmul_dx(gr, codes, bias, ordered=ordered), 20, flush)
-            t_plain = timed_ms(torch, lambda: matmul_dx_ref(gr, codes, bias, ordered=ordered), 3, flush)
-            t_lib = timed_ms(torch, lambda: torch.matmul(gr, wd.t()), 20, flush)
-        bd = bound(gr.numel() * 4 + codes.numel() + 4 + m * k * 4, 2.0 * m * n * k,
-                   matmul_peak(gr, floatsd.decode(codes, 0)))
-        dx[m] = dict(ms=t, plain_ms=t_plain, library_ms=t_lib, err=float(err.max()), route=route, **bd)
-        print(f"  [{m},{n}] x codes[{k},{n}]^T, route {route}{' (ordered)' if ordered else ''}: max_abs_err {float(err.max()):.3e}, {mism} of "
-              f"{m * k} not bit-identical, two launches bit-identical | kernel {t:.4f} ms, plain {t_plain:.3f} ms, "
-              f"torch.matmul {t_lib:.4f} ms, {fmt_bound(bd)}")
+        dx[m] = dx_row(torch, flush, gr, codes, int(bias), ordered=m > 64)
 
     print("kernels: matmul_dw vs plain version (quant=False: |err| <= 1e-5 * (|x|^T @ |g|); quant=True: "
-          "at most 0.1% of outputs differ, each by at most one e5m2 step)")
-    dw = {}
+          "at most 0.1% of outputs differ, each by at most one e5m2 step; two launches bit-identical)")
     m, k, n = 3072, 1024, 4096  # S*B rows; dWx and dWh at the full width
     x = quantize_fp8(torch.randn((m, k), device=dev, generator=g))
     gr = torch.randn((m, n), device=dev, generator=g) * 1e-2
-    with no_tf32():
-        t_lib = timed_ms(torch, lambda: torch.matmul(x.t(), gr), 10, flush)
-    for quant in (True, False):
-        y, y_ref = matmul_dw(x, gr, quant=quant), matmul_dw_ref(x, gr, quant)
-        torch.cuda.synchronize()
-        err = (y.double() - y_ref.double()).abs()
-        off = y != y_ref
-        if quant:
-            step = torch.exp2(torch.floor(torch.log2(torch.maximum(y.abs(), y_ref.abs()).clamp(min=2.0**-14))) - 2)
-            check(int(off.sum()) <= 1e-3 * y.numel() and bool((err[off] <= step[off]).all()),
-                  f"matmul_dw quant: {int(off.sum())} outputs differ")
-        else:
-            check(bool((err <= 1e-5 * (x.double().abs().t() @ gr.double().abs()) + 1e-30).all()),
-                  "matmul_dw exceeds 1e-5")
-        t = timed_ms(torch, lambda: matmul_dw(x, gr, quant=quant), 10, flush)
-        t_plain = timed_ms(torch, lambda: matmul_dw_ref(x, gr, quant), 3, flush)
-        bd = bound(4.0 * (m * k + m * n + k * n), 2.0 * m * k * n, matmul_peak(x, gr))
-        dw[quant] = dict(ms=t, plain_ms=t_plain, library_ms=t_lib, err=float(err.max()), **bd)
-        print(f"  quant={quant} [{m},{k}]^T x [{m},{n}]: max_abs_err {float(err.max()):.3e}, {int(off.sum())} of "
-              f"{k * n} not bit-identical | kernel {t:.4f} ms ({2.0 * m * k * n / t / 1e9:.1f} TFLOP/s, "
-              f"{t / bd['bound_ms']:.2f}x the bound, {t / t_lib:.2f}x torch.matmul), plain {t_plain:.3f} ms, "
-              f"torch.matmul(x.t(), g) (no FP8 snap) {t_lib:.4f} ms, {fmt_bound(bd)}")
+    dw = {quant: dw_row(torch, flush, x, gr, quant) for quant in (True, False)}
 
     print("kernels: lstm_cell_grad vs plain version (bit for bit; two launches bit-identical)")
     print(element_report(_build, "lstm_cell_bwd", floor_ms))
@@ -603,21 +694,8 @@ def kernel_phase(torch, dev, flush, floor_ms):
         if odd:
             c = odd_view(torch, c)
         dh, dc = (torch.randn((b, h), device=dev, generator=g) for _ in range(2))
-        dz, dcp = lstm_cell_grad(z, c, dh, dc)
-        dz2, dcp2 = lstm_cell_grad(z, c, dh, dc)
-        dz_r, dcp_r = lstm_cell_bwd_ref(z, c.float(), dh, dc)
-        torch.cuda.synchronize()
-        flips = int((dz != dz_r).sum()) + int((dcp != dcp_r).sum())
-        err = max(float((dz - dz_r).abs().max()), float((dcp - dcp_r).abs().max()))
-        check(flips == 0, f"lstm_cell_grad {b}x{h}{' (odd c_prev)' if odd else ''}: {flips} outputs differ, max err {err}")
-        check(torch.equal(dz, dz2) and torch.equal(dcp, dcp2), f"lstm_cell_grad {b}x{h}: two launches differ")
-        t = timed_ms(torch, lambda: lstm_cell_grad(z, c, dh, dc), 50, flush)
-        t_plain = timed_ms(torch, lambda: lstm_cell_bwd_ref(z, c.float(), dh, dc), 10, flush)
-        bd = bound(46.0 * b * h, float(b * h * CELL_BWD_OPS))
-        cell_bwd[(b, h, odd) if odd else (b, h)] = dict(ms=t, plain_ms=t_plain, err=err, **bd)
-        print(f"  [{b},{4 * h}] + 3 x [{b},{h}] -> dz, dc_prev{', c_prev at an odd fp16 offset' if odd else ''}: "
-              f"max_abs_err {err:.3e}, {flips} differ, two launches bit-identical | kernel {t:.4f} ms, plain "
-              f"{t_plain:.3f} ms, {fmt_bound(bd)}")
+        cell_bwd[(b, h, odd) if odd else (b, h)] = cell_grad_row(
+            torch, flush, z, c, dh, dc, ", c_prev at an odd fp16 offset" if odd else "")
     return mm, cell, dx, dw, cell_bwd
 
 
@@ -812,19 +890,23 @@ def composite(parts) -> dict:
             "library_ms": None if None in lib else tot("library_ms")}
 
 
-def train_counts(n_layers: int, seq: int) -> dict:
+def train_counts(calls: int, seq: int) -> dict:
     """Kernel calls per training step of the fused BPTT, per the code: per
-    layer, 2 gate matmuls a step + the backward's recompute pair, a cell
-    and a cell backward a step, a matmul_dx a step + the batched dXs, and
-    dWx + dWh."""
-    L, S = n_layers, seq
+    engine call (one per LSTM layer, direction and input sequence), 2 gate
+    matmuls a time step + the backward's recompute pair, a cell and a cell
+    backward a step, a matmul_dx a step + the batched dXs, and dWx + dWh."""
+    L, S = calls, seq
     return {"floatsd_matmul": 2 * L * S + 2 * L, "lstm_cell": L * S, "lstm_cell_grad": L * S,
             "floatsd_matmul_dx": L * S + L, "floatsd_matmul_dw": 2 * L}
 
 
-def profile_step(torch, step_fn, state, batch):
+TRAIN_GROUPS = ("floatsd_matmul", "floatsd_matmul_dx", "floatsd_matmul_dw", "lstm_cell", "lstm_cell_grad")
+
+
+def profile_step(torch, step_fn, state, batch, gemm="library GEMM (tied head)", require=None):
     """One train step under torch.profiler: device time (ms) and launches
-    by kernel group, and the step's wall time (ms) in the same window."""
+    by kernel group, and the step's wall time (ms) in the same window.
+    ``require``: the groups that must have run (default: all of them)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -844,7 +926,7 @@ def profile_step(torch, step_fn, state, batch):
              ("floatsd_matmul_mma_kernel<true", "floatsd_matmul_dx"),
              ("add_partials", "floatsd_matmul(_dx) chunk sums"),
              ("matmul_dw_kernel", "floatsd_matmul_dw"), ("lstm_cell_bwd_kernel", "lstm_cell_grad"),
-             ("lstm_cell_kernel", "lstm_cell"), ("gemm", "library GEMM (tied head)")]
+             ("lstm_cell_kernel", "lstm_cell"), ("gemm", gemm)]
     groups = {g: [0.0, 0] for _, g in names + [("", "other torch ops")]}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.is_user_annotation:
@@ -853,7 +935,8 @@ def profile_step(torch, step_fn, state, batch):
         groups[g][0] += e.self_device_time_total / 1e3
         groups[g][1] += e.count
     # a kernel renamed out of its group would be filed elsewhere: every group runs in a step
-    check(all(n > 0 for _, n in groups.values()), f"a kernel group of the train step saw no launch: {groups}")
+    check(all(n > 0 for g, (_, n) in groups.items() if require is None or g in require),
+          f"a kernel group of the train step saw no launch: {groups}")
     return groups, wall
 
 
@@ -976,6 +1059,240 @@ def train_phase(torch, smi):
           f"{statistics.median(ref['step_s']):.2f} s", flush=True)
     return dict(launches=launches, step_ms=step_ms, tok_s=tok_s, groups=groups, busy_ms=busy, wall_ms=wall,
                 params=out["state"].params, batch=batch)
+
+
+# the paper's other three tasks at their Table III widths (make_task(name,
+# full=True), seed 0): UDPOS (B 64, S 32, 2 BiLSTM layers: 4 engine calls a
+# step), SNLI (B 128, S 24, one BiLSTM over premise and hypothesis: 4),
+# Multi30K (B 128, S 20, encoder and decoder: 2); Adam, lr 1e-3
+TASK_NAMES = ("udpos", "snli", "multi30k")
+TASK_STEPS, TASK_XCHECK_STEPS, TASK_EVAL_BATCHES = 5, 3, 2
+
+
+def task_engines(name: str, model) -> list:
+    """(K, H) of each fused-engine call in one of the task's train steps."""
+    if name == "udpos":
+        return [(model.emb, model.hidden)] * 2 + [(2 * model.hidden, model.hidden)] * 2
+    if name == "snli":
+        return [(model.proj, model.hidden)] * 4
+    return [(model.emb, model.hidden)] * 2
+
+
+def task_batch_dims(data) -> tuple:
+    """(B, S) of a task's batch: its first token input's shape."""
+    return next(data.batches)[data.token_keys[0]].shape
+
+
+def task_kernel_phase(torch, dev, flush):
+    """Phase 3, continued: the fused BPTT's kernels at the three tasks'
+    shapes, through the kernel phase's row builders (each against its plain
+    version, two launches bit-identical, timed with L2 flushed): the
+    per-step gate products [B, K] and [B, H] on the ordered route (route A,
+    FP8 activations: bit for bit), beside route B's time at M 128; the
+    recompute pair over S x B rows; matmul_dx for the recurrence and the
+    batched dXs; matmul_dw; the cell and its backward (bit for bit).
+    Returns the rows by shape and each task's per-step composite by op."""
+    from repro_torch.core import floatsd
+    from repro_torch.core.fp8 import quantize_fp8
+    from repro_torch.models.task_zoo import make_task
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    rows, steps = {}, {}
+
+    def weight(k, n):
+        codes, bias = floatsd.encode((torch.rand((k, n), device=dev, generator=g) * 2 - 1) / n ** 0.5 * 2)
+        return codes, int(bias)
+
+    def row(op, *shape):
+        key = (op, *shape)
+        if key not in rows:
+            if op == "floatsd_matmul":
+                m, k, n = shape
+                rows[key] = mm_row(torch, flush, quantize_fp8(torch.randn((m, k), device=dev, generator=g)),
+                                   *weight(k, n), False, True, "task", ordered=True, route_b=True)
+            elif op == "floatsd_matmul_dx":
+                m, k, n = shape
+                rows[key] = dx_row(torch, flush, torch.randn((m, n), device=dev, generator=g) * 1e-2,
+                                   *weight(k, n), ordered=True)
+            elif op == "floatsd_matmul_dw":
+                m, k, n = shape
+                rows[key] = dw_row(torch, flush, quantize_fp8(torch.randn((m, k), device=dev, generator=g)),
+                                   torch.randn((m, n), device=dev, generator=g) * 1e-2, True)
+            else:
+                b, h = shape
+                z = torch.randn((b, 4 * h), device=dev, generator=g) * 2
+                c = torch.randn((b, h), device=dev, generator=g).to(torch.float16)
+                if op == "lstm_cell":
+                    rows[key] = cell_row(torch, flush, z, c)
+                else:
+                    dh, dc = (torch.randn((b, h), device=dev, generator=g) for _ in range(2))
+                    rows[key] = cell_grad_row(torch, flush, z, c, dh, dc)
+        return rows[key]
+
+    print("kernels: the fused BPTT's kernels at the tasks' shapes (FP8 activations; every product on the "
+          "ordered route, as the engine asks: bit for bit with the plain version; matmul_dx within 1e-5, "
+          "matmul_dw within one e5m2 step on at most 0.1%; two launches bit-identical)", flush=True)
+    for name in TASK_NAMES:
+        model, data, *_ = make_task(name, full=True)
+        b, s = task_batch_dims(data)
+        engines = task_engines(name, model)
+        parts = {op: [] for op in TRAIN_GROUPS}
+        for (k, h) in dict.fromkeys(engines):
+            n = engines.count((k, h))
+            parts["floatsd_matmul"] += [(n * s, row("floatsd_matmul", b, k, 4 * h)),
+                                        (n * s, row("floatsd_matmul", b, h, 4 * h)),
+                                        (n, row("floatsd_matmul", s * b, k, 4 * h)),
+                                        (n, row("floatsd_matmul", s * b, h, 4 * h))]
+            parts["floatsd_matmul_dx"] += [(n * s, row("floatsd_matmul_dx", b, h, 4 * h)),
+                                           (n, row("floatsd_matmul_dx", s * b, k, 4 * h))]
+            parts["floatsd_matmul_dw"] += [(n, row("floatsd_matmul_dw", s * b, k, 4 * h)),
+                                           (n, row("floatsd_matmul_dw", s * b, h, 4 * h))]
+            parts["lstm_cell"].append((n * s, row("lstm_cell", b, h)))
+            parts["lstm_cell_grad"].append((n * s, row("lstm_cell_grad", b, h)))
+        steps[name] = {op: composite(p) for op, p in parts.items()}
+        print(f"  {name} train step (B {b}, S {s}, engine calls {engines}), from these rows: "
+              + ", ".join(f"{op} {c['ms']:.3f} ms (bound {c['bound_ms']:.4f})" for op, c in steps[name].items()),
+              flush=True)
+    return rows, steps
+
+
+def recompute_check(torch, dev, b=128, k=300, h=300, s=4) -> int:
+    """The fused BPTT at SNLI's B 128 x K 300 x H 300: every z a forward
+    cell gets must equal the z the backward recomputes for that step, bit
+    for bit (every product of the engine on the ordered route). Returns
+    the number of z elements compared."""
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import dispatch as kd
+    from repro_torch.nn.lstm import LSTMLayer
+
+    fwd, bwd = [], []
+    cell, grad = kd.lstm_cell, kd.lstm_cell_grad
+    kd.lstm_cell = lambda z, c, **kw: (fwd.append(z.clone()), cell(z, c, **kw))[1]
+    kd.lstm_cell_grad = lambda z, *a, **kw: (bwd.append(z.clone()), grad(z, *a, **kw))[1]
+    try:
+        g = torch.Generator(device=dev).manual_seed(SEED + 9)
+        layer = LSTMLayer(k, h)
+        p = {n: t.to(torch.float16).requires_grad_() for n, t in layer.init(g).items()}
+        xs = torch.randn((b, s, k), device=dev, generator=g)
+        hs, fin = layer.apply(p, xs, get_policy("floatsd8_table6").replace(grad_quant="fp8_kernel"))
+        (hs.square().sum() + fin.c.float().square().sum()).backward()
+    finally:
+        kd.lstm_cell, kd.lstm_cell_grad = cell, grad
+    check(len(fwd) == len(bwd) == s, f"recompute check: {len(fwd)} forward, {len(bwd)} backward cells")
+    for t, z in enumerate(fwd):  # the backward walks the steps in reverse
+        diff = int((z != bwd[s - 1 - t]).sum())
+        check(diff == 0, f"recompute check: step {t}: {diff} of {z.numel()} z differ between forward and backward")
+    return sum(z.numel() for z in fwd)
+
+
+def flat_leaves(tree, prefix: str = "") -> dict:
+    """Nested dicts of tensors -> {"a/b/c": tensor}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def tasks_phase(torch, smi):
+    """Phase 9: UDPOS, SNLI and Multi30K at their paper widths through the
+    training CLI on the kernels, each cross-checked against the plain
+    versions, evaluated with no gradient, and one FP32 step on autodiff."""
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import dispatch as kd
+    from repro_torch.kernels.floatsd_matmul.ops import floatsd_matmul, matmul_dw, matmul_dx
+    from repro_torch.kernels.lstm_cell.ops import lstm_cell, lstm_cell_grad
+    from repro_torch.launch import train
+    from repro_torch.models.task_zoo import make_task
+    from repro_torch.optim.train_state import batch_to_device, init_state, make_train_step
+
+    n = recompute_check(torch, "cuda")
+    print(f"tasks: the fused BPTT at B 128 x K 300 x H 300: the forward's {n} gate pre-activations equal the "
+          f"backward's recompute bit for bit", flush=True)
+    wrappers = dict(zip(TRAIN_GROUPS, (floatsd_matmul, matmul_dx, matmul_dw, lstm_cell, lstm_cell_grad)))
+    policy = get_policy("floatsd8_table6")
+    total = {op: 0 for op in TRAIN_GROUPS}
+    out = {}
+    for name in TASK_NAMES:
+        t0 = time.perf_counter()
+        args = ["--task", name, "--full", "--log-every", "1", "--seed", str(SEED)]
+        model, data, opt, lr, metric = make_task(name, full=True)
+        b, s = task_batch_dims(data)
+        calls = len(task_engines(name, model))
+        kd.STATS.reset()
+        for w in wrappers.values():
+            w.launches = 0
+        run = train.main([*args, "--steps", str(TASK_STEPS)])
+        launches = {op: w.launches for op, w in wrappers.items()}
+        stats = kd.STATS.snapshot()
+        want = {op: TASK_STEPS * n for op, n in train_counts(calls, s).items()}
+        check(launches == want, f"{name}: launches {launches} != expected {want}")
+        check(stats == {(op, "cuda"): n for op, n in want.items()}, f"{name}: dispatch records {stats}")
+        check(all(math.isfinite(v) for v in run["losses"]) and all(run["finite"]),
+              f"{name}: losses {run['losses']}, grads_finite {run['finite']}")
+        for op, n in launches.items():
+            total[op] += n
+        warm = run["step_s"][1:]
+        step_ms = statistics.median(warm) * 1e3
+        tok_s = run["tokens_per_step"] / statistics.median(warm)
+        print(f"tasks: {name}: {TASK_STEPS} steps (first excluded as warm-up): median step {step_ms:.2f} ms, "
+              f"{tok_s:.0f} tok/s ({smi}); losses {run['losses']}; launches {launches}", flush=True)
+
+        # one more step under the profiler: device time by kernel
+        step_fn = make_train_step(model.loss, opt, policy, lr=lr)
+        batch = next(data.batches)
+        groups, wall = profile_step(torch, step_fn, run["state"], batch_to_device(batch, "cuda"),
+                                    gemm="library GEMM (dense heads)", require=TRAIN_GROUPS)
+        busy = sum(ms for ms, _ in groups.values())
+        print(f"tasks: {name} step device time (torch.profiler, one warm step): busy {busy:.2f} ms of "
+              f"{wall:.2f} ms wall (idle share {max(0.0, 1 - busy / wall):.1%}); "
+              + ", ".join(f"{k} {ms:.3f} ms ({n})" for k, (ms, n) in groups.items()), flush=True)
+
+        # the same init and batches on the plain versions, then the kernels again
+        with kd.use_backend("ref"):
+            ref = train.main([*args, "--steps", str(TASK_XCHECK_STEPS)])
+        again = train.main([*args, "--steps", str(TASK_XCHECK_STEPS)])
+        rel = [abs(a - r) / abs(r) for a, r in zip(run["losses"], ref["losses"])]
+        check(max(rel) <= LOSS_RTOL, f"{name}: kernel vs plain losses differ by {rel} relative")
+        check(again["losses"] == run["losses"][:TASK_XCHECK_STEPS],
+              f"{name}: two kernel runs differ: {again['losses']} vs {run['losses'][:TASK_XCHECK_STEPS]}")
+        init = flat_leaves(init_state(model.init(torch.Generator(device="cuda").manual_seed(SEED)), opt,
+                                      policy).params)
+        p_ref, p_k = flat_leaves(ref["state"].params), flat_leaves(again["state"].params)
+        drift = {}
+        for key, w_ref in p_ref.items():
+            moved = float(torch.linalg.vector_norm(w_ref.float() - init[key].float()))
+            drift[key] = float(torch.linalg.vector_norm(p_k[key].float() - w_ref.float())) / max(moved, 1e-30)
+            check(moved > 0 and drift[key] <= PARAM_RTOL,
+                  f"{name} {key}: kernel vs plain masters {drift[key]:.3e} of their change {moved:.3e} "
+                  f"(bound {PARAM_RTOL})")
+        print(f"tasks: {name} cross-check: {TASK_XCHECK_STEPS} steps, kernel vs plain losses within "
+              f"{max(rel):.3e} relative (bound {LOSS_RTOL}); masters within {max(drift.values()):.3e} of their "
+              f"change (bound {PARAM_RTOL}, {len(drift)} leaves); a second kernel run bit-identical; plain step "
+              f"{statistics.median(ref['step_s']):.2f} s", flush=True)
+
+        # the task's metric with no gradient: the inference scans (reverse too)
+        kd.STATS.reset()
+        with torch.no_grad():
+            vals = [float(getattr(model, metric)(run["state"].params, batch_to_device(next(data.eval_batches), "cuda"),
+                                                 policy)) for _ in range(TASK_EVAL_BATCHES)]
+        ev = kd.STATS.snapshot()
+        check(all(math.isfinite(v) for v in vals) and ev == {("lstm_cell", "cuda"): TASK_EVAL_BATCHES * calls * s},
+              f"{name}: eval {metric} {vals}, dispatch {ev}")
+
+        # the FP32 baseline: one step through autodiff, no kernel of the engine
+        kd.STATS.reset()
+        fp32 = train.main([*args, "--steps", "1", "--policy", "fp32"])
+        check(math.isfinite(fp32["losses"][0]) and fp32["finite"] == [True] and kd.STATS.count() == 0,
+              f"{name}: fp32 step loss {fp32['losses']}, dispatch {kd.STATS.snapshot()}")
+        print(f"tasks: {name} eval {metric} over {TASK_EVAL_BATCHES} batches {vals} (no gradient; "
+              f"{sum(ev.values())} lstm_cell launches); fp32 step on autodiff loss {fp32['losses'][0]:.4f}; "
+              f"phase {time.perf_counter() - t0:.1f} s", flush=True)
+        out[name] = dict(step_ms=step_ms, tok_s=tok_s, launches=launches, groups=groups, busy_ms=busy,
+                         wall_ms=wall, b=b, s=s, calls=calls)
+    return dict(launches=total, tasks=out)
 
 
 def cross_check(reqs, refs, what: str) -> None:
@@ -1112,7 +1429,7 @@ def profile_decode(torch, model, params, policy, fmt):
 
 
 def entry_phase(torch, params, batch):
-    """Phase 9: dispatch.quantize on the trained masters, dispatch.qsigmoid
+    """Phase 10: dispatch.quantize on the trained masters, dispatch.qsigmoid
     on a gate block."""
     from repro_torch.core import floatsd
     from repro_torch.core.qsigmoid import qsigmoid_raw
@@ -1405,7 +1722,7 @@ def zoo_serve(torch, model, tree, policy, prompts, backend=None, cache_len=None)
 
 
 def zoo_phase(torch, dev, smi):
-    """Phase 10: full-width rwkv6_3b, packed, prefilled, decoded and served."""
+    """Phase 11: full-width rwkv6_3b, packed, prefilled, decoded and served."""
     import numpy as np
 
     from repro_torch.core.policy import get_policy
@@ -1535,7 +1852,7 @@ def zoo_phase(torch, dev, smi):
 
 
 def zoo_x_phase(torch, dev, smi):
-    """Phase 11: the zoo's path at full width and ZOO_X_LAYERS layers on
+    """Phase 12: the zoo's path at full width and ZOO_X_LAYERS layers on
     the kernels against backend="ref" (the plain versions) on the card."""
     import numpy as np
 
@@ -1783,7 +2100,7 @@ def profile_prefill(torch, model, tree, toks, policy):
 
 
 def dense_phase(torch, dev, smi):
-    """Phase 12: full-width h2o_danube3_4b, packed, prefilled, decoded and
+    """Phase 13: full-width h2o_danube3_4b, packed, prefilled, decoded and
     served."""
     import numpy as np
 
@@ -1901,7 +2218,7 @@ def dense_phase(torch, dev, smi):
 
 
 def dense_x_phase(torch, dev, smi):
-    """Phase 13: the dense path at full width and DENSE_X_LAYERS layers on
+    """Phase 14: the dense path at full width and DENSE_X_LAYERS layers on
     the kernels against backend="ref" (the plain versions) on the card."""
     import numpy as np
 
@@ -2008,6 +2325,7 @@ def main() -> int:
     zmm = zoo_matmul_phase(torch, dev, flush)
     dmm = zoo_matmul_phase(torch, dev, flush, DENSE_ARCH, DENSE_MM_SITES, SEED + 5)
     fa = flash_phase(torch, dev, flush)
+    task_rows, task_steps = task_kernel_phase(torch, dev, flush)
     del flush
 
     # 4. the main path at full width
@@ -2058,16 +2376,19 @@ def main() -> int:
     tr = train_phase(torch, smi)
     tr_launches = tr["launches"]
 
-    # 9. the element-wise entry points on the trained masters
+    # 9. the paper's other three tasks
+    tasks = tasks_phase(torch, smi)
+
+    # 10. the element-wise entry points on the trained masters
     ent = entry_phase(torch, tr["params"], tr["batch"])
     del tr
 
-    # 10-11. the model zoo: rwkv6_3b at full width, then its kernel-vs-plain cross-check
+    # 11-12. the model zoo: rwkv6_3b at full width, then its kernel-vs-plain cross-check
     torch.cuda.empty_cache()
     zoo = zoo_phase(torch, dev, smi)
     zoo_x_phase(torch, dev, smi)
 
-    # 12-13. the dense family: h2o_danube3_4b at full width (the RWKV trees
+    # 13-14. the dense family: h2o_danube3_4b at full width (the RWKV trees
     # are freed), then its kernel-vs-plain cross-check
     torch.cuda.empty_cache()
     dense = dense_phase(torch, dev, smi)
@@ -2115,8 +2436,8 @@ def main() -> int:
          "[2,1024,8,120] f32, causal (window 4096 inactive); library: scaled_dot_product_attention(is_causal=True, "
          "enable_gqa=True)", None, None),
     ]
-    paths = {"serve": launches, "train": tr_launches, "serve4": s4["launches"], "entry": ent["launches"],
-             "zoo": zoo["launches"], "dense": dense["launches"]}
+    paths = {"serve": launches, "train": tr_launches, "tasks": tasks["launches"], "serve4": s4["launches"],
+             "entry": ent["launches"], "zoo": zoo["launches"], "dense": dense["launches"]}
     # the zoo prefill's share of the kernels it shares with the LSTM paths
     zoo_prefill = {
         "floatsd_matmul": ([(6 * ZL, zmm[("dd", ZOO_B * ZOO_S)]), (ZL, zmm[("cmix-k", ZOO_B * ZOO_S)]),
@@ -2132,10 +2453,24 @@ def main() -> int:
     for name, src, repl, rows, parts, per, train_parts, train_per in entries:
         by_path = {path: counts.get(name, 0) for path, counts in paths.items()}
         parts, per = (parts, per) if parts else (train_parts, train_per)
+        shapes = [r for (op, *_), r in task_rows.items() if op == name]
         rec = {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/{src}",
                "replaces": f"src/repro/kernels/{repl}", "launches": sum(by_path.values()),
                "launches_by_path": by_path,
-               "max_abs_err": max(v["err"] for v in rows), **composite(parts), "per": per}
+               "max_abs_err": max(v["err"] for v in [*rows, *shapes]), **composite(parts), "per": per}
+        if name in TRAIN_GROUPS:
+            # a train step of each task: the per-launch rows at its shapes
+            # times its launches, and the profiled step's device time
+            rec["task_steps"] = {
+                t: {**task_steps[t][name], "launches": tasks["tasks"][t]["launches"][name] // TASK_STEPS,
+                    "profiled_ms": tasks["tasks"][t]["groups"][name][0],
+                    "per": f"{t} train step, B {tasks['tasks'][t]['b']} x S {tasks['tasks'][t]['s']}, "
+                           f"{tasks['tasks'][t]['calls']} engine calls"}
+                for t in TASK_NAMES}
+        if name == "floatsd_matmul":
+            rec["route_a_vs_b"] = [
+                {"shape": list(key[1:]), "route_a_ms": r["ms"], "route_b_ms": r["route_b_ms"]}
+                for key, r in task_rows.items() if key[0] == name and "route_b_ms" in r]
         if train_parts and parts is not train_parts:
             rec["train_step"] = {**composite(train_parts), "per": train_per}
         if name in zoo_prefill:

@@ -6,7 +6,9 @@ The JAX package's parameters are nested dicts of arrays; its checkpoints
 + ``arrays.npz`` with flat ``/``-joined keys (``embed/table``,
 ``lstm0/wx`` ...; a saved TrainState has ``.step``, ``.params/...``,
 ``.opt_state/...`` and ``.scale/.scale``, ``.scale/.growth_counter``,
-``.scale/.dynamic``), written atomically with a CRC32 ``content_hash`` of
+``.scale/.dynamic``: a NamedTuple's fields are keyed ``.<field>``, so an
+Adam state is ``.opt_state/.mu/...``, ``.opt_state/.nu/...`` and
+``.opt_state/.count``), written atomically with a CRC32 ``content_hash`` of
 the arrays. ``from_jax_params`` / ``load_jax_checkpoint`` give a model
 trained in JAX to the port's server (floating arrays as f32 tensors: an
 fp16 master converts exactly); ``from_jax_packed`` carries a JAX
@@ -33,6 +35,7 @@ import torch
 from .core.loss_scaling import LossScaleState
 from .device import resolve_device
 from .kernels.dispatch import PackedTensor, PackedTensor4
+from .optim.optimizers import AdamState
 from .optim.train_state import TrainState
 
 __all__ = [
@@ -149,11 +152,15 @@ def load_jax_checkpoint(path: str, device=None) -> dict:
 
 
 def _flatten(tree, prefix: str, out: dict) -> None:
-    """Nested dicts -> ``prefix/key/...`` entries in sorted-key order (the
-    order ``jax.tree_util`` flattens dicts in)."""
+    """Nested dicts -> ``prefix/key/...`` entries in sorted-key order, and a
+    NamedTuple's fields -> ``prefix/.field`` in field order (the keys and
+    order of ``jax.tree_util``'s paths)."""
     if isinstance(tree, Mapping):
         for k in sorted(tree):
             _flatten(tree[k], f"{prefix}/{k}", out)
+    elif hasattr(tree, "_fields"):
+        for name in tree._fields:
+            _flatten(getattr(tree, name), f"{prefix}/.{name}", out)
     elif isinstance(tree, (tuple, list)):
         for i, v in enumerate(tree):
             _flatten(v, f"{prefix}/{i}", out)
@@ -215,14 +222,27 @@ def load_train_state(path: str, device=None) -> TrainState:
         nested = _nest(keys) if keys else {}
         return _to_tensors(nested, dev)
 
-    opt = sub(".opt_state")
     return TrainState(
         torch.from_numpy(np.asarray(flat[".step"])).to(dev),
         sub(".params"),
-        opt if opt else (),
+        _opt_state(sub(".opt_state")),
         LossScaleState(*(torch.from_numpy(np.asarray(flat[f".scale/.{n}"])).to(dev)
                          for n in LossScaleState._fields)),
     )
+
+
+def _opt_state(tree):
+    """The stored optimizer state -> the optimizer's: nothing (momentum-free
+    SGD) -> (), a dict of buffers (SGD momentum) as it is, and the
+    ``.mu``/``.nu``/``.count`` fields of Adam's -> an ``AdamState``."""
+    if not tree:
+        return ()
+    if not any(k.startswith(".") for k in tree):
+        return tree
+    fields = ["." + f for f in AdamState._fields]
+    if set(tree) != set(fields):
+        raise ValueError(f"unknown optimizer state with fields {sorted(tree)}")
+    return AdamState(*(tree[f] for f in fields))
 
 
 def _to_tensors(tree, device):

@@ -3,8 +3,10 @@
     y = Q(sigma(x))          for x <= 0
     y = 1 - Q(sigma(-x))     for x >  0
 
-Counterpart of ``repro.core.qsigmoid`` (inference half: no straight-through
-gradient). Q is FloatSD8 rounding at the fixed bias -7, whose non-positive
+Counterpart of ``repro.core.qsigmoid``: the raw LUT function, and
+``qsigmoid`` and ``qtanh_fp8`` with the reference's straight-through
+gradients (the exact sigma' and tanh'), which the LSTM's autodiff path
+trains through. Q is FloatSD8 rounding at the fixed bias -7, whose non-positive
 branch has the paper's 42 distinct values; it is computed octave-folded,
 as in the reference, with the octave taken exactly from ``frexp``.
 """
@@ -14,8 +16,9 @@ import numpy as np
 import torch
 
 from . import floatsd
+from .fp8 import FP8_E5M2, quantize_fp8
 
-__all__ = ["SIGMOID_LUT_BIAS", "qsigmoid_raw", "sigmoid_lut_values"]
+__all__ = ["SIGMOID_LUT_BIAS", "qsigmoid_raw", "qsigmoid", "qtanh_fp8", "sigmoid_lut_values"]
 
 SIGMOID_LUT_BIAS = -7  # gives the paper's 42-entry LUT for x <= 0
 
@@ -66,6 +69,19 @@ def qsigmoid_raw(x: torch.Tensor) -> torch.Tensor:
     """Quantized sigmoid (the kernel/LUT oracle)."""
     s_neg = _Q(torch.sigmoid(-torch.abs(x)))  # Q(sigma(x)) evaluated at -|x|
     return torch.where(x > 0, 1.0 - s_neg, s_neg).to(x.dtype)
+
+
+def qsigmoid(x: torch.Tensor) -> torch.Tensor:
+    """Quantized sigmoid with a straight-through gradient (exact sigma')."""
+    s = torch.sigmoid(x)
+    return s + (qsigmoid_raw(x) - s).detach()
+
+
+def qtanh_fp8(x: torch.Tensor) -> torch.Tensor:
+    """tanh, then FP8 e5m2 activation quantization, with a straight-through
+    gradient (exact tanh')."""
+    t = torch.tanh(x)
+    return t + (quantize_fp8(t, FP8_E5M2) - t).detach()
 
 
 def sigmoid_lut_values() -> np.ndarray:

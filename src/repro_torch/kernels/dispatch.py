@@ -46,7 +46,7 @@ __all__ = [
     "BACKENDS", "ZERO_CODE", "PackedTensor", "is_packed", "Decision",
     "DispatchStats", "STATS", "use_backend", "matmul", "lstm_cell",
     "packed_einsum", "hoist_packed", "matmul_dx", "matmul_dw", "lstm_cell_grad",
-    "pack_train", "hoist_train", "PackedTensor4", "is_packed4", "is_any_packed", "pack4",
+    "pack_train", "hoist_train", "inference_only", "PackedTensor4", "is_packed4", "is_any_packed", "pack4",
     "unpack4", "matmul4", "quantize", "qsigmoid", "rwkv_wkv", "flash_attention",
 ]
 
@@ -183,8 +183,9 @@ def matmul(x: torch.Tensor, codes: torch.Tensor, bias, *, transposed: bool = Fal
     codes' decode from ``hoist_packed``: the plain version then skips its
     own decode and sums in the same order (``floatsd_matmul.ref.plan``'s).
     ``ordered`` keeps the kernel on its ordered route at any M, so its bits
-    are the plain version's on exact products (the fused BPTT's batched
-    recompute and dXs)."""
+    are the plain version's on exact products, and a row's sum does not
+    depend on how many rows share the call (every product of the fused
+    BPTT)."""
     k = x.shape[-1]
     n = codes.shape[0] if transposed else codes.shape[1]
     x2 = x.reshape(-1, k).to(torch.float32).contiguous()
@@ -332,6 +333,24 @@ def lstm_cell_grad(z: torch.Tensor, c_prev: torch.Tensor, dh: torch.Tensor, dc: 
         )
     STATS.record(dec)
     return out
+
+
+class _InferenceOnly(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y):
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise TypeError("a gradient reached values computed from packed (FloatSD8/FloatSD4-coded) "
+                        "weights, which are inference-only: train on the dense masters")
+
+
+def inference_only(y: torch.Tensor) -> torch.Tensor:
+    """Identity whose backward raises: marks values computed from packed
+    weights, where a missing gradient to the codes would otherwise pass in
+    silence."""
+    return _InferenceOnly.apply(y)
 
 
 def pack_train(w: torch.Tensor) -> PackedTensor:

@@ -23,7 +23,8 @@ chunks but sums inside each in the tensor cores' own order, which no
 PyTorch code repeats: it is held to that bound alone. A caller that needs
 the plain version's bits at M > 64 asks for ``ordered``: the fused BPTT,
 whose backward recomputes the forward's per-step gate pre-activations over
-S x B rows and must get the same bits, and whose training run is held bit
+S x B rows and must get the same bits (so both the per-step products, at
+M = B, and the recompute ask for it), and whose training run is held bit
 for bit against the plain path. No matmul runs here, so TF32 cannot enter.
 
 The backward (counterpart of ``repro.kernels.floatsd_matmul.bwd``):

@@ -1,11 +1,14 @@
-"""Training CLI of the port: the paper's WikiText-2 LM under FloatSD8
-weights, FP8 activations and gradients and an FP16 master copy, through the
-fused quantized BPTT (counterpart of ``repro.launch.train`` for the
-wikitext2 task). On the card every gate matmul, cell, cell backward,
-``matmul_dx`` and ``matmul_dw`` runs a hand-written CUDA kernel.
+"""Training CLI of the port: one of the paper's four tasks (the WikiText-2
+LM by default; UDPOS, SNLI, Multi30K) under FloatSD8 weights, FP8
+activations and gradients and an FP16 master copy, through the fused
+quantized BPTT (counterpart of ``repro.launch.train``); ``--policy fp32``
+trains the FP32 baseline through autodiff. On the card every LSTM gate
+matmul, cell, cell backward, ``matmul_dx`` and ``matmul_dw`` of the fused
+path runs a hand-written CUDA kernel.
 
-  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 5   # reduced, CPU
-  PYTHONPATH=src python -m repro_torch.launch.train --full --steps 20        # paper width, GPU
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 5               # reduced, CPU
+  PYTHONPATH=src python -m repro_torch.launch.train --task snli --device cpu --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --full --steps 20                    # paper width, GPU
 
 Prints the reference's ``step N  loss L  scale S  finite F`` lines, a
 closing ``trained N steps in ...`` line with the warm steps/s and tokens/s
@@ -17,6 +20,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import time
 
 import numpy as np
@@ -26,14 +30,14 @@ from ..bridge import save_checkpoint
 from ..core.policy import get_policy
 from ..device import resolve_device
 from ..kernels import dispatch as kd
-from ..models.task_zoo import make_task
+from ..models.task_zoo import TASKS, make_task
 from ..optim.train_state import batch_to_device, init_state, make_train_step
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--task", default="wikitext2", choices=("wikitext2",))
-    ap.add_argument("--full", action="store_true", help="paper-scale model (hidden 1024, vocab 33278)")
+    ap.add_argument("--task", default="wikitext2", choices=TASKS)
+    ap.add_argument("--full", action="store_true", help="the paper's width (Table III)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--policy", default="floatsd8_table6")
     ap.add_argument("--steps", type=int, default=300)
@@ -48,6 +52,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+def describe(model) -> str:
+    """The model's widths, from its fields."""
+    return ", ".join(f"{f.name} {getattr(model, f.name)}" for f in dataclasses.fields(model))
+
+
 def main(argv=None) -> dict:
     """Train; returns the per-step losses, finite flags and step times (s)
     and the final state."""
@@ -60,10 +69,11 @@ def main(argv=None) -> dict:
     state = init_state(params, opt, policy, dynamic_scale=args.dynamic_scale)
     step_fn = make_train_step(model.loss, opt, policy, lr=lr)
     first = next(data.batches)
-    tokens = first["tokens"].size
-    print(f"model: {args.task} vocab {model.vocab} (table {model._vp()}), {model.hidden} wide, "
-          f"{model.n_layers} layers, tied | policy {policy.name} | sgd lr {lr} | batch "
-          f"{first['tokens'].shape[0]} x seq {first['tokens'].shape[1]} | {device}", flush=True)
+    keys = data.token_keys
+    tokens = sum(first[k].size for k in keys)
+    shape = " + ".join(f"{k} {first[k].shape[0]} x {first[k].shape[1]}" for k in keys)
+    print(f"model: {args.task} {type(model).__name__} ({describe(model)}) | policy {policy.name} | "
+          f"{opt.name} lr {lr} | batch {shape} | {device}", flush=True)
 
     hist = collections.deque(maxlen=max(args.log_every, 1))
     out = {"losses": [], "finite": [], "step_s": [], "tokens_per_step": tokens}

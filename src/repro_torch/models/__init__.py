@@ -1,8 +1,8 @@
 from ..configs.base import ArchConfig
 from .lm import CausalLM
-from .lstm_models import WikiText2LM
+from .lstm_models import Multi30KSeq2Seq, SNLIClassifier, UDPOSTagger, WikiText2LM
 
-__all__ = ["CausalLM", "WikiText2LM", "build"]
+__all__ = ["CausalLM", "UDPOSTagger", "SNLIClassifier", "Multi30KSeq2Seq", "WikiText2LM", "build"]
 
 
 def build(cfg: ArchConfig):

@@ -1,16 +1,22 @@
 """TrainState and the train step: the paper's update pipeline.
 
-Counterpart of ``repro.optim.train_state`` on its fused path:
+Counterpart of ``repro.optim.train_state``, with its two gradient paths:
 
-  loss * scale -> backward through the fused quantized BPTT (FP8
-  activations and activation gradients inside the model, FP8 dW emitted by
-  the matmul_dw kernel) -> fp16 master gradients -> FP8 ``grad_quant``
-  (an exact no-op on the kernel-emitted leaves) -> unscale in f32, finite
-  check -> global-norm clip -> SGD in f32 -> f32 add into the FP16 master.
+  * **fused** (``fused=None`` resolves to it when ``policy.grad_quant ==
+    'fp8'``): loss * scale -> backward through the fused quantized BPTT
+    (FP8 activations and activation gradients inside the model, FP8 dW
+    emitted by the matmul_dw kernel) -> master gradients -> FP8
+    ``grad_quant`` (an exact no-op on the kernel-emitted leaves) -> unscale
+    in f32, finite check -> global-norm clip -> the optimizer in f32 -> f32
+    add into the master;
+  * **autodiff** (``fused=False``, or a policy that quantizes no gradient,
+    such as the FP32 baseline): plain autograd through the per-step cell,
+    the same tree pass doing all of the gradient quantization.
 
 Every cast is the reference's. A nonfinite step keeps the old parameters
-and optimizer state through ``torch.where`` on the device, and the loss
-scale is adjusted there too, so nothing in the step waits on the host.
+and optimizer state (its step count included) through ``torch.where`` on
+the device, and the loss scale is adjusted there too, so nothing in the
+step waits on the host.
 """
 from __future__ import annotations
 
@@ -52,16 +58,18 @@ def batch_to_device(batch: dict, device) -> dict:
 
 
 def make_train_step(loss_fn, opt: Optimizer, policy: Policy, lr: float = 1e-3,
-                    grad_clip: float | None = 1.0):
+                    grad_clip: float | None = 1.0, fused: bool | None = None):
     """loss_fn(params, batch, policy) -> scalar loss. Returns
     ``step(state, batch) -> (state, metrics)``, metrics holding the raw
     loss, ``grads_finite`` and the new ``loss_scale`` as device scalars.
 
-    A policy that quantizes gradients to FP8 runs the fused quantized BPTT,
-    as the reference's default does; the autodiff path it would otherwise
-    take is not ported."""
+    ``fused=None`` resolves to ``policy.grad_quant == 'fp8'``: such a
+    policy runs the fused quantized BPTT, as the reference's default does;
+    ``fused=False`` trains it through autodiff instead."""
+    if fused is None:
+        fused = policy.grad_quant == "fp8"
     run_policy = (policy.replace(grad_quant="fp8_kernel")
-                  if policy.grad_quant == "fp8" else policy)
+                  if fused and policy.grad_quant == "fp8" else policy)
 
     def step(state: TrainState, batch):
         params = tree_map(lambda p: p.detach().requires_grad_(), state.params)

@@ -75,7 +75,7 @@ from repro_torch.kernels.rwkv_wkv.ops import rwkv_wkv  # noqa: E402
 from repro_torch.kernels.rwkv_wkv.ref import wkv_ref  # noqa: E402
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_bwd_ref, lstm_cell_ref  # noqa: E402
 from repro_torch.models import WikiText2LM  # noqa: E402
-from repro_torch.nn.lstm import LSTMLayer  # noqa: E402
+from repro_torch.nn.lstm import BiLSTM, LSTMLayer  # noqa: E402
 from repro_torch.optim import sgd  # noqa: E402
 from repro_torch.optim.train_state import batch_to_device, init_state, make_train_step  # noqa: E402
 
@@ -388,6 +388,81 @@ def test_train_step_is_deterministic_on_card(dev):
     (l1, s1), (l2, s2) = run(), run()
     assert l1 == l2
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(s1.params), tree_leaves(s2.params)))
+
+
+def _engine_grads(dev, layer, p0, xs, lengths, backend):
+    pol = get_policy("floatsd8_table6").replace(grad_quant="fp8_kernel")
+    p = {k: v.clone().requires_grad_() for k, v in p0.items()}
+    with kd.use_backend(backend):
+        h, fin = layer.apply(p, xs, pol, lengths=lengths)
+        (h.square().sum() + fin.c.float().square().sum()).backward()
+    torch.cuda.synchronize()
+    return h.detach(), {k: v.grad.float() for k, v in p.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["reverse", "masked"])
+def test_engine_variants_at_b128_kernels_match_plain(dev, variant):
+    """The SNLI/Multi30K shape (B 128, K 300, H 300): every product of the
+    engine on the ordered route, so h is the plain path's bit for bit; the
+    gradients within the fused layer's bound (matmul_dw's f32 sum may
+    round an FP8 snap differently)."""
+    layer = LSTMLayer(300, 300, reverse=variant == "reverse")
+    p0 = {k: v.to(torch.float16) for k, v in layer.init(_gen(dev, 7)).items()}
+    xs = torch.randn((128, 5, 300), device=dev, generator=_gen(dev, 8))
+    lengths = (torch.arange(128, device=dev) % 6) if variant == "masked" else None
+    kd.STATS.reset()
+    h_k, g_k = _engine_grads(dev, layer, p0, xs, lengths, None)
+    assert kd.STATS.count(backend="ref") == 0 and kd.STATS.count("lstm_cell_grad", "cuda") == 5
+    h_r, g_r = _engine_grads(dev, layer, p0, xs, lengths, "ref")
+    assert torch.equal(h_k, h_r)
+    for k in g_k:
+        torch.testing.assert_close(g_k[k], g_r[k], rtol=2e-3, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_engine_forward_zs_equal_backward_recompute_at_b128_on_card(dev, monkeypatch):
+    fwd, bwd = [], []
+    cell, grad = kd.lstm_cell, kd.lstm_cell_grad
+    monkeypatch.setattr(kd, "lstm_cell", lambda z, c, **kw: (fwd.append(z.clone()), cell(z, c, **kw))[1])
+    monkeypatch.setattr(kd, "lstm_cell_grad", lambda z, *a, **kw: (bwd.append(z.clone()), grad(z, *a, **kw))[1])
+    layer = LSTMLayer(300, 300)
+    p = {k: v.to(torch.float16).requires_grad_() for k, v in layer.init(_gen(dev, 9)).items()}
+    xs = torch.randn((128, 4, 300), device=dev, generator=_gen(dev, 10))
+    h, fin = layer.apply(p, xs, get_policy("floatsd8_table6").replace(grad_quant="fp8_kernel"))
+    (h.square().sum() + fin.c.float().square().sum()).backward()
+    torch.cuda.synchronize()
+    assert len(fwd) == len(bwd) == 4
+    assert all(torch.equal(z, bwd[3 - t]) for t, z in enumerate(fwd))
+
+
+@pytest.mark.cuda
+def test_bilstm_launch_counts_on_card(dev):
+    bi = BiLSTM(48, 40)
+    p = {d: {k: v.to(torch.float16).requires_grad_() for k, v in leaves.items()}
+         for d, leaves in bi.init(_gen(dev, 11)).items()}
+    xs = torch.randn((6, 7, 48), device=dev, generator=_gen(dev, 12))
+    wrappers = (floatsd_matmul, matmul_dx, matmul_dw, lstm_cell, lstm_cell_grad)
+    for w in wrappers:
+        w.launches = 0
+    kd.STATS.reset()
+    h = bi.apply(p, xs, get_policy("floatsd8_table6").replace(grad_quant="fp8_kernel"))
+    h.float().square().sum().backward()
+    torch.cuda.synchronize()
+    s = xs.shape[1]
+    # two engines: each 2S + 2 matmuls, S cells and cell backwards, S + 1 dx, 2 dw
+    assert [w.launches for w in wrappers] == [2 * (2 * s + 2), 2 * (s + 1), 4, 2 * s, 2 * s]
+    assert kd.STATS.count(backend="ref") == 0 and h.shape == (6, 7, 80)
+
+
+@pytest.mark.cuda
+def test_optimizer_sqrt_on_card_is_correctly_rounded(dev):
+    """On the card ``_sqrt`` is torch's f32 sqrt, with no f64 round trip:
+    on every f32 in [1, 4) it equals the f64 sqrt rounded once to f32."""
+    from repro_torch.optim.optimizers import _sqrt
+
+    x = (torch.arange(2**24, dtype=torch.int32, device=dev) + (127 << 23)).view(torch.float32)
+    assert torch.equal(_sqrt(x), torch.sqrt(x.double()).float())
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """The port imports neither JAX nor the JAX package (``repro``): every
 module of ``repro_torch`` imports in a fresh interpreter where both are
-blocked, and no source of the port (nor ``chip_smoke.py``) names them in
-an import statement."""
+blocked, and no source of the port (nor ``chip_smoke.py``, nor a script of
+``benchmarks_torch/``) names them in an import statement."""
 import ast
 import os
 import subprocess
@@ -48,7 +48,8 @@ def _imported(path: Path) -> set[str]:
 
 
 def test_no_port_source_imports_jax_or_repro():
-    sources = [*(ROOT / "src" / "repro_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
+    sources = [*(ROOT / "src" / "repro_torch").rglob("*.py"), *(ROOT / "benchmarks_torch").glob("*.py"),
+               ROOT / "chip_smoke.py"]
     assert len(sources) > 30
     bad = {str(p.relative_to(ROOT)): _imported(p) & set(BLOCKED) for p in sources}
     assert not {k: v for k, v in bad.items() if v}

@@ -420,12 +420,18 @@ def test_training_forward_equals_inference_forward_bitwise():
 
 
 def test_untrainable_paths_raise():
+    """Packed weights serve only: a gradient that reaches a layer's outputs
+    computed from them raises (the reference's ``inference_only``). A
+    reverse layer refuses lengths, fused or not."""
     p = {k: torch.zeros(s, requires_grad=True) for k, s in [("wx", (4, 32)), ("wh", (8, 32)), ("b", (32,))]}
-    xs = torch.zeros((2, 3, 4))
-    with pytest.raises(NotImplementedError):  # autodiff through the per-step cell
-        TLayer(4, 8).apply(p, xs, TT6)
-    with pytest.raises(NotImplementedError):  # the lengths-masked fused scan
-        TLayer(4, 8).apply(p, xs, TT6.replace(grad_quant="fp8_kernel"), lengths=torch.ones(2))
+    xs = torch.zeros((2, 3, 4), requires_grad=True)
+    packed = {"wx": tkd.pack_train(p["wx"]), "wh": tkd.pack_train(p["wh"]), "b": p["b"].detach()}
+    h, st = TLayer(4, 8).apply(packed, xs, TT6)
+    with pytest.raises(TypeError, match="inference-only"):
+        (h.sum() + st.c.float().sum()).backward()
+    for pol in (TT6, TT6.replace(grad_quant="fp8_kernel")):
+        with pytest.raises(ValueError):
+            TLayer(4, 8, reverse=True).apply(p, xs, pol, lengths=torch.ones(2))
 
 
 # ---------------------------------------------------------------------------
@@ -583,8 +589,8 @@ def test_task_and_cli_on_cpu(tmp_path, capsys, monkeypatch):
     model, data, opt, lr, metric = make_task("wikitext2", full=True)
     assert (model.vocab, model._vp(), model.hidden, model.n_layers, lr) == (33278, 33280, 1024, 2, 0.5)
     assert next(data.batches)["tokens"].shape == (64, 48) and metric == "perplexity"
-    with pytest.raises(NotImplementedError):
-        make_task("snli")
+    with pytest.raises(ValueError):
+        make_task("nope")
     # a small task through the CLI: one step, a checkpoint, the closing lines
     monkeypatch.setattr(ttrain, "make_task", lambda name, full: (
         TLM(vocab=V, emb=W, hidden=W, n_layers=2), tsyn.wikitext2(batch=B, seq=S, vocab=V),
