@@ -50,10 +50,13 @@ def evaluate(model, params, data, policy, metric: str, device, n_batches: int = 
 
 
 def train_task(task: str, policy_name: str, steps: int = 200, seed: int = 0, full: bool = False,
-               device="cuda") -> dict:
+               device="cuda", policy_overrides: dict | None = None) -> dict:
+    """Train one (task, policy, seed) from its seeded init and evaluate it.
+    ``policy_overrides`` replaces fields of the named policy (Table V's
+    activation settings); the row's policy name then ends in ``*``."""
     dev = resolve_device(device)
     model, data, opt, lr, metric = make_task(task, full)
-    policy = get_policy(policy_name)
+    policy = get_policy(policy_name, **(policy_overrides or {}))
     params = model.init(torch.Generator(device=dev).manual_seed(seed))
     state = init_state(params, opt, policy)
     step_fn = make_train_step(model.loss, opt, policy, lr=lr)
@@ -64,7 +67,8 @@ def train_task(task: str, policy_name: str, steps: int = 200, seed: int = 0, ful
         losses.append(float(m["loss"]))
     train_s = time.time() - t0
     return {
-        "task": task, "policy": policy.name, "metric": metric,
+        "task": task, "policy": policy.name if not policy_overrides else f"{policy.name}*",
+        "metric": metric,
         "value": evaluate(model, state.params, data, policy, metric, dev),
         "loss_first10": float(np.mean(losses[:10])), "loss_last10": float(np.mean(losses[-10:])),
         "steps": steps, "train_s": round(train_s, 1),

@@ -75,11 +75,13 @@ Phases, in order; the first failure exits non-zero:
   7. train      the same full-width model trained through the training
                 CLI's entry point (`repro_torch.launch.train --full`: B 64,
                 S 48, sgd(0.9), lr 0.5, floatsd8_table6, static loss scale
-                1024) for a few steps from a seeded init. Counters and
+                1024, telemetry on as by default) for a few steps from a
+                seeded init. Counters and
                 dispatch records are zeroed before and read after: every
                 forward matmul, cell, cell backward, matmul_dx and matmul_dw
-                ran on its kernel, as often as the fused BPTT implies, none
-                on the plain path; every loss is finite and no step was
+                ran on its kernel, as often as the fused BPTT implies, and
+                telemetry's floatsd_quantize twice a weight matrix a step,
+                none on the plain path; every loss is finite and no step was
                 skipped. Then one more step under torch.profiler: device
                 time by kernel, and the device's busy share of a step; and
                 pack_train's cost a step: the host's waits at its four bias
@@ -100,6 +102,7 @@ Phases, in order; the first failure exits non-zero:
                 for bit. Each trains 5 steps through the training CLI
                 on the kernels: launches as the fused BPTT implies for its
                 engine calls (4, 4, 2 a step, reverse scans included),
+                floatsd_quantize twice a weight matrix a step (telemetry),
                 every dispatch record cuda, finite losses, no step
                 skipped; one more step profiled; 3 steps on
                 backend="ref" and 3 on the kernels again (losses within
@@ -115,7 +118,29 @@ Phases, in order; the first failure exits non-zero:
                 bias; dispatch.qsigmoid on a [64,4096] gate block (layer 0's
                 first-step pre-activations of 64 sequences), bit-identical
                 to the plain version; both on their kernels.
- 11. zoo        the model zoo's RWKV-6 (rwkv6_3b at its published width:
+ 11. runtime    the training runtime on the full-width LM (B 64 x S 48,
+                floatsd8_table6, seed 0): 3 steps in save-z mode and 3 in
+                remat mode from one init on the same batches (losses and
+                every master bit-identical; floatsd_matmul launches asserted
+                at 192 and 196 a step; warm step time, a profiled step's
+                device time, the zs residuals' 100,663,296 B from the shapes
+                and max_memory_allocated of each); the training CLI with
+                --steps 6 --save-every 3 --fail-at 4 into a fresh checkpoint
+                dir (must raise SimulatedFailure), relaunched without
+                --fail-at (must resume from step 3 and finish at 6, its
+                masters, optimizer state and loss scale bit for bit those of
+                one process fed batches 0-2 twice); a CLI run with telemetry
+                and the matmul_dw flush hook on (its JSONL record has the
+                reference's fields, every fraction in [0, 1]) beside one
+                without (warm step times, the launches telemetry adds: 2
+                floatsd_quantize per weight matrix a step; then the step
+                and the CLI's metrics handling, with and without, in
+                turns), and the step's
+                metrics["tel"] on the kernels equal to backend="ref"'s;
+                train_matmul and lstm_cell_train at the gate shapes against
+                their plain versions (forward and cell bit for bit, dx and
+                dw within the matmul_dx / matmul_dw bounds).
+ 12. zoo        the model zoo's RWKV-6 (rwkv6_3b at its published width:
                 32 layers, d_model 2560, 40 heads of 64, d_ff 8960, vocab
                 65536, tied, layernorm) from seed 0, packed to FloatSD8
                 (2,905,722,960 resident bytes, asserted) with the f32 tree
@@ -131,13 +156,13 @@ Phases, in order; the first failure exits non-zero:
                 policy); ServeEngine with 8 lanes and 8 requests (lockstep
                 one-token steps), 16 new tokens each. Counters are zeroed
                 before and read after each of the three.
- 12. zoo-x      the same path at full width and 2 layers on the kernels
+ 13. zoo-x      the same path at full width and 2 layers on the kernels
                 against backend="ref" on the card: prefill logits within the
                 stated tolerance with no activation quantizer (the served
                 policy's gap reported: FP8 flips cascade through the state),
                 greedy tokens of the engine equal over the plain path's
                 margin-decisive prefix.
- 13. dense      the zoo's dense family: h2o_danube3_4b at its published
+ 14. dense      the zoo's dense family: h2o_danube3_4b at its published
                 width (24 layers, d_model 3840, 32 heads of 120 over 8 KV
                 heads, d_ff 10240, vocab 32000, window 4096, rmsnorm,
                 SwiGLU, tied) from seed 0, after the RWKV trees are freed,
@@ -152,7 +177,7 @@ Phases, in order; the first failure exits non-zero:
                 policy); ServeEngine with 8 lanes, 8 requests, 16 new tokens
                 and a KV cache of 2048 positions (1,509,949,440 B,
                 asserted). Counters are zeroed before and read after each.
- 14. dense-x    the same path at full width and 2 layers on the kernels
+ 15. dense-x    the same path at full width and 2 layers on the kernels
                 against backend="ref" on the card: prefill logits within the
                 stated tolerance with no activation quantizer (the served
                 policy's gap reported), greedy tokens of the engine equal
@@ -901,6 +926,8 @@ def train_counts(calls: int, seq: int) -> dict:
 
 
 TRAIN_GROUPS = ("floatsd_matmul", "floatsd_matmul_dx", "floatsd_matmul_dw", "lstm_cell", "lstm_cell_grad")
+# and the kernel of the CLI's telemetry (on by default)
+TRAIN_OPS = (*TRAIN_GROUPS, "floatsd_quantize")
 
 
 def profile_step(torch, step_fn, state, batch, gemm="library GEMM (tied head)", require=None):
@@ -986,16 +1013,18 @@ def pack_train_cost(torch, step_fn, state, batch) -> dict:
 
 def train_phase(torch, smi):
     """Phases 7 and 8: the full-width model through the training CLI."""
+    from repro_torch._tree import tree_leaves
     from repro_torch.core.policy import get_policy
     from repro_torch.kernels import dispatch as kd
     from repro_torch.kernels.floatsd_matmul.ops import floatsd_matmul, matmul_dw, matmul_dx
+    from repro_torch.kernels.floatsd_quantize.ops import floatsd_quantize
     from repro_torch.kernels.lstm_cell.ops import lstm_cell, lstm_cell_grad
     from repro_torch.launch import train
     from repro_torch.models.task_zoo import make_task
     from repro_torch.optim.train_state import batch_to_device, init_state, make_train_step
 
-    wrappers = {"floatsd_matmul": floatsd_matmul, "floatsd_matmul_dx": matmul_dx,
-                "floatsd_matmul_dw": matmul_dw, "lstm_cell": lstm_cell, "lstm_cell_grad": lstm_cell_grad}
+    wrappers = dict(zip(TRAIN_OPS, (floatsd_matmul, matmul_dx, matmul_dw, lstm_cell, lstm_cell_grad,
+                                      floatsd_quantize)))
     kd.STATS.reset()
     for w in wrappers.values():
         w.launches = 0
@@ -1004,11 +1033,14 @@ def train_phase(torch, smi):
     stats = kd.STATS.snapshot()
     model, data, opt, lr, _ = make_task("wikitext2", full=True)
     batch = next(data.batches)
+    # the fused BPTT's kernels, and the CLI's telemetry (on by default): two
+    # quantizes of each weight matrix a step
+    mats = sum(p.ndim >= 2 for p in tree_leaves(out["state"].params))
     want = {op: TRAIN_STEPS * n
             for op, n in train_counts(model.n_layers, batch["tokens"].shape[1]).items()}
+    want["floatsd_quantize"] = TRAIN_STEPS * 2 * mats
     check(launches == want, f"train launches {launches} != expected {want}")
-    check(all(stats.get((op, "cuda"), 0) == n for op, n in want.items())
-          and sum(n for (_, b), n in stats.items() if b == "ref") == 0, f"train dispatch records {stats}")
+    check(stats == {(op, "cuda"): n for op, n in want.items()}, f"train dispatch records {stats}")
     check(all(math.isfinite(v) for v in out["losses"]), f"nonfinite train loss {out['losses']}")
     check(all(out["finite"]), f"a train step was skipped: grads_finite {out['finite']}")
     warm = out["step_s"][1:]
@@ -1200,9 +1232,11 @@ def tasks_phase(torch, smi):
     """Phase 9: UDPOS, SNLI and Multi30K at their paper widths through the
     training CLI on the kernels, each cross-checked against the plain
     versions, evaluated with no gradient, and one FP32 step on autodiff."""
+    from repro_torch._tree import tree_leaves
     from repro_torch.core.policy import get_policy
     from repro_torch.kernels import dispatch as kd
     from repro_torch.kernels.floatsd_matmul.ops import floatsd_matmul, matmul_dw, matmul_dx
+    from repro_torch.kernels.floatsd_quantize.ops import floatsd_quantize
     from repro_torch.kernels.lstm_cell.ops import lstm_cell, lstm_cell_grad
     from repro_torch.launch import train
     from repro_torch.models.task_zoo import make_task
@@ -1211,9 +1245,10 @@ def tasks_phase(torch, smi):
     n = recompute_check(torch, "cuda")
     print(f"tasks: the fused BPTT at B 128 x K 300 x H 300: the forward's {n} gate pre-activations equal the "
           f"backward's recompute bit for bit", flush=True)
-    wrappers = dict(zip(TRAIN_GROUPS, (floatsd_matmul, matmul_dx, matmul_dw, lstm_cell, lstm_cell_grad)))
+    wrappers = dict(zip(TRAIN_OPS, (floatsd_matmul, matmul_dx, matmul_dw, lstm_cell, lstm_cell_grad,
+                                      floatsd_quantize)))
     policy = get_policy("floatsd8_table6")
-    total = {op: 0 for op in TRAIN_GROUPS}
+    total = {op: 0 for op in TRAIN_OPS}
     out = {}
     for name in TASK_NAMES:
         t0 = time.perf_counter()
@@ -1227,7 +1262,11 @@ def tasks_phase(torch, smi):
         run = train.main([*args, "--steps", str(TASK_STEPS)])
         launches = {op: w.launches for op, w in wrappers.items()}
         stats = kd.STATS.snapshot()
+        # the fused BPTT's kernels, and the CLI's telemetry (on by default):
+        # two quantizes of each weight matrix a step
+        mats = sum(p.ndim >= 2 for p in tree_leaves(run["state"].params))
         want = {op: TASK_STEPS * n for op, n in train_counts(calls, s).items()}
+        want["floatsd_quantize"] = TASK_STEPS * 2 * mats
         check(launches == want, f"{name}: launches {launches} != expected {want}")
         check(stats == {(op, "cuda"): n for op, n in want.items()}, f"{name}: dispatch records {stats}")
         check(all(math.isfinite(v) for v in run["losses"]) and all(run["finite"]),
@@ -1285,7 +1324,8 @@ def tasks_phase(torch, smi):
         # the FP32 baseline: one step through autodiff, no kernel of the engine
         kd.STATS.reset()
         fp32 = train.main([*args, "--steps", "1", "--policy", "fp32"])
-        check(math.isfinite(fp32["losses"][0]) and fp32["finite"] == [True] and kd.STATS.count() == 0,
+        check(math.isfinite(fp32["losses"][0]) and fp32["finite"] == [True]
+              and kd.STATS.count() == kd.STATS.count("floatsd_quantize"),
               f"{name}: fp32 step loss {fp32['losses']}, dispatch {kd.STATS.snapshot()}")
         print(f"tasks: {name} eval {metric} over {TASK_EVAL_BATCHES} batches {vals} (no gradient; "
               f"{sum(ev.values())} lstm_cell launches); fp32 step on autodiff loss {fp32['losses'][0]:.4f}; "
@@ -1470,6 +1510,245 @@ def entry_phase(torch, params, batch):
           f"({', '.join(f'{m}/{n} {list(w.shape)}' for m, n, w in masters)}): codes and biases equal pack_tree's; "
           f"dispatch.qsigmoid on gate block [64,4096]: 0 differ from the plain version; launches {launches}; "
           f"dispatch {dict((f'{o}/{b}', n) for (o, b), n in stats.items())}", flush=True)
+    return dict(launches=launches)
+
+
+# the training runtime (phase 11): the full-width LM (B 64 x S 48,
+# floatsd8_table6, sgd(0.9), lr 0.5, seed 0)
+RUNTIME_STEPS = 3  # steps of each residual mode from one init
+TEL_TURNS = 8  # steps with and without telemetry, in turns
+ZS_BYTES = 100_663_296  # save-z's residuals: 2 layers x S 48 x B 64 x 4H 4096 x 4 B
+
+
+def same_state(a, b, what: str) -> None:
+    """Two TrainStates' masters, optimizer state and loss scale bit for bit."""
+    from repro_torch.distributed.checkpointing import flatten
+
+    fa, fb = flatten(a), flatten(b)
+    check(fa.keys() == fb.keys(), f"{what}: the states' keys differ")
+    diff = [k for k in fa if fa[k].dtype != fb[k].dtype or fa[k].tobytes() != fb[k].tobytes()]
+    check(not diff, f"{what}: not bit-identical at {diff}")
+
+
+def runtime_phase(torch, smi):
+    """Phase 11: save-z against remat, a crash and its resume through the
+    training CLI, telemetry on the kernels against the plain path, and the
+    training ops against their plain versions."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch._tree import tree_leaves
+    from repro_torch.core.fp8 import quantize_fp8
+    from repro_torch.core.policy import get_policy
+    from repro_torch.distributed.fault_tolerance import SimulatedFailure
+    from repro_torch.kernels import dispatch as kd
+    from repro_torch.kernels.floatsd_matmul.ops import floatsd_matmul, matmul_dw, matmul_dx
+    from repro_torch.kernels.floatsd_quantize.ops import floatsd_quantize
+    from repro_torch.kernels.lstm_cell.ops import lstm_cell, lstm_cell_grad
+    from repro_torch.launch import train
+    from repro_torch.models.task_zoo import make_task
+    from repro_torch.nn import lstm
+    from repro_torch.obs import telemetry
+    from repro_torch.optim.train_state import batch_to_device, init_state, make_train_step
+
+    t_phase = time.perf_counter()
+    wrappers = dict(zip(TRAIN_OPS, (floatsd_matmul, matmul_dx, matmul_dw, lstm_cell, lstm_cell_grad,
+                                      floatsd_quantize)))
+    policy = get_policy("floatsd8_table6")
+    model, data, opt, lr, _ = make_task("wikitext2", full=True)
+    host = [next(data.batches) for _ in range(RUNTIME_STEPS)]
+    batches = [batch_to_device(b, "cuda") for b in host]
+    (b, s), h = host[0]["tokens"].shape, model.hidden
+    zs_bytes = model.n_layers * s * b * 4 * h * 4
+    check(zs_bytes == ZS_BYTES, f"save-z residuals {zs_bytes} B from the shapes, not {ZS_BYTES}")
+
+    def init():
+        return init_state(model.init(torch.Generator(device="cuda").manual_seed(SEED)), opt, policy)
+
+    # save-z against remat: the same init and batches, each mode its own run
+    step_fn = make_train_step(model.loss, opt, policy, lr=lr)
+    modes, old = {}, lstm.BPTT_REMAT
+    try:
+        for remat in (True, False):
+            lstm.BPTT_REMAT = remat
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()  # what the other mode's run still holds
+            torch.cuda.reset_peak_memory_stats()
+            state = init()
+            n0, losses, times = floatsd_matmul.launches, [], []
+            for batch in batches:
+                t0 = time.perf_counter()
+                state, m = step_fn(state, batch)
+                losses.append(float(m["loss"]))
+                times.append(time.perf_counter() - t0)
+            mm = (floatsd_matmul.launches - n0) / RUNTIME_STEPS
+            peak = torch.cuda.max_memory_allocated() - base
+            groups, wall = profile_step(torch, step_fn, state, batches[0], require=TRAIN_GROUPS)
+            modes[remat] = dict(state=state, losses=losses, step_ms=statistics.median(times[1:]) * 1e3, mm=mm,
+                                peak=peak, busy_ms=sum(ms for ms, _ in groups.values()), wall_ms=wall,
+                                mm_ms=groups["floatsd_matmul"][0])
+    finally:
+        lstm.BPTT_REMAT = old
+    want_mm = {True: model.n_layers * (2 * s + 2), False: model.n_layers * 2 * s}
+    for remat, r in modes.items():
+        check(r["mm"] == want_mm[remat] == (196 if remat else 192),
+              f"{'remat' if remat else 'save-z'}: {r['mm']} floatsd_matmul launches a step, not {want_mm[remat]}")
+    check(modes[False]["losses"] == modes[True]["losses"],
+          f"save-z losses {modes[False]['losses']} != remat {modes[True]['losses']}")
+    same_state(modes[False]["state"], modes[True]["state"], "save-z vs remat masters")
+    r, z = modes[True], modes[False]
+    print(f"runtime: save-z vs remat, {RUNTIME_STEPS} steps each from seed {SEED}: losses and every master, "
+          f"optimizer buffer and scale bit-identical; floatsd_matmul {r['mm']:.0f} / {z['mm']:.0f} launches a step; "
+          f"warm step {r['step_ms']:.2f} / {z['step_ms']:.2f} ms; profiled step device busy {r['busy_ms']:.2f} / "
+          f"{z['busy_ms']:.2f} ms of {r['wall_ms']:.2f} / {z['wall_ms']:.2f} ms wall, floatsd_matmul "
+          f"{r['mm_ms']:.3f} / {z['mm_ms']:.3f} ms; zs residuals {ZS_BYTES:,} B (from the shapes); "
+          f"max_memory_allocated over the run's start {r['peak']:,} / {z['peak']:,} B (difference "
+          f"{z['peak'] - r['peak']:,}) ({smi})",
+          flush=True)
+    del modes, r, z
+
+    # a crash at step 4 and the relaunch, through the CLI
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckdir = tempfile.mkdtemp(prefix="runtime_ckpt_", dir=ROOT / "build")
+    try:
+        args = [*TRAIN_ARGS, "--steps", "6", "--save-every", "3", "--log-every", "3", "--ckpt-dir", ckdir]
+        try:
+            train.main([*args, "--fail-at", "4"])
+            check(False, "--fail-at 4 did not raise SimulatedFailure")
+        except SimulatedFailure as e:
+            print(f"runtime: the first launch raised SimulatedFailure ({e})", flush=True)
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            out = train.main(args)
+        print(log.getvalue(), end="", flush=True)
+        check("resumed from step 3" in log.getvalue() and out["start_step"] == 3 and int(out["state"].step) == 6,
+              f"the relaunch did not resume from step 3 and finish at 6: start {out['start_step']}, "
+              f"step {int(out['state'].step)}")
+        state = init()
+        step_tel = make_train_step(model.loss, opt, policy, lr=lr, telemetry=True)  # the CLI's step
+        for batch in batches + batches:  # the relaunch's fresh stream replays batches 0-2
+            state, _ = step_tel(state, batch)
+        same_state(out["state"], state, "resumed run vs one process")
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    print("runtime: resume: --fail-at 4 raised, the relaunch resumed from step 3 and finished at 6; its masters, "
+          "optimizer state and loss scale equal one process fed batches 0-2, 0-2 bit for bit", flush=True)
+
+    # telemetry: one CLI run with it (and the matmul_dw hook) on, one without
+    tel_path = ROOT / "build" / "runtime_telemetry.jsonl"
+    tel_path.unlink(missing_ok=True)
+    runs, counts = {}, {}
+    telemetry.KERNEL_STATS.reset()
+    for on in (False, True):
+        kd.STATS.reset()
+        for w in wrappers.values():
+            w.launches = 0
+        if on:
+            telemetry.KERNEL_STATS.enable()
+        try:
+            runs[on] = train.main([*TRAIN_ARGS, "--steps", "4", "--log-every", "4"]
+                                  + (["--telemetry-out", str(tel_path)] if on else ["--no-telemetry"]))
+        finally:
+            telemetry.KERNEL_STATS.disable()
+        counts[on] = {op: w.launches for op, w in wrappers.items()}
+        check(all(n == 0 for (_, be), n in kd.STATS.snapshot().items() if be == "ref"),
+              f"telemetry run: a plain-path dispatch {kd.STATS.snapshot()}")
+    check(runs[True]["losses"] == runs[False]["losses"], "telemetry changed the losses")
+    [rec] = [json.loads(x) for x in tel_path.read_text().splitlines()]
+    tel_path.unlink()
+    fields = ["step", "window_steps", "loss_mean", "loss_scale", "scale_ups", "scale_downs", "nonfinite_steps",
+              "fp8_sat_frac", "fp8_underflow_frac", "fp8_zero_frac", "sd_carry_frac", "sd_clamp_frac",
+              "grad_norms", "kernel"]
+    check(list(rec) == fields, f"telemetry record fields {list(rec)}")
+    fracs = {k: rec[k] for k in fields if k.endswith("_frac")}
+    kern = rec["kernel"].get("floatsd_matmul_dw", {})
+    check(all(0.0 <= v <= 1.0 for v in fracs.values()) and rec["window_steps"] == 4
+          and kern.get("calls") == 4 * 2 * model.n_layers and 0.0 <= kern.get("zero_frac", -1) <= 1.0,
+          f"telemetry record {rec}")
+    n_mats = sum(p.ndim >= 2 for p in tree_leaves(state.params))
+    added = {op: (counts[True][op] - counts[False][op]) / 4 for op in TRAIN_OPS}
+    check(added["floatsd_quantize"] == 2 * n_mats and added["floatsd_matmul_dw"] == 0,
+          f"telemetry's launches a step {added}")
+    t_on, t_off = (statistics.median(runs[on]["step_s"][1:]) * 1e3 for on in (True, False))
+    # the step with and without telemetry in turns on one state (the CLI's few
+    # steps above each sit in the host's spread), each followed by the CLI's
+    # own handling of its metrics (the loss read, and telemetry's copy of its
+    # scalars to the host), and one profiled step of each
+    step_fns = {False: make_train_step(model.loss, opt, policy, lr=lr), True: step_tel}
+    sinks = {on: train.metrics_sink({"losses": [], "finite": []}, telemetry.TelemetryLogger() if on else None,
+                                    log_every=10**9, n_steps=0) for on in (False, True)}
+    turns, prof = {False: [], True: []}, {}
+    for i in range(TEL_TURNS):
+        for on in ((False, True) if i % 2 == 0 else (True, False)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, m = step_fns[on](runs[True]["state"], batches[i % RUNTIME_STEPS])
+            sinks[on](i + 1, m)
+            turns[on].append((time.perf_counter() - t0) * 1e3)
+    for on in (False, True):
+        groups, wall = profile_step(torch, step_fns[on], runs[True]["state"], batches[0], require=TRAIN_GROUPS)
+        prof[on] = (sum(ms for ms, _ in groups.values()), sum(n for _, n in groups.values()), wall)
+    t_turn = {on: statistics.median(v[1:]) for on, v in turns.items()}
+    # the kernels' telemetry against the plain path's, on one state and batch
+    tel = {}
+    for backend in (None, "ref"):
+        with kd.use_backend(backend):
+            tel[backend] = step_tel(runs[True]["state"], batches[0])[1]["tel"]
+    for k in fracs:
+        check(float(tel[None][k]) == float(tel["ref"][k]), f"telemetry {k}: kernels {float(tel[None][k])} vs "
+              f"plain {float(tel['ref'][k])}")
+    for k, v in tel["ref"]["grad_norm"].items():
+        check(float(tel[None]["grad_norm"][k]) == float(v), f"telemetry grad_norm {k} differs")
+    print(f"runtime: telemetry: the record's fields are the reference's, fractions {fracs}, matmul_dw hook "
+          f"{kern}; warm step {t_on:.2f} ms with it, {t_off:.2f} ms without (the CLI's 3 warm steps); the step "
+          f"and the CLI's metrics handling in {TEL_TURNS} turns each {t_turn[True]:.2f} / {t_turn[False]:.2f} ms "
+          f"(medians, the first left out), "
+          f"profiled device busy {prof[True][0]:.2f} / {prof[False][0]:.2f} ms in {prof[True][1]} / {prof[False][1]} "
+          f"device operations, {prof[True][2]:.2f} / {prof[False][2]:.2f} ms wall ({smi}); launches a step it adds "
+          f"{added}; metrics['tel'] on the kernels equals the plain path's (backend='ref') on the same state and batch "
+          f"({ {k: float(v) for k, v in tel[None].items() if k != 'grad_norm'} })", flush=True)
+    launches = counts[True]
+
+    # the training ops at the LM's gate shapes, against their plain versions
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    x = quantize_fp8(torch.randn((b, 1024), device="cuda", generator=g))
+    w = (torch.randn((1024, 4 * h), device="cuda", generator=g) * 0.03).to(torch.float16).requires_grad_()
+    mm = {}
+    for backend in (None, "ref"):
+        xr = x.clone().requires_grad_()
+        w.grad = None
+        with kd.use_backend(backend):
+            y = kd.train_matmul(xr, w, kd.hoist_train(w))
+        (y * 1e-2).square().sum().backward()
+        mm[backend] = (y.detach(), xr.grad, w.grad.clone())
+    torch.cuda.synchronize()
+    check(torch.equal(mm[None][0], mm["ref"][0]), "train_matmul forward (route A, FP8 x) not bit-identical")
+    wd = kd.hoist_train(w.detach(), backend="ref").dense
+    gy = 2e-4 * mm["ref"][0]
+    dx_err = (mm[None][1].double() - mm["ref"][1].double()).abs()
+    check(bool((dx_err <= 1e-5 * (gy.double().abs() @ wd.double().abs().t()) + 1e-30).all()),
+          "train_matmul dx exceeds 1e-5")
+    dw_off = int((mm[None][2] != mm["ref"][2]).sum())
+    dw_step = torch.exp2(torch.floor(torch.log2(mm["ref"][2].float().abs().clamp(min=2.0**-14))) - 2)
+    check(dw_off <= 1e-3 * w.numel() and bool(((mm[None][2].float() - mm["ref"][2].float()).abs()
+                                                 <= dw_step).all()), f"train_matmul dw: {dw_off} differ")
+    zc = torch.randn((b, 4 * h), device="cuda", generator=g) * 2
+    c = torch.randn((b, h), device="cuda", generator=g).to(torch.float16)
+    a1, a2 = torch.randn((2, b, h), device="cuda", generator=g)
+    cell = {}
+    for backend in (None, "ref"):
+        zr, cr = zc.clone().requires_grad_(), c.clone().requires_grad_()
+        hh, c2 = kd.lstm_cell_train(zr, cr, backend=backend)
+        ((hh * a1).sum() + (c2.float() * a2).sum()).backward()
+        cell[backend] = (hh.detach(), c2.detach(), zr.grad, cr.grad)
+    torch.cuda.synchronize()
+    check(all(torch.equal(p, q) for p, q in zip(cell[None], cell["ref"])), "lstm_cell_train not bit-identical")
+    print(f"runtime: train_matmul [{b},1024] x [1024,{4 * h}] fp16 master: forward bit-identical (route A), dx "
+          f"within 1e-5 ({int((dx_err > 0).sum())} of {dx_err.numel()} not bit-identical), dw {dw_off} of "
+          f"{w.numel()} one e5m2 step apart; lstm_cell_train z [{b},{4 * h}], c [{b},{h}] fp16: h, c, dz, dc_prev "
+          f"bit-identical; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     return dict(launches=launches)
 
 
@@ -1722,7 +2001,7 @@ def zoo_serve(torch, model, tree, policy, prompts, backend=None, cache_len=None)
 
 
 def zoo_phase(torch, dev, smi):
-    """Phase 11: full-width rwkv6_3b, packed, prefilled, decoded and served."""
+    """Phase 12: full-width rwkv6_3b, packed, prefilled, decoded and served."""
     import numpy as np
 
     from repro_torch.core.policy import get_policy
@@ -1852,7 +2131,7 @@ def zoo_phase(torch, dev, smi):
 
 
 def zoo_x_phase(torch, dev, smi):
-    """Phase 12: the zoo's path at full width and ZOO_X_LAYERS layers on
+    """Phase 13: the zoo's path at full width and ZOO_X_LAYERS layers on
     the kernels against backend="ref" (the plain versions) on the card."""
     import numpy as np
 
@@ -2100,7 +2379,7 @@ def profile_prefill(torch, model, tree, toks, policy):
 
 
 def dense_phase(torch, dev, smi):
-    """Phase 13: full-width h2o_danube3_4b, packed, prefilled, decoded and
+    """Phase 14: full-width h2o_danube3_4b, packed, prefilled, decoded and
     served."""
     import numpy as np
 
@@ -2218,7 +2497,7 @@ def dense_phase(torch, dev, smi):
 
 
 def dense_x_phase(torch, dev, smi):
-    """Phase 14: the dense path at full width and DENSE_X_LAYERS layers on
+    """Phase 15: the dense path at full width and DENSE_X_LAYERS layers on
     the kernels against backend="ref" (the plain versions) on the card."""
     import numpy as np
 
@@ -2383,12 +2662,15 @@ def main() -> int:
     ent = entry_phase(torch, tr["params"], tr["batch"])
     del tr
 
-    # 11-12. the model zoo: rwkv6_3b at full width, then its kernel-vs-plain cross-check
+    # 11. the training runtime: save-z, resume, telemetry, the training ops
+    rt = runtime_phase(torch, smi)
+
+    # 12-13. the model zoo: rwkv6_3b at full width, then its kernel-vs-plain cross-check
     torch.cuda.empty_cache()
     zoo = zoo_phase(torch, dev, smi)
     zoo_x_phase(torch, dev, smi)
 
-    # 13-14. the dense family: h2o_danube3_4b at full width (the RWKV trees
+    # 14-15. the dense family: h2o_danube3_4b at full width (the RWKV trees
     # are freed), then its kernel-vs-plain cross-check
     torch.cuda.empty_cache()
     dense = dense_phase(torch, dev, smi)
@@ -2425,7 +2707,9 @@ def main() -> int:
          "(transposed mode)", None, None),
         ("floatsd_quantize", "floatsd_quantize/floatsd_quantize.cu", "floatsd_quantize/kernel.py:32",
          quant.values(), [(1, quant["table16"]), (2 * L, quant["weight16"])],
-         "entry: dispatch.quantize on the 5 trained fp16 masters, [33280,1024] + 4 x [1024,4096]", None, None),
+         "entry: dispatch.quantize on the 5 trained fp16 masters, [33280,1024] + 4 x [1024,4096]",
+         [(2, quant["table16"]), (2 * 2 * L, quant["weight16"])],
+         "train step's telemetry: 2 x ([33280,1024] + 4 x [1024,4096]) fp16, the old and new masters"),
         ("qsigmoid", "qsigmoid/qsigmoid.cu", "qsigmoid/kernel.py:28", qsig.values(),
          [(1, qsig[(64, 4096)])], "entry: dispatch.qsigmoid on a [64,4096] f32 gate block", None, None),
         ("rwkv_wkv", "rwkv_wkv/rwkv_wkv.cu", "rwkv_wkv/kernel.py:27", wkv.values(),
@@ -2437,7 +2721,8 @@ def main() -> int:
          "enable_gqa=True)", None, None),
     ]
     paths = {"serve": launches, "train": tr_launches, "tasks": tasks["launches"], "serve4": s4["launches"],
-             "entry": ent["launches"], "zoo": zoo["launches"], "dense": dense["launches"]}
+             "entry": ent["launches"], "runtime": rt["launches"], "zoo": zoo["launches"],
+             "dense": dense["launches"]}
     # the zoo prefill's share of the kernels it shares with the LSTM paths
     zoo_prefill = {
         "floatsd_matmul": ([(6 * ZL, zmm[("dd", ZOO_B * ZOO_S)]), (ZL, zmm[("cmix-k", ZOO_B * ZOO_S)]),
@@ -2473,6 +2758,9 @@ def main() -> int:
                 for key, r in task_rows.items() if key[0] == name and "route_b_ms" in r]
         if train_parts and parts is not train_parts:
             rec["train_step"] = {**composite(train_parts), "per": train_per}
+        if name == "floatsd_matmul":
+            rec["train_step_save_z"] = {**composite(train_mm[:1]),
+                                        "per": "train step, --save-z: 192 x [64,1024]@[1024,4096]"}
         if name in zoo_prefill:
             z_parts, z_per = zoo_prefill[name]
             rec["zoo_prefill"] = {**composite(z_parts), "per": z_per}

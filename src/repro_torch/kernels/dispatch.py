@@ -3,7 +3,8 @@ plain PyTorch version.
 
 Counterpart of ``repro.kernels.dispatch``: the serving ops over FloatSD8
 (``PackedTensor``) and FloatSD4 (``PackedTensor4``) weights, the backward
-ops and weight hoists of the fused quantized-BPTT training path, and the
+ops, weight hoists and training wrappers (``train_matmul``,
+``lstm_cell_train``) of the fused quantized-BPTT training path, and the
 element-wise ``quantize`` and ``qsigmoid`` entry points, the chunked
 RWKV-6 ``rwkv_wkv`` of the model zoo's prefill, and the dense family's
 ``flash_attention``. The resolver
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from ..core import floatsd, floatsd4
+from ..obs import telemetry as obs_telemetry
 from .flash_attention import ops as fa_ops
 from .flash_attention.ref import flash_attention_gqa
 from .floatsd4_matmul import ops as fm4_ops
@@ -46,7 +48,8 @@ __all__ = [
     "BACKENDS", "ZERO_CODE", "PackedTensor", "is_packed", "Decision",
     "DispatchStats", "STATS", "use_backend", "matmul", "lstm_cell",
     "packed_einsum", "hoist_packed", "matmul_dx", "matmul_dw", "lstm_cell_grad",
-    "pack_train", "hoist_train", "inference_only", "PackedTensor4", "is_packed4", "is_any_packed", "pack4",
+    "pack_train", "hoist_train", "train_matmul", "lstm_cell_train", "inference_only",
+    "PackedTensor4", "is_packed4", "is_any_packed", "pack4",
     "unpack4", "matmul4", "quantize", "qsigmoid", "rwkv_wkv", "flash_attention",
 ]
 
@@ -315,6 +318,20 @@ def matmul_dw(x: torch.Tensor, g: torch.Tensor, *, quant: bool = True,
     else:
         dw = fm_ops.matmul_dw(x2, g2, quant=quant)
     STATS.record(dec)
+    return _dw_flush_telemetry(dw, quant)
+
+
+def _dw_flush_telemetry(dw: torch.Tensor, quant: bool) -> torch.Tensor:
+    """The quantizer-health hook at matmul_dw's flush: while
+    ``obs.telemetry.KERNEL_STATS`` is enabled, count the snapped dW's
+    saturated values (|dw| at the e5m2 clamp) and zeros (true zeros and
+    underflows, which the snap has made zeros) in torch ops on dw's device.
+    The sink keeps the counts there until ``snapshot()``, so no step waits
+    on the host."""
+    if quant and obs_telemetry.KERNEL_STATS.enabled:
+        obs_telemetry.KERNEL_STATS.record(
+            "floatsd_matmul_dw", dw.numel(),
+            (dw.abs() >= obs_telemetry.FP8_SAT_THRESHOLD).sum(), (dw == 0).sum())
     return dw
 
 
@@ -367,6 +384,85 @@ def hoist_train(w: torch.Tensor, *, backend: str | None = None) -> PackedTensor:
     ``hoist_packed``: the packed codes, plus their decode in ``dense`` when
     the plain versions will run (so neither scan decodes per step)."""
     return hoist_packed(pack_train(w), backend=backend)
+
+
+class _TrainMatmulPacked(torch.autograd.Function):
+    """x @ decode(codes) with the fused backward: dx = matmul_dx in f32 (in
+    x's dtype), dw = matmul_dw with its FP8 snap at the flush, cast to the
+    master's dtype and passed straight through to the master ``w``."""
+
+    @staticmethod
+    def forward(ctx, x, w, wq, backend):
+        ctx.save_for_backward(x)
+        ctx.wq, ctx.w_dtype, ctx.backend = wq, w.dtype, backend
+        return matmul(x, wq.codes, wq.bias, dense=wq.dense, backend=backend)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        wq, backend = ctx.wq, ctx.backend
+        dx = matmul_dx(g, wq.codes, wq.bias, dense=wq.dense, backend=backend).to(x.dtype)
+        dw = matmul_dw(x, g, backend=backend).to(ctx.w_dtype)
+        return dx, dw, None, None
+
+
+class _TrainMatmulDense(torch.autograd.Function):
+    """The dense hoist's twin (the reference's ref-backend path): x @ wq as a
+    plain f32 product; dx likewise, dw through the FP8 oracle (the plain
+    ``matmul_dw``), both in their primal's dtype. dw goes to ``wq`` (the
+    caller's straight-through node on the master)."""
+
+    @staticmethod
+    def forward(ctx, x, wq):
+        ctx.save_for_backward(x, wq)
+        return torch.matmul(x.to(torch.float32), wq.to(torch.float32))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wq = ctx.saved_tensors
+        STATS.record(Decision("floatsd_matmul_dx", "ref", "train:hoisted-dense"))
+        dx = torch.matmul(g, wq.to(torch.float32).t()).to(x.dtype)
+        return dx, matmul_dw(x, g, backend="ref").to(wq.dtype)
+
+
+def train_matmul(x: torch.Tensor, w: torch.Tensor, wq, *, backend: str | None = None) -> torch.Tensor:
+    """The training path's matmul: x [..., K] @ quantized(w) -> [..., N] f32
+    with the fused backward. ``w`` is the dense master the FP8 dW flows to;
+    ``wq`` its hoist: a ``PackedTensor`` from ``hoist_train`` (the forward
+    and dx on the codes, dw from matmul_dw with its in-kernel FP8 snap), or
+    a dense quantized value (a plain f32 product, dw through the FP8
+    oracle, to ``wq``; ``w`` is then unused)."""
+    _check(backend)
+    if is_packed(wq):
+        return _TrainMatmulPacked.apply(x, w, wq, backend)
+    STATS.record(Decision("floatsd_matmul", "ref", "train:hoisted-dense"))
+    return _TrainMatmulDense.apply(x, wq)
+
+
+class _LSTMCellTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, z, c_prev, quantized, c_dtype, backend):
+        ctx.save_for_backward(z, c_prev)  # the only residuals: the gates are recomputed
+        ctx.cfg = (quantized, c_dtype, backend)
+        return lstm_cell(z, c_prev, quantized=quantized, c_dtype=c_dtype, backend=backend)
+
+    @staticmethod
+    def backward(ctx, dh, dc):
+        z, c_prev = ctx.saved_tensors
+        quantized, c_dtype, backend = ctx.cfg
+        dz, dc_prev = lstm_cell_grad(z, c_prev, dh, dc, quantized=quantized, c_dtype=c_dtype,
+                                     backend=backend)
+        return dz.to(z.dtype), dc_prev.to(c_prev.dtype), None, None, None
+
+
+def lstm_cell_train(z: torch.Tensor, c_prev: torch.Tensor, *, quantized: bool = True,
+                    c_dtype=torch.float16, backend: str | None = None):
+    """The fused cell with the recompute-gates backward, the training twin of
+    ``lstm_cell``: the same forward (the same dispatched op); the backward
+    is ``lstm_cell_grad``, saving only (z, c_prev) where autodiff keeps
+    every gate."""
+    _check(backend)
+    return _LSTMCellTrain.apply(z, c_prev, quantized, c_dtype, backend)
 
 
 # ---------------------------------------------------------------------------

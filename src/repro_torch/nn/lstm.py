@@ -5,8 +5,8 @@ or reverse, with an optional lengths mask) and ``BiLSTM``. A layer runs one
 of three paths, as the reference does:
 
 - the fused quantized BPTT (``_LSTMBPTT``, the reference's
-  ``_make_lstm_bptt`` in its default remat mode) when the train step's
-  policy asks for it (``grad_quant == "fp8_kernel"``). Per time step: two
+  ``_make_lstm_bptt``, in remat or save-z mode by ``BPTT_REMAT``) when the
+  train step's policy asks for it (``grad_quant == "fp8_kernel"``). Per time step: two
   FloatSD8 x FP8 gate matmuls through the dispatched ``floatsd_matmul``
   and one fused ``lstm_cell`` (two-region sigmoid, FP8 tanh, FP16 cell
   state); a hand-written backward on ``lstm_cell_grad``, ``matmul_dx`` and
@@ -33,7 +33,17 @@ from ..kernels import dispatch as kd
 from .linear import policy_einsum, quant_act, quant_weight
 from .module import uniform_init
 
-__all__ = ["LSTMCell", "LSTMLayer", "BiLSTM", "LSTMState"]
+__all__ = ["LSTMCell", "LSTMLayer", "BiLSTM", "LSTMState", "BPTT_REMAT"]
+
+# The fused BPTT's residual mode, read at every engine call (the reference
+# reads it from REPRO_BPTT_REMAT once; the port reads no environment
+# variable: the training CLI's --save-z sets it to False). True (remat, the
+# default): the backward recomputes all of zs as one batched GEMM pair over
+# the saved h trajectory. False (save-z): the forward saves its per-step zs
+# [S, B, 4H] f32 instead, S * B * 4H * 4 bytes more residuals and two
+# matmul launches fewer per engine call. Every product of the engine sums in
+# the ordered route, so both modes give the same gradients bit for bit.
+BPTT_REMAT = True
 
 
 class LSTMState(NamedTuple):
@@ -109,11 +119,12 @@ class _LSTMBPTT(torch.autograd.Function):
     time order for a ``reverse`` layer; with ``lens`` [B], lane b's carried
     state freezes once t >= lens[b], the emitted rows staying the raw cell
     outputs), saving only xs, h0, c0, b, the cell-state trajectory cs_prev
-    [S, B, H], hs [S, B, H] and, under the mask, the entry states hs_prev
-    (the frozen carry is not recoverable from hs). The codes ride on ctx.
+    [S, B, H], hs [S, B, H], under the mask the entry states hs_prev
+    (the frozen carry is not recoverable from hs), and without ``remat``
+    the per-step zs [S, B, 4H]. The codes ride on ctx.
     Backward: Q(h) of every step's entry state in one pass, all of zs
-    recomputed as one GEMM pair over S*B rows, one scan against the
-    forward's order of ``lstm_cell_grad`` + the ``matmul_dx`` recurrence +
+    recomputed as one GEMM pair over S*B rows (or the saved zs), one scan
+    against the forward's order of ``lstm_cell_grad`` + the ``matmul_dx`` recurrence +
     FP8 gradient quantization (a frozen lane passes dh and dc through),
     then dWx and dWh as one ``matmul_dw`` each (FP8 at the kernel's flush),
     dXs as one ``matmul_dx``, and db.
@@ -126,15 +137,18 @@ class _LSTMBPTT(torch.autograd.Function):
     the dc chain stays f32, as in the reference."""
 
     @staticmethod
-    def forward(ctx, xs, h0, c0, wx, wh, b, lens, wqx, wqh, quantized, c_dtype, afwd, abwd, reverse):
+    def forward(ctx, xs, h0, c0, wx, wh, b, lens, wqx, wqh, quantized, c_dtype, afwd, abwd, reverse,
+                remat=True):
         s = xs.shape[0]
-        hs, cs_prev, hs_prev = [None] * s, [None] * s, [None] * s
+        hs, cs_prev, hs_prev, zs = [None] * s, [None] * s, [None] * s, [None] * s
         h_prev, c_prev = h0, c0
         for t in (reversed(range(s)) if reverse else range(s)):
             z = _z_of(xs[t], quantize_fp8(h_prev, afwd), wqx, wqh, b)
             h_new, c_new = kd.lstm_cell(z, c_prev, quantized=quantized, c_dtype=c_dtype)
             h_new = h_new.to(h0.dtype)
             hs[t], cs_prev[t], hs_prev[t] = h_new, c_prev, h_prev
+            if not remat:
+                zs[t] = z
             if lens is None:
                 h_prev, c_prev = h_new, c_new
             else:
@@ -142,18 +156,21 @@ class _LSTMBPTT(torch.autograd.Function):
                 h_prev, c_prev = torch.where(keep, h_new, h_prev), torch.where(keep, c_new, c_prev)
         hs_t, cs_t = torch.stack(hs), torch.stack(cs_prev)
         saved = [xs, h0, c0, b, cs_t, hs_t]
+        if not remat:
+            saved.append(torch.stack(zs))
         if lens is not None:
             saved += [lens, torch.stack(hs_prev)]
         ctx.save_for_backward(*saved)
         ctx.packed = (wqx, wqh)
-        ctx.cfg = (quantized, c_dtype, afwd, abwd, reverse, wx.dtype, wh.dtype)
+        ctx.cfg = (quantized, c_dtype, afwd, abwd, reverse, wx.dtype, wh.dtype, remat)
         return hs_t, h_prev, c_prev
 
     @staticmethod
     def backward(ctx, g_hs, g_ht, g_ct):
-        xs, h0, c0, b, cs_prev, hs, *masked = ctx.saved_tensors
+        quantized, c_dtype, afwd, abwd, reverse, wx_dtype, wh_dtype, remat = ctx.cfg
+        xs, h0, c0, b, cs_prev, hs, *rest = ctx.saved_tensors
+        zs, masked = (None, rest) if remat else (rest[0], rest[1:])
         wqx, wqh = ctx.packed
-        quantized, c_dtype, afwd, abwd, reverse, wx_dtype, wh_dtype = ctx.cfg
         f32 = torch.float32
         s, bsz, d = xs.shape
         h = hs.shape[-1]
@@ -165,8 +182,9 @@ class _LSTMBPTT(torch.autograd.Function):
         else:
             lens, prevs = None, torch.cat([h0[None].to(hs.dtype), hs[:-1]])
         hqs = quantize_fp8(prevs, afwd)
-        zs = _z_of(xs.reshape(s * bsz, d), hqs.reshape(s * bsz, h), wqx, wqh, b)
-        zs = zs.reshape(s, bsz, 4 * h)
+        if zs is None:  # remat: all of zs as one GEMM pair
+            zs = _z_of(xs.reshape(s * bsz, d), hqs.reshape(s * bsz, h), wqx, wqh, b)
+            zs = zs.reshape(s, bsz, 4 * h)
         dh, dc = g_ht.to(f32), g_ct.to(f32)
         dzs = [None] * s
         for t in (range(s) if reverse else reversed(range(s))):
@@ -191,7 +209,7 @@ class _LSTMBPTT(torch.autograd.Function):
         dxs = kd.matmul_dx(dzs_f, wqx.codes, wqx.bias, dense=wqx.dense, ordered=True)
         return (dxs.reshape(s, bsz, d).to(xs.dtype), dh.to(h0.dtype), dc.to(c0.dtype),
                 dwx.to(wx_dtype), dwh.to(wh_dtype), dzs_f.sum(0).to(b.dtype),
-                None, None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None, None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -247,7 +265,7 @@ class LSTMLayer:
             hs, h_f, c_f = _LSTMBPTT.apply(
                 xs_t.contiguous(), state.h, state.c, p["wx"], p["wh"], p["b"].to(cdt), lengths,
                 kd.hoist_train(p["wx"]), kd.hoist_train(p["wh"]),
-                policy.sigmoid_quant, c_dt, afwd, abwd, self.reverse,
+                policy.sigmoid_quant, c_dt, afwd, abwd, self.reverse, BPTT_REMAT,
             )
             return hs.transpose(0, 1), LSTMState(h_f, c_f)
         grad = torch.is_grad_enabled() and any(

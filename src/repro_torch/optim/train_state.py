@@ -13,6 +13,9 @@ Counterpart of ``repro.optim.train_state``, with its two gradient paths:
     such as the FP32 baseline): plain autograd through the per-step cell,
     the same tree pass doing all of the gradient quantization.
 
+``telemetry=True`` adds the reference's quantization-health statistics
+(``obs.telemetry``) to the metrics under ``"tel"``, as device tensors.
+
 Every cast is the reference's. A nonfinite step keeps the old parameters
 and optimizer state (its step count included) through ``torch.where`` on
 the device, and the loss scale is adjusted there too, so nothing in the
@@ -29,6 +32,7 @@ from .._tree import tree_leaves, tree_map
 from ..core import loss_scaling as ls
 from ..core.fp8 import grad_quant
 from ..core.policy import Policy
+from ..obs import telemetry as obs_telemetry
 from .optimizers import Optimizer
 
 __all__ = ["TrainState", "init_state", "make_train_step", "batch_to_device"]
@@ -58,14 +62,22 @@ def batch_to_device(batch: dict, device) -> dict:
 
 
 def make_train_step(loss_fn, opt: Optimizer, policy: Policy, lr: float = 1e-3,
-                    grad_clip: float | None = 1.0, fused: bool | None = None):
+                    grad_clip: float | None = 1.0, fused: bool | None = None,
+                    telemetry: bool = False):
     """loss_fn(params, batch, policy) -> scalar loss. Returns
     ``step(state, batch) -> (state, metrics)``, metrics holding the raw
     loss, ``grads_finite`` and the new ``loss_scale`` as device scalars.
 
     ``fused=None`` resolves to ``policy.grad_quant == 'fp8'``: such a
     policy runs the fused quantized BPTT, as the reference's default does;
-    ``fused=False`` trains it through autodiff instead."""
+    ``fused=False`` trains it through autodiff instead.
+
+    ``telemetry=True`` adds ``metrics["tel"]``: the FP8 saturation,
+    underflow and zero fractions of the loss-scaled gradients at the
+    ``grad_quant`` sweep point, each parameter group's gradient norm after
+    unscaling (``"grad_norm"``), and the FloatSD carry and clamp fractions
+    of the applied update (after the skip-select, so a skipped step
+    reports no carries). All are device tensors; no host read is added."""
     if fused is None:
         fused = policy.grad_quant == "fp8"
     run_policy = (policy.replace(grad_quant="fp8_kernel")
@@ -77,9 +89,13 @@ def make_train_step(loss_fn, opt: Optimizer, policy: Policy, lr: float = 1e-3,
         scaled = ls.scale_loss(raw_loss.to(torch.float32), state.scale)
         flat = iter(torch.autograd.grad(scaled, tree_leaves(params)))
         grads = tree_map(lambda _: next(flat), params)
+        # the loss-scaled values the FP8 quantizer is about to see
+        tel = obs_telemetry.fp8_grad_stats(grads) if telemetry else None
         if run_policy.grad_quant in ("fp8", "fp8_kernel"):
             grads = grad_quant(grads)
         grads, finite = ls.unscale_and_check(grads, state.scale)
+        if telemetry:
+            tel["grad_norm"] = obs_telemetry.layer_grad_norms(grads)
         if grad_clip is not None:
             gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
                                    for g in tree_leaves(grads)))
@@ -95,6 +111,9 @@ def make_train_step(loss_fn, opt: Optimizer, policy: Policy, lr: float = 1e-3,
         new_scale = ls.adjust(state.scale, finite)
         metrics = {"loss": raw_loss.detach(), "grads_finite": finite,
                    "loss_scale": new_scale.scale}
+        if telemetry:
+            tel.update(obs_telemetry.floatsd_update_stats(state.params, new_params))
+            metrics["tel"] = tel
         return TrainState(state.step + 1, new_params, new_opt, new_scale), metrics
 
     return step

@@ -48,7 +48,15 @@ steps within 1e-2 of
 it from its prefill (a bf16 KV cache against bf16 p and v: at this config
 and a default init, whose logits stay below 1, the JAX package's own gap
 is 3.1e-3 to 3.9e-3 over three seeds).
+The training runtime: save-z against remat bit
+for bit (B 4 and 128; plain, reverse, masked, fp16 cell), ``train_matmul``
+(the forward on route A and FP8 activations bit for bit, dx and dw as
+``matmul_dx`` and ``matmul_dw``) and
+``lstm_cell_train`` bit for bit against their plain versions, the train
+step's telemetry equal to the plain path's, the ``matmul_dw`` flush hook's
+counts equal to the snapped dW's.
 """
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -1077,3 +1085,139 @@ def test_quantize_kernel_reads_the_bias_on_the_device(dev):
         want = floatsd.encode(x * 2.0 ** max(-120, min(120, b)), b)[0]
         torch.cuda.synchronize()
         assert torch.equal(got, want) and torch.equal(host, want), b
+
+
+# ---------------------------------------------------------------------------
+# the training runtime on the card: save-z, the training ops, telemetry, the
+# matmul_dw flush hook, the pipeline and checkpoints
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["plain", "reverse", "masked", "fp16-cell"])
+@pytest.mark.parametrize("b", [4, 128])
+def test_save_z_gives_remat_gradients_bit_for_bit_on_the_kernels(dev, variant, b):
+    from repro_torch.nn import lstm as lstm_mod
+
+    pol = get_policy("floatsd8_table6" if variant == "fp16-cell" else "floatsd8_table2")
+    pol = pol.replace(grad_quant="fp8_kernel")
+    out, old = {}, lstm_mod.BPTT_REMAT
+    try:
+        for remat in (True, False):
+            lstm_mod.BPTT_REMAT = remat
+            g = _gen(dev, 51)
+            layer = LSTMLayer(96, 80, reverse=variant == "reverse")
+            p = {k: v.to(pol.mdt()).requires_grad_() for k, v in layer.init(g).items()}
+            xs = torch.randn((b, 7, 96), device=dev, generator=g).requires_grad_()
+            lens = torch.randint(1, 8, (b,), device=dev, generator=g) if variant == "masked" else None
+            n0 = floatsd_matmul.launches
+            h, fin = layer.apply(p, xs, pol, lengths=lens)
+            (h.float().square().sum() + fin.c.float().square().sum()).backward()
+            out[remat] = ([h, fin.h, fin.c, xs.grad, *(p[k].grad for k in ("wx", "wh", "b"))],
+                          floatsd_matmul.launches - n0)
+    finally:
+        lstm_mod.BPTT_REMAT = old
+    torch.cuda.synchronize()
+    for a, c in zip(out[True][0], out[False][0]):
+        assert torch.equal(a.detach(), c.detach())
+    assert out[True][1] == 2 * 7 + 2 and out[False][1] == 2 * 7
+
+
+@pytest.mark.cuda
+def test_train_matmul_and_lstm_cell_train_match_their_plain_versions(dev):
+    g = _gen(dev, 52)
+    x = quantize_fp8(torch.randn((64, 1024), device=dev, generator=g))
+    w = (torch.randn((1024, 4096), device=dev, generator=g) * 0.03).requires_grad_()
+    res = {}
+    for backend in (None, "ref"):
+        xr = x.clone().requires_grad_()
+        w.grad = None
+        with kd.use_backend(backend):
+            y = kd.train_matmul(xr, w, kd.hoist_train(w))
+        (y * 1e-2).square().sum().backward()
+        res[backend] = (y.detach(), xr.grad, w.grad.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(res[None][0], res["ref"][0])  # route A on FP8 activations: exact products
+    gy = 2e-4 * res["ref"][0]
+    wd = kd.hoist_train(w.detach(), backend="ref").dense
+    bound = 1e-5 * (gy.double().abs() @ wd.double().abs().t())
+    assert bool(((res[None][1].double() - res["ref"][1].double()).abs() <= bound + 1e-30).all())
+    off = res[None][2] != res["ref"][2]
+    assert int(off.sum()) <= 1e-3 * off.numel()
+    z = torch.randn((64, 4096), device=dev, generator=g) * 2
+    c = torch.randn((64, 1024), device=dev, generator=g).to(torch.float16)
+    a1, a2 = torch.randn((2, 64, 1024), device=dev, generator=g)
+    cell = {}
+    for backend in (None, "ref"):
+        zr, cr = z.clone().requires_grad_(), c.clone().requires_grad_()
+        h, c2 = kd.lstm_cell_train(zr, cr, backend=backend)
+        ((h * a1).sum() + (c2.float() * a2).sum()).backward()
+        cell[backend] = (h.detach(), c2.detach(), zr.grad, cr.grad)
+    torch.cuda.synchronize()
+    for a, b in zip(cell[None], cell["ref"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_train_step_telemetry_on_the_kernels_equals_the_plain_path(dev):
+    from repro_torch.obs import telemetry
+
+    model = WikiText2LM(vocab=512, emb=64, hidden=64, n_layers=2)
+    pol, opt = get_policy("floatsd8_table6"), sgd(0.9)
+    state = init_state(model.init(_gen(dev, 53)), opt, pol)
+    batch = batch_to_device(next(synthetic.wikitext2(batch=8, seq=12, vocab=512).batches), dev)
+    step = make_train_step(model.loss, opt, pol, lr=0.5, telemetry=True)
+    n0 = floatsd_quantize.launches
+    _, m = step(state, batch)
+    quants = floatsd_quantize.launches - n0
+    with kd.use_backend("ref"):
+        _, m_ref = step(state, batch)
+    torch.cuda.synchronize()
+    assert quants == 2 * sum(p.ndim >= 2 for p in tree_leaves(state.params))
+    for k in ("fp8_sat_frac", "fp8_underflow_frac", "fp8_zero_frac", "sd_carry_frac", "sd_clamp_frac"):
+        assert float(m["tel"][k]) == float(m_ref["tel"][k]), k
+    for k, v in m_ref["tel"]["grad_norm"].items():
+        assert float(m["tel"]["grad_norm"][k]) == float(v), k
+    assert 0 < float(m["tel"]["sd_carry_frac"]) < 1 and telemetry.KERNEL_STATS.snapshot() == {}
+
+
+@pytest.mark.cuda
+def test_matmul_dw_flush_hook_on_the_kernel(dev):
+    from repro_torch.obs import telemetry
+
+    g = _gen(dev, 54)
+    x = quantize_fp8(torch.randn((3072, 256), device=dev, generator=g)) * 30
+    gr = torch.randn((3072, 512), device=dev, generator=g) * 1e-2
+    gr[:, :8] *= 1e4
+    gr[:, 8:40] *= 1e-6
+    telemetry.KERNEL_STATS.reset()
+    telemetry.KERNEL_STATS.enable()
+    try:
+        dw = kd.matmul_dw(x, gr)
+        snap = telemetry.KERNEL_STATS.snapshot()
+    finally:
+        telemetry.KERNEL_STATS.disable()
+        telemetry.KERNEL_STATS.reset()
+    d = snap["floatsd_matmul_dw"]
+    assert d["calls"] == 1 and d["elems"] == dw.numel()
+    assert d["saturated"] == int((dw.abs() >= 57344).sum()) > 0
+    assert d["zeros"] == int((dw == 0).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_pipeline_and_checkpoints_on_the_card(dev, tmp_path):
+    from repro_torch.data.pipeline import ShardedPipeline
+    from repro_torch.distributed import checkpointing
+
+    src = [{"tokens": np.full((4, 5), i, np.int32)} for i in range(6)]
+    got = list(ShardedPipeline(iter(src), dev))
+    assert [int(b["tokens"][0, 0]) for b in got] == list(range(6))
+    assert all(b["tokens"].device.type == "cuda" and b["tokens"].dtype == torch.int64 for b in got)
+    model = WikiText2LM(vocab=128, emb=32, hidden=32, n_layers=2)
+    state = init_state(model.init(_gen(dev, 55)), sgd(0.9), get_policy("floatsd8_table6"))
+    mgr = checkpointing.CheckpointManager(str(tmp_path), keep=2)
+    mgr.save(state, 4)
+    restored, step = mgr.restore(state)
+    assert step == 4
+    for a, b in zip(tree_leaves(restored), tree_leaves(state)):
+        assert a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)

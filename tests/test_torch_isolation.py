@@ -94,3 +94,16 @@ def test_walk_reaches_the_dense_modules():
     assert {f"repro_torch.nn.{m}" for m in ("attention", "rotary", "ffn", "linear")} <= names
     assert {f"repro_torch.configs.{c}" for c in ("h2o_danube3_4b", "stablelm_3b", "phi4_mini_3p8b",
                                                  "granite_20b")} <= names
+
+
+def test_walk_reaches_the_training_runtime_modules():
+    """The blocked import above walks the training runtime too: telemetry,
+    checkpointing, fault tolerance and the input pipeline."""
+    import pkgutil
+
+    import repro_torch
+
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
+    assert {"repro_torch.obs", "repro_torch.obs.telemetry", "repro_torch.distributed",
+            "repro_torch.distributed.checkpointing", "repro_torch.distributed.fault_tolerance",
+            "repro_torch.data.pipeline"} <= names

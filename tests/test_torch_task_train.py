@@ -37,6 +37,7 @@ from repro.optim import train_state as jts  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.core.policy import get_policy as tget_policy  # noqa: E402
 from repro_torch.data import synthetic as tsyn  # noqa: E402
+from repro_torch.distributed import checkpointing as tckpt  # noqa: E402
 from repro_torch.kernels import dispatch as tkd  # noqa: E402
 from repro_torch.models import lstm_models as TM  # noqa: E402
 from repro_torch.optim import AdamState  # noqa: E402
@@ -108,7 +109,7 @@ def _held_to_jax(task, path):
     rel = np.abs(np.array(losses_t) - losses_j) / np.abs(losses_j)
     assert rel.max() <= 1e-3, rel
     assert isinstance(state_t.opt_state, AdamState) and int(state_t.opt_state.count) == STEPS
-    flat_t = bridge.to_jax_state(state_t)
+    flat_t = tckpt.flatten(state_t)
     mdt = np.dtype(jnp.dtype(jget_policy(PATHS[path][0]).mdt()))
     init = _flat_j(jax.tree_util.tree_map(lambda a: a.astype(mdt), params_np))
     for key, want in _flat_j(state_j.params).items():
@@ -133,9 +134,11 @@ def test_table6_trajectory_matches_jax(task):
 def test_jax_adam_checkpoint_continues_in_port(tmp_path):
     """JAX's Adam state after 3 steps, saved by JAX: the port reads it as an
     AdamState (the moments f32, the count int32) and continues."""
-    _, losses_j, _, state3 = _jax_run("multi30k")
+    params_np, losses_j, _, state3 = _jax_run("multi30k")
     checkpointing.save(str(tmp_path), state3, 3)
-    state_t = bridge.load_train_state(str(tmp_path), device="cpu")
+    template = tts.init_state(bridge.from_jax_params(params_np, "cpu"), tadam(), tget_policy("floatsd8_table6"))
+    state_t, step = tckpt.restore(str(tmp_path), template)
+    assert step == 3
     opt = state_t.opt_state
     assert isinstance(opt, AdamState) and opt.count.dtype == torch.int32 and int(opt.count) == 3
     assert opt.mu["dec"]["wx"].dtype == opt.nu["out"]["w"].dtype == torch.float32
@@ -149,8 +152,8 @@ def test_jax_adam_checkpoint_continues_in_port(tmp_path):
 def test_port_adam_checkpoint_restores_in_jax(tmp_path):
     params_np = _jax_run("multi30k")[0]
     _, state_t = _port_run("multi30k", params_np, 2)
-    bridge.save_checkpoint(str(tmp_path), state_t, 2)
-    flat_t = bridge.to_jax_state(state_t)
+    tckpt.save(str(tmp_path), state_t, 2)
+    flat_t = tckpt.flatten(state_t)
     assert {".opt_state/.count", ".opt_state/.mu/out/w", ".opt_state/.nu/enc/b"} <= flat_t.keys()
     target = jts.init_state(jax.tree_util.tree_map(jnp.asarray, params_np), jadam(),
                             jget_policy("floatsd8_table6"))
@@ -163,7 +166,7 @@ def test_port_adam_checkpoint_restores_in_jax(tmp_path):
         assert flat_r[k].dtype == v.dtype, k
         np.testing.assert_array_equal(flat_r[k], v, err_msg=k)
     # and back: the port reads its own checkpoint as it wrote it
-    again = bridge.to_jax_state(bridge.load_train_state(str(tmp_path), device="cpu"))
+    again = tckpt.flatten(tckpt.restore(str(tmp_path), state_t)[0])
     assert again.keys() == flat_t.keys()
     for k, v in flat_t.items():
         np.testing.assert_array_equal(again[k], v, err_msg=k)

@@ -354,6 +354,11 @@ def test_cli_trains_a_tiny_snli_on_cpu(capsys, monkeypatch, policy):
     assert int(out["state"].opt_state.count) == 2
     # premise and hypothesis: two BiLSTM passes, four engine calls a step
     want = {k: 2 * n for k, n in _engine_counts(6, layers=4).items()} if policy != "fp32" else {}
+    # the telemetry (on by default): two quantizes of each weight matrix a step
+    from repro_torch._tree import tree_leaves
+
+    mats = sum(p.ndim >= 2 for p in tree_leaves(_tiny_snli("snli", False)[0].init(torch.Generator())))
+    want[("floatsd_quantize", "ref")] = 2 * 2 * mats
     assert tkd.STATS.snapshot() == want
 
 

@@ -55,6 +55,7 @@ from repro_torch.core import fp8 as tfp8  # noqa: E402
 from repro_torch.core import loss_scaling as tls  # noqa: E402
 from repro_torch.core.policy import get_policy as tget_policy  # noqa: E402
 from repro_torch.data import synthetic as tsyn  # noqa: E402
+from repro_torch.distributed import checkpointing as tckpt  # noqa: E402
 from repro_torch.kernels import dispatch as tkd  # noqa: E402
 from repro_torch.kernels.floatsd_matmul.ops import matmul_dw, matmul_dx  # noqa: E402
 from repro_torch.kernels.floatsd_matmul.ref import matmul_dw_ref, matmul_dx_ref  # noqa: E402
@@ -489,7 +490,7 @@ def test_loss_trajectory_matches_jax(jax_run):
     assert rel.max() <= 1e-3, rel
     # the loss barely moves in 20 steps at this width, so the masters are
     # held too: every leaf within 0.1% of JAX's change to it (relative L2)
-    flat_t = bridge.to_jax_state(state_t)
+    flat_t = tckpt.flatten(state_t)
     flat_j = {"/".join(str(getattr(k, "key", getattr(k, "name", k))) for k in path): np.asarray(v)
               for path, v in jax.tree_util.tree_flatten_with_path(state_j.params)[0]}
     for key, want in flat_j.items():
@@ -551,12 +552,12 @@ def test_train_step_skips_nonfinite_and_backs_off():
 def test_port_checkpoint_restores_in_jax(tmp_path, jax_run):
     _, params_j, _, _ = jax_run
     _, _, state_t = _port_run(jax.tree_util.tree_map(np.asarray, params_j), 2)
-    path = bridge.save_checkpoint(str(tmp_path), state_t, 2)
+    path = tckpt.save(str(tmp_path), state_t, 2)
     assert path.endswith("step_00000002")
     target = jts.init_state(params_j, jsgd(0.9), JT6)
     restored, step = checkpointing.restore(str(tmp_path), target)
     assert step == 2
-    flat_t = bridge.to_jax_state(state_t)
+    flat_t = tckpt.flatten(state_t)
     flat_r = {"/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path): np.asarray(v)
               for path, v in jax.tree_util.tree_flatten_with_path(restored)[0]}
     assert flat_r.keys() == flat_t.keys()
@@ -569,7 +570,10 @@ def test_jax_checkpoint_continues_in_port(tmp_path, jax_run):
     losses_j, _, _, state3 = jax_run
     # JAX's state after 3 steps, saved by JAX; the port continues for 2 more
     checkpointing.save(str(tmp_path), state3, 3)
-    state_t = bridge.load_train_state(str(tmp_path), device="cpu")
+    model, opt = TLM(vocab=V, emb=W, hidden=W, n_layers=2), tsgd(0.9)
+    template = tts.init_state(model.init(torch.Generator().manual_seed(1)), opt, TT6)
+    state_t, step = tckpt.restore(str(tmp_path), template)
+    assert step == 3
     assert state_t.params["embed"]["table"].dtype == torch.float16
     assert state_t.opt_state["lstm1"]["wx"].dtype == torch.float32
     assert int(state_t.step) == 3 and float(state_t.scale.scale) == 1024.0
@@ -577,7 +581,6 @@ def test_jax_checkpoint_continues_in_port(tmp_path, jax_run):
     data = tsyn.wikitext2(batch=B, seq=S, vocab=V, seed=0)
     for _ in range(3):
         next(data.batches)
-    model, opt = TLM(vocab=V, emb=W, hidden=W, n_layers=2), tsgd(0.9)
     step = tts.make_train_step(model.loss, opt, TT6, lr=0.5)
     for i in range(3, 5):
         state_t, m = step(state_t, tts.batch_to_device(next(data.batches), "cpu"))
@@ -601,4 +604,5 @@ def test_task_and_cli_on_cpu(tmp_path, capsys, monkeypatch):
     assert "step     2  loss" in text and "trained 2 steps in" in text and "tok/s" in text
     assert len(out["losses"]) == 2 and all(out["finite"]) and out["tokens_per_step"] == B * S
     assert sorted(p.name for p in tmp_path.iterdir()) == ["step_00000001", "step_00000002"]
-    assert int(bridge.load_train_state(str(tmp_path), device="cpu").step) == 2
+    restored, step = tckpt.restore(str(tmp_path), out["state"])
+    assert step == int(restored.step) == 2
