@@ -182,6 +182,30 @@ Phases, in order; the first failure exits non-zero:
                 stated tolerance with no activation quantizer (the served
                 policy's gap reported), greedy tokens of the engine equal
                 over the plain path's margin-decisive prefix.
+ 16. frontend   the main path's full-width LM behind the multi-tenant
+                router: 2 replicas of 8 lanes, chunk 8, 3 tenants, sharing
+                one FP8 prefix cache (block 8). 48 zipf-prefix requests
+                (system prompts of 24 tokens, prefix seed 7, 16 new tokens)
+                served cold, then a warm-up set (the same prefixes, other
+                suffixes) into the cache, then the 48 warm: warm prefill
+                steps at most 0.7 x cold, hit rate above 0.5; printed: the
+                steps, prefill tokens saved, hit rate, warm-against-cold
+                agreement (reported only: the injected states are
+                FP8-rounded), tok/s, the median decode pump, TTFT p50 and
+                p95 per tenant. The warm run again on backend="ref" from a
+                copy of the warmed cache: the same schedule, tokens equal
+                over the margin-decisive prefix. One engine under sjf_work
+                with preemption (8 long decodes, then 8 short arrivals): at
+                least one preemption and resume, every request done, the
+                preempted streams against a run without preemption
+                (reported). The chaos plan replica_crash@6:key=1;
+                cache_corrupt@2;nonfinite_logits@3 over repeated one-chunk
+                prompts: replica 1 ejected on a crash, its resubmitted
+                requests finished on replica 0 with the fault-free run's
+                tokens, exactly one numeric_error, one corruption caught as
+                a miss, FAULTS disarmed after. Every kernel run's
+                floatsd_matmul and lstm_cell launches equal the main path's
+                formula summed over the engines, every dispatch record cuda.
 
 The second-to-last line is nvidia-smi's name/power-limit line, the line
 before it the kernels' JSON record, and the last line the result JSON.
@@ -1335,9 +1359,10 @@ def tasks_phase(torch, smi):
     return dict(launches=total, tasks=out)
 
 
-def cross_check(reqs, refs, what: str) -> None:
+def cross_check(reqs, refs, what: str, n_requests: int = REQUESTS) -> None:
     """Greedy tokens of the kernel path against the plain path, over each
-    request's margin-decisive prefix (phases 5 and 6)."""
+    request's margin-decisive prefix (phases 5, 6 and 16; a token replayed
+    from a full prefix-cache hit counts as decisive)."""
     import numpy as np
 
     decisive = agree = 0
@@ -1346,10 +1371,10 @@ def cross_check(reqs, refs, what: str) -> None:
         check(r.out[:n] == ref.out[:n], f"{what}: request {r.rid}: {r.out} vs plain {ref.out} (decisive {n})")
         decisive += n
         agree += r.out == ref.out
-    check(decisive >= REQUESTS * MAX_NEW // 2, f"{what}: only {decisive} decisive tokens")
+    check(decisive >= n_requests * MAX_NEW // 2, f"{what}: only {decisive} decisive tokens")
     margins = np.array([g for ref in refs for g in ref.margins])
-    print(f"{what}: {decisive} of {REQUESTS * MAX_NEW} tokens margin-decisive (floor {MARGIN_FLOOR}) "
-          f"and equal; {agree} of {REQUESTS} streams equal in full; top-2 margin median "
+    print(f"{what}: {decisive} of {n_requests * MAX_NEW} tokens margin-decisive (floor {MARGIN_FLOOR}) "
+          f"and equal; {agree} of {n_requests} streams equal in full; top-2 margin median "
           f"{np.median(margins):.3e}, min {margins.min():.3e}", flush=True)
 
 
@@ -2552,6 +2577,238 @@ def dense_x_phase(torch, dev, smi):
     return gaps
 
 
+# the serving frontend (phase 16): the main path's full-width LM behind the
+# multi-tenant router, two replicas sharing one FP8 prefix cache
+FRONT_REPLICAS, FRONT_TENANTS = 2, 3
+FRONT_REQUESTS, FRONT_PREFIX, FRONT_PREFIX_SEED = 48, 3 * CHUNK, 7
+FRONT_CHAOS = "replica_crash@6:key=1;cache_corrupt@2;nonfinite_logits@3"
+FRONT_CHAOS_PROMPTS, FRONT_CHAOS_REQUESTS = 6, 32  # prompts of one chunk, each served repeatedly
+FRONT_LONG_NEW, FRONT_SHORT_NEW = 48, 2  # the preemption run's long decodes and short arrivals
+
+
+def front_launches(run):
+    """Launch counters and dispatch records zeroed before ``run()`` (which
+    returns its result and the engines it stepped) and read after: every
+    gate matmul, head and cell of every engine's steps on its kernel, as
+    often as the main path's formula gives, summed over the engines; no
+    record on the plain path."""
+    from repro_torch.kernels import dispatch as kd
+    from repro_torch.kernels.floatsd_matmul.ops import floatsd_matmul
+    from repro_torch.kernels.lstm_cell.ops import lstm_cell
+
+    kd.STATS.reset()
+    floatsd_matmul.launches = lstm_cell.launches = 0
+    out, engines = run()
+    launches = {"floatsd_matmul": floatsd_matmul.launches, "lstm_cell": lstm_cell.launches}
+    stats = kd.STATS.snapshot()
+    L = engines[0].model.n_layers
+    want = {"floatsd_matmul": 0, "lstm_cell": 0}
+    for e in engines:
+        positions = CHUNK * e.metrics.prefill_steps + e.metrics.decode_steps
+        want["floatsd_matmul"] += 2 * L * positions + e.metrics.steps
+        want["lstm_cell"] += L * positions
+    check(launches == want, f"frontend launches {launches} != expected {want}")
+    check(stats.get(("floatsd_matmul", "cuda"), 0) == want["floatsd_matmul"]
+          and stats.get(("lstm_cell", "cuda"), 0) == want["lstm_cell"]
+          and sum(n for (_, b), n in stats.items() if b != "cuda") == 0, f"frontend dispatch records {stats}")
+    return out, launches
+
+
+def front_serve(torch, model, params, policy, prompts, cache, backend=None, admission="edf",
+                max_new=MAX_NEW):
+    """The prompts through a router over FRONT_REPLICAS engines sharing
+    ``cache``, tenants round-robin; returns (router, tickets by rid, wall
+    seconds, host times of the pumps in which no replica prefilled)."""
+    from repro_torch.serving import Router
+
+    router = Router.build(model, params, policy, replicas=FRONT_REPLICAS, prefix_cache=cache,
+                          router_kw=dict(admission=admission, max_queue=len(prompts)), lanes=LANES,
+                          chunk=CHUNK, backend=backend)
+    tickets = [router.submit(p.copy(), max_new=max_new, tenant=f"tenant{i % FRONT_TENANTS}")
+               for i, p in enumerate(prompts)]
+    decode_pumps: list[float] = []
+    t0 = time.perf_counter()
+    while True:
+        pre = sum(e.metrics.prefill_steps for e in router.engines)
+        t = time.perf_counter()
+        if not router.pump():  # each replica's step ends in a device->host copy: synchronised
+            break
+        if sum(e.metrics.prefill_steps for e in router.engines) == pre:
+            decode_pumps.append(time.perf_counter() - t)
+    wall = time.perf_counter() - t0
+    for e in router.engines:
+        e.metrics.stop()
+    return router, tickets, wall, decode_pumps
+
+
+def front_agree(a, b) -> tuple[int, int]:
+    """(streams equal in full, tokens equal up to each stream's first difference)."""
+    full = sum(x.tokens == y.tokens for x, y in zip(a, b))
+    prefix = sum(next((i for i, (p, q) in enumerate(zip(x.tokens, y.tokens)) if p != q), len(x.tokens))
+                 for x, y in zip(a, b))
+    return full, prefix
+
+
+def frontend_phase(torch, model, params, policy, smi):
+    """Phase 16: the serving frontend at full width (cold and warm prefix
+    cache, the warm run on the plain versions, preemption, the chaos plan)."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch.faults import FAULTS
+    from repro_torch.obs.trace import TRACER
+    from repro_torch.serving import PrefixCache, ServeEngine, zipf_prefix_prompts
+
+    t_phase = time.perf_counter()
+    V = model.vocab
+    zipf = dict(prefix_len=FRONT_PREFIX, prefix_seed=FRONT_PREFIX_SEED)
+    measure = zipf_prefix_prompts(FRONT_REQUESTS, V, np.random.default_rng(SEED + 21), **zipf)
+    warmup = zipf_prefix_prompts(FRONT_REQUESTS, V, np.random.default_rng(SEED + 22), **zipf)
+    launches = {"floatsd_matmul": 0, "lstm_cell": 0}
+
+    def counted(run):
+        out, n = front_launches(run)
+        for k in launches:
+            launches[k] += n[k]
+        return out
+
+    def serve_counted(prompts, cache):
+        def run():
+            out = front_serve(torch, model, params, policy, prompts, cache)
+            return out, out[0].engines
+
+        return counted(run)
+
+    # 1. cold, then warm
+    cold, cold_t, cold_wall, cold_pumps = serve_counted(measure, None)
+    cache = PrefixCache(block=CHUNK)
+    serve_counted(warmup, cache)
+    cache_ref = copy.deepcopy(cache)  # the same warm state for the plain-version run
+    warm, warm_t, warm_wall, warm_pumps = serve_counted(measure, cache)
+    rc, rw = cold.report(), warm.report()
+    for name, r, t in (("cold", rc, cold_t), ("warm", rw, warm_t)):
+        check(r["requests"] == FRONT_REQUESTS and all(x.status == "done" and len(x.tokens) == MAX_NEW for x in t),
+              f"frontend {name}: not every request done")
+    check(rw["prefill_steps"] <= 0.7 * rc["prefill_steps"],
+          f"frontend: warm prefill steps {rw['prefill_steps']} > 0.7 x cold {rc['prefill_steps']}")
+    check(rw["cache_hit_rate"] > 0.5 and rw["prefill_tokens_saved"] > 0,
+          f"frontend: warm hit rate {rw['cache_hit_rate']:.3f}, saved {rw['prefill_tokens_saved']}")
+    full, prefix = front_agree(warm_t, cold_t)
+    for name, r, wall, pumps in (("cold", rc, cold_wall, cold_pumps), ("warm", rw, warm_wall, warm_pumps)):
+        tenants = "; ".join(f"{k} TTFT p50 {v['ttft_p50_s'] * 1e3:.3f} ms p95 {v['ttft_p95_s'] * 1e3:.3f} ms"
+                            for k, v in r["tenants"].items())
+        print(f"frontend {name}: {FRONT_REQUESTS} zipf-prefix requests (prefix {FRONT_PREFIX}, seed "
+              f"{FRONT_PREFIX_SEED}), {FRONT_REPLICAS} replicas x {LANES} lanes, chunk {CHUNK}: {r['steps']} steps "
+              f"({r['prefill_steps']} prefill / {r['decode_steps']} decode), {r['prompt_tokens']} prompt tokens, "
+              f"{r['prefill_tokens_saved']} prefill tokens saved, hit rate {r['cache_hit_rate']:.4f} "
+              f"({r['cache_full_hits']} full); {r['emitted_tokens'] / wall:.1f} generated tok/s over {wall:.3f} s; "
+              f"median decode pump (one step a replica) {statistics.median(pumps) * 1e3:.3f} ms over "
+              f"{len(pumps)}; {tenants} ({smi})", flush=True)
+    print(f"frontend: warm/cold prefill steps {rw['prefill_steps']}/{rc['prefill_steps']} = "
+          f"{rw['prefill_steps'] / rc['prefill_steps']:.3f} (bound 0.7); warm against cold (reported, not "
+          f"asserted: FP8-rounded injected states): {full} of {FRONT_REQUESTS} streams equal, {prefix} of "
+          f"{FRONT_REQUESTS * MAX_NEW} tokens before each stream's first difference", flush=True)
+
+    # 2. the warm run on the plain versions, from a copy of the same cache
+    plain, plain_t, _, _ = front_serve(torch, model, params, policy, measure, cache_ref, backend="ref")
+    refs = [t.req for t in plain_t]
+    check(plain.report()["prefill_steps"] == rw["prefill_steps"] and plain.report()["cache_hits"] == rw["cache_hits"],
+          "frontend: the plain versions' warm schedule differs")
+    cross_check([t.req for t in warm_t], refs, "frontend warm cross-check", n_requests=FRONT_REQUESTS)
+
+    # 3. preemption: one engine, sjf_work, long decodes displaced by short arrivals
+    rng = np.random.default_rng(SEED + 23)
+    longs = [rng.integers(0, V, 16).astype(np.int32) for _ in range(LANES)]
+    shorts = [rng.integers(0, V, 6).astype(np.int32) for _ in range(LANES)]
+    runs = {}
+    for preempt in (True, False):
+        eng = ServeEngine(model, params, policy, lanes=LANES, chunk=CHUNK, admission="sjf_work", preempt=preempt)
+
+        def run(eng=eng):
+            lr = eng.submit_all([p.copy() for p in longs], max_new=FRONT_LONG_NEW)
+            while not all(r.out for r in lr):
+                eng.step_once()
+            sr = eng.submit_all([p.copy() for p in shorts], max_new=FRONT_SHORT_NEW)
+            eng.run()
+            return (lr, sr), [eng]
+
+        runs[preempt] = (counted(run), eng.metrics)
+    (lr, sr), m = runs[True]
+    (lr0, _), m0 = runs[False]
+    check(m.preemptions >= 1 and m.resumes >= 1 and m.preemptions == m.resumes and m0.preemptions == 0,
+          f"frontend: preemptions {m.preemptions}, resumes {m.resumes}")
+    check(all(r.status == "done" for r in (*lr, *sr)), "frontend: a preempted run's request not done")
+    moved = [(a, b) for a, b in zip(lr, lr0) if a.preempt_count]
+    eq = sum(a.out == b.out for a, b in moved)
+    first = [next((i for i, (p, q) in enumerate(zip(a.out, b.out)) if p != q), len(a.out)) for a, b in moved]
+    ttft = lambda rs: statistics.median(r.t_first - r.t_submit for r in rs) * 1e3  # noqa: E731
+    print(f"frontend preempt: sjf_work, {LANES} lanes, {LANES} decodes of {FRONT_LONG_NEW} then {LANES} arrivals of "
+          f"{FRONT_SHORT_NEW}: {m.preemptions} preemptions, {m.resumes} resumes, {m.steps} steps (without: "
+          f"{m0.steps}); short arrivals' median TTFT {ttft(sr):.3f} ms (without preemption "
+          f"{ttft(runs[False][0][1]):.3f} ms); preempted streams against the run without preemption (reported): "
+          f"{eq} of {len(moved)} equal, first differences at {first}", flush=True)
+
+    # 4. the chaos plan: a replica crash, a corrupted cache entry, a poisoned
+    # lane. Prompts of one chunk, each served repeatedly (replica 0 takes the
+    # even requests, replica 1 the odd ones); the cache starts warm with the
+    # odd prompts, so replica 1's requests are full hits in the fault-free
+    # run and again after their resubmission to replica 0 (the same entry
+    # bytes), while the even prompts' first inserts give the corrupted entry
+    # that a later even request reads
+    base = [rng.integers(0, V, CHUNK).astype(np.int32) for _ in range(FRONT_CHAOS_PROMPTS)]
+    chaos = [base[i % FRONT_CHAOS_PROMPTS] for i in range(FRONT_CHAOS_REQUESTS)]
+
+    def warm_cache():
+        c = PrefixCache(block=CHUNK)
+        eng = ServeEngine(model, params, policy, lanes=LANES, chunk=CHUNK, prefix_cache=c)
+        eng.submit_all([p.copy() for p in base[1::2]], max_new=2)
+        eng.run()
+        return c
+
+    clean = front_serve(torch, model, params, policy, chaos, warm_cache())
+    cache = warm_cache()
+    TRACER.clear()
+    TRACER.enable()
+    FAULTS.arm(FRONT_CHAOS)
+    try:
+        router, tickets, _, _ = serve_counted(chaos, cache)
+        faults = FAULTS.stats()
+    finally:
+        FAULTS.disarm()
+        TRACER.disable()
+    resubmitted = sorted({e["args"]["rid"] for e in TRACER.events() if e["name"] == "router.resubmit"})
+    ejected = [e["args"] for e in TRACER.events() if e["name"] == "router.eject"]
+    TRACER.clear()
+    st = router.stats()
+    cst = router.prefix_cache.stats()
+    statuses = [t.status for t in tickets]
+    check(faults["injected"] == {"replica_crash": 1, "cache_corrupt": 1, "nonfinite_logits": 1},
+          f"frontend chaos: injected {faults['injected']}")
+    check(st["ejections"] == 1 and [h["healthy"] for h in st["replica_health"]] == [True, False]
+          and ejected == [{"replica": 1, "reason": "crash"}] and st["resubmits"] == len(resubmitted) > 0,
+          f"frontend chaos: replica health {st}, ejections traced {ejected}")
+    check(statuses.count("numeric_error") == 1 and statuses.count("done") == FRONT_CHAOS_REQUESTS - 1,
+          f"frontend chaos: statuses {statuses}")
+    check(cst["corruptions"] == 1, f"frontend chaos: corruptions {cst['corruptions']}")
+    differ = [r for r in resubmitted if tickets[r].tokens != clean[1][r].tokens]
+    check(not differ, f"frontend chaos: resubmitted requests {differ} differ from the fault-free run")
+    others = [t for t in tickets if t.status == "done" and t.rid not in resubmitted]
+    same = sum(t.tokens == clean[1][t.rid].tokens for t in others)
+    check(not FAULTS.enabled, "frontend chaos: FAULTS still armed")
+    print(f"frontend chaos: plan {FRONT_CHAOS!r} on {FRONT_CHAOS_REQUESTS} requests over {FRONT_CHAOS_PROMPTS} "
+          f"prompts of one chunk: injected {faults['injected']}, arrivals {faults['arrivals']}; replica 1 ejected "
+          f"(crash), {len(resubmitted)} requests resubmitted and finished on replica 0, each equal to the "
+          f"fault-free run ({router.engines[1].metrics.retired} retired on replica 1 before the crash); "
+          f"1 numeric_error; {cst['corruptions']} corruption caught as a miss; the other done requests: {same} of "
+          f"{len(others)} equal to the fault-free run (a corruption miss prefills from the exact state where the "
+          f"fault-free run injected the FP8 one); FAULTS disarmed", flush=True)
+    print(f"frontend: launches {launches} (every record cuda); phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return dict(launches=launches)
+
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2676,6 +2933,10 @@ def main() -> int:
     dense = dense_phase(torch, dev, smi)
     dense_x_phase(torch, dev, smi)
 
+    # 16. the serving frontend: the main path's model behind the router
+    torch.cuda.empty_cache()
+    front = frontend_phase(torch, model, params, policy, smi)
+
     # result lines: each kernel's time per decode step (serving), per train
     # step, or per entry-point pass, from the kernel phase's per-launch times
     # and the launch counts of each path
@@ -2722,7 +2983,7 @@ def main() -> int:
     ]
     paths = {"serve": launches, "train": tr_launches, "tasks": tasks["launches"], "serve4": s4["launches"],
              "entry": ent["launches"], "runtime": rt["launches"], "zoo": zoo["launches"],
-             "dense": dense["launches"]}
+             "dense": dense["launches"], "frontend": front["launches"]}
     # the zoo prefill's share of the kernels it shares with the LSTM paths
     zoo_prefill = {
         "floatsd_matmul": ([(6 * ZL, zmm[("dd", ZOO_B * ZOO_S)]), (ZL, zmm[("cmix-k", ZOO_B * ZOO_S)]),

@@ -19,8 +19,9 @@ byte of a save leaves the previous checkpoint the newest valid one.
 
 The reference device_puts each leaf with a target sharding (an elastic
 reshard); the port has one device, so ``restore`` puts each leaf on the
-template leaf's device instead. Its ``faults.py`` hook between the arrays
-and the manifest is not ported (``ROADMAP.md`` Queue 1 item 5).
+template leaf's device instead. The ``ckpt_torn_write`` fault point
+(``faults.py``) fires between the arrays and the manifest, as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -35,6 +36,8 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+
+from ..faults import CKPT_TORN_WRITE, FAULTS, InjectedFault
 
 __all__ = ["save", "restore", "latest_step", "read_arrays", "flatten", "CheckpointManager",
            "CheckpointCorrupt"]
@@ -110,6 +113,10 @@ def save(path: str, tree: Any, step: int, *, extra: dict | None = None) -> str:
     arrays_path = os.path.join(tmp, _ARRAYS)
     np.savez(arrays_path, **flat)
     _fsync_file(arrays_path)
+    if FAULTS.enabled and FAULTS.fire(CKPT_TORN_WRITE) is not None:
+        # die between the arrays and the manifest: the tmp dir is left torn
+        # and unpublished, and latest_step must keep ignoring it
+        raise InjectedFault("torn checkpoint write (injected)")
     manifest = {
         "step": step, "keys": list(flat), "dtypes": [str(v.dtype) for v in flat.values()],
         "shapes": [list(v.shape) for v in flat.values()], "time": time.time(),

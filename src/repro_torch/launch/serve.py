@@ -12,15 +12,37 @@ one-token steps, each lane once, so ``--requests`` must not exceed
 ``--batch``, and an attention model gets a KV cache of 2048 positions; its
 full width is driven from the API (``chip_smoke.py``).
 
+``--frontend`` serves the LSTM LM through the multi-tenant router: engine
+replicas (``--replicas``) share one FP8 LSTM-state prefix cache
+(``--cache-mb``; 0 disables it), requests round-robin over ``--tenants``,
+and the report has the hit rate and per-tenant latency percentiles.
+``--workload zipf-prefix`` draws shared-system-prompt prompts (prefixes of
+3 x ``--chunk`` tokens), what the cache is for. Scheduler v2:
+``--admission sjf_work --preempt`` (and ``--admit-pace N``). Preemption
+needs a queue head that owes less work than a decoding lane: behind the
+router an engine is handed only what its free lanes take, and the CLI gives
+every request the same ``--max-new``, so here it never fires (the printed
+count says so); callers of the API with mixed ``max_new`` drive it.
+``--dense`` serves the dense weights through the fake-quant-at-use path
+(any ``--policy``). The ``REPRO_FAULTS`` environment variable arms a fault plan
+(``faults.py``), ``REPRO_TRACE=1`` the tracer. The router ejects a replica
+whose steps fail; if every replica is ejected, the backlog is rejected as
+``no_healthy_replicas`` and the CLI exits 1 with each replica's last error,
+so a kernel that fails on the card is not mistaken for load shedding.
+
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu   # reduced, CPU
   PYTHONPATH=src python -m repro_torch.launch.serve --full         # 1024-wide LM, GPU
   PYTHONPATH=src python -m repro_torch.launch.serve --full --weight-format floatsd4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_3b --device cpu --requests 4 --batch 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o_danube3_4b --device cpu --requests 4 --batch 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --frontend --replicas 2 --workload zipf-prefix
+  PYTHONPATH=src python -m repro_torch.launch.serve --full --frontend --replicas 2 --workload zipf-prefix
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --dense --policy fp32
 """
 from __future__ import annotations
 
 import argparse
+import sys
 
 import numpy as np
 import torch
@@ -29,7 +51,42 @@ from ..configs import get_config, lstm_wikitext2
 from ..core.policy import get_policy
 from ..device import resolve_device
 from ..models import build
-from ..serving import WEIGHT_FORMATS, ServeEngine, synthetic_prompts
+from ..serving import (
+    ADMISSION_POLICIES, WEIGHT_FORMATS, PrefixCache, Router, ServeEngine, synthetic_prompts,
+    zipf_prefix_prompts,
+)
+
+
+def _serve_frontend(model, params, policy, prompts, engine_kw, args) -> None:
+    cache = (PrefixCache(budget_bytes=int(args.cache_mb * 2**20), block=args.chunk)
+             if args.cache_mb > 0 else None)
+    router = Router.build(model, params, policy, replicas=args.replicas, prefix_cache=cache,
+                          router_kw=dict(admission=args.admission, max_queue=args.requests),
+                          **engine_kw)
+    for i, p in enumerate(prompts):
+        router.submit(p, max_new=args.max_new, tenant=f"tenant{i % args.tenants}")
+    router.drain()
+    rep = router.report()
+    print(
+        f"frontend: {rep['requests']} requests over {rep['replicas']} replica(s), "
+        f"{rep['steps']} steps ({rep['prefill_steps']} prefill / {rep['decode_steps']} decode), "
+        f"cache hit rate {rep['cache_hit_rate']:.0%} ({rep['prefill_tokens_saved']} prefill tok "
+        f"saved), preemptions {rep['preemptions']}, ejections {rep['ejections']}, "
+        f"rejections {rep['rejections']}",
+        flush=True,
+    )
+    for tenant, t in rep["tenants"].items():
+        print(
+            f"  {tenant}: {t['completed']} done / {t['tokens']} tok | "
+            f"ttft p95 {t.get('ttft_p95_s', 0.0)*1e3:.0f}ms | "
+            f"latency p95 {t.get('latency_p95_s', 0.0)*1e3:.0f}ms",
+            flush=True,
+        )
+    if rep["rejections"].get("no_healthy_replicas"):
+        # every replica was ejected: report why instead of passing it off as load shedding
+        for h in router.stats()["replica_health"]:
+            print(f"replica {h['replica']}: {h['last_error']}", file=sys.stderr, flush=True)
+        raise SystemExit(1)
 
 
 def main(argv=None):
@@ -43,11 +100,36 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8, help="decode lanes")
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--chunk", type=int, default=8, help="prompt tokens consumed per prefill step")
+    ap.add_argument("--policy", default="floatsd8_table6",
+                    help="numeric policy (core/policy.py); a policy without FloatSD8 weights "
+                         "needs --dense")
+    ap.add_argument("--admission", default="fifo", choices=ADMISSION_POLICIES)
+    ap.add_argument("--preempt", action="store_true",
+                    help="scheduler v2: an engine may preempt its longest-remaining decoding "
+                         "lane (FP8 state snapshot, resumed later) when the queue head owes much "
+                         "less work; pair with --admission sjf_work. It needs requests of mixed "
+                         "max_new without --frontend (the router hands an engine only what its "
+                         "free lanes take), so with one --max-new it never fires here")
+    ap.add_argument("--admit-pace", type=int, default=None,
+                    help="scheduler v2: at most this many lane admissions an engine step")
+    ap.add_argument("--dense", action="store_true",
+                    help="serve the dense f32 weights (fake-quant at use) instead of packed codes")
     ap.add_argument("--weight-format", choices=WEIGHT_FORMATS, default="floatsd8",
                     help="packed serving format: floatsd8 (1 byte a weight, the trained "
                          "function) or floatsd4 (2 codes a byte + group exponents, about half "
                          "the resident bytes, re-quantized from the FloatSD8 values)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--frontend", action="store_true",
+                    help="serve through the multi-tenant router with a shared FP8 LSTM-state "
+                         "prefix cache")
+    ap.add_argument("--replicas", type=int, default=1, help="frontend: engine replicas")
+    ap.add_argument("--cache-mb", type=float, default=64.0,
+                    help="frontend: prefix-cache byte budget (MiB); 0 disables the cache")
+    ap.add_argument("--tenants", type=int, default=2,
+                    help="frontend: requests round-robin over this many synthetic tenants")
+    ap.add_argument("--workload", choices=("uniform", "zipf-prefix"), default="uniform",
+                    help="uniform prompt lengths, or shared system prompts (zipf over a small "
+                         "prefix pool)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -56,25 +138,47 @@ def main(argv=None):
         cfg = cfg if args.full else lstm_wikitext2.REDUCED
     else:
         cfg = cfg.reduced()
-    policy = get_policy("floatsd8_table6")
+    if args.frontend and cfg.family != "lstm":
+        # a zoo cache is not lane-major: no lane re-arming, no constant-size
+        # state to prefix-cache
+        raise SystemExit(
+            "--frontend serves LSTM-family models (continuous lane re-arming + prefix cache need "
+            f"lane-major recurrent state); arch {args.arch!r} is family {cfg.family!r} — use the "
+            "plain engine path instead")
+    policy = get_policy(args.policy)
     model = build(cfg)
+    rng = np.random.default_rng(args.seed)
     params = model.init(torch.Generator(device=device).manual_seed(args.seed))
-    prompts = synthetic_prompts(args.requests, cfg.vocab, np.random.default_rng(args.seed))
+    if args.workload == "zipf-prefix":
+        prompts = zipf_prefix_prompts(args.requests, cfg.vocab, rng, prefix_len=3 * args.chunk,
+                                      prefix_seed=args.seed)
+    else:
+        prompts = synthetic_prompts(args.requests, cfg.vocab, rng)
+    engine_kw = dict(lanes=args.batch, chunk=args.chunk, packed=not args.dense,
+                     weight_format=args.weight_format,
+                     cache_len=None if cfg.family == "lstm" else 2048,
+                     # the engines share the router's policy, so preemption peeks
+                     # at the order the router dispatches in
+                     admission=args.admission, preempt=args.preempt, admit_pace=args.admit_pace)
+    if args.frontend:
+        _serve_frontend(model, params, policy, prompts, engine_kw, args)
+        return
 
-    engine = ServeEngine(model, params, policy, lanes=args.batch, chunk=args.chunk,
-                         weight_format=args.weight_format,
-                         cache_len=None if cfg.family == "lstm" else 2048)
+    engine = ServeEngine(model, params, policy, **engine_kw)
     s = engine.store
-    print(
-        f"weights: {s.dense_nbytes/2**20:.1f} MiB dense -> "
-        f"{s.packed_nbytes/2**20:.1f} MiB packed "
-        f"{'FloatSD4' if s.fmt == 'floatsd4' else 'FloatSD8'} "
-        f"({s.compression:.2f}x smaller, {s.n_packed} tensors packed)",
-        flush=True,
-    )
+    if s is not None:
+        print(
+            f"weights: {s.dense_nbytes/2**20:.1f} MiB dense -> "
+            f"{s.packed_nbytes/2**20:.1f} MiB packed "
+            f"{'FloatSD4' if s.fmt == 'floatsd4' else 'FloatSD8'} "
+            f"({s.compression:.2f}x smaller, {s.n_packed} tensors packed)",
+            flush=True,
+        )
     engine.submit_all(prompts, max_new=args.max_new)
     metrics = engine.run()
     print(metrics.format(), flush=True)
+    if args.preempt:
+        print(f"preemptions {metrics.preemptions}, resumes {metrics.resumes}", flush=True)
 
 
 if __name__ == "__main__":

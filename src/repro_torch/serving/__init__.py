@@ -1,8 +1,12 @@
-"""Batched serving of the port: packed FloatSD8 / FloatSD4 weight store, lane-state
-pool, fifo/sjf admission, metrics and the continuous-batching engine."""
+"""Batched serving of the port: packed FloatSD8 / FloatSD4 weight store,
+lane-state pool, admission policies, metrics, the continuous-batching
+engine, and the frontend (router and FP8 prefix cache)."""
 from .engine import Lane, ServeEngine
-from .metrics import ServeMetrics
-from .scheduler import ADMISSION_POLICIES, Request, Scheduler, synthetic_prompts
+from .frontend import AsyncRouter, PrefixCache, RequestRejected, Router, Ticket
+from .metrics import RequestRecord, ServeMetrics, phase_summary, tenant_summary
+from .scheduler import (
+    ADMISSION_POLICIES, Request, Scheduler, synthetic_prompts, zipf_prefix_prompts,
+)
 from .state_pool import StatePool, masked_reset
 from .weight_store import (
     WEIGHT_FORMATS, PackedTensor, PackedTensor4, WeightStore, pack_floatsd4, pack_tree,
@@ -10,8 +14,11 @@ from .weight_store import (
 )
 
 __all__ = [
-    "ADMISSION_POLICIES", "Lane", "PackedTensor", "PackedTensor4", "Request", "Scheduler",
-    "ServeEngine", "ServeMetrics", "StatePool", "WEIGHT_FORMATS", "WeightStore",
-    "masked_reset", "pack_floatsd4", "pack_tree", "synthetic_prompts", "tree_nbytes",
-    "unpack_tree",
+    "ServeEngine", "Lane",
+    "ServeMetrics", "RequestRecord", "tenant_summary", "phase_summary",
+    "Scheduler", "Request", "ADMISSION_POLICIES", "synthetic_prompts", "zipf_prefix_prompts",
+    "StatePool", "masked_reset",
+    "PrefixCache", "Router", "AsyncRouter", "Ticket", "RequestRejected",
+    "WeightStore", "PackedTensor", "PackedTensor4", "WEIGHT_FORMATS",
+    "pack_tree", "pack_floatsd4", "unpack_tree", "tree_nbytes",
 ]

@@ -8,6 +8,14 @@ The zoo's ``CausalLM`` keeps a layer-major cache ([layers, lanes, ...] per
 leaf: the RWKV state, or the dense family's KV cache of ``cache_len``
 positions), which ``masked_reset`` passes through, as the reference's
 does; the engine serves such a model in lockstep, each lane once.
+
+Per-lane snapshots (the prefix cache's entries and the engine's preemption
+stash) are kept on the host as FP8: ``to_host_fp8`` casts every leaf with
+``core.fp8.cast_fp8`` (saturating) on the state's device and copies the
+bytes to the host in one transfer. numpy has no FP8 dtype, so a host
+snapshot is a tree of CPU ``torch.float8_e4m3fn`` tensors (their
+``uint8`` views are the bytes the reference's ml_dtypes arrays hold), and
+its dtypes tree holds torch dtypes.
 """
 from __future__ import annotations
 
@@ -16,8 +24,21 @@ from typing import Any
 import torch
 
 from .._tree import tree_leaves, tree_map
+from ..core import fp8
 
-__all__ = ["StatePool", "masked_reset"]
+__all__ = ["StatePool", "masked_reset", "to_host_fp8"]
+
+
+def to_host_fp8(states: Any, dtype=fp8.FP8_E4M3) -> tuple[Any, Any]:
+    """(the tree cast to ``dtype`` on the host, the tree of the original
+    leaf dtypes). Casts on the states' device, then one device-to-host copy
+    of all the leaves' bytes."""
+    leaves = tree_leaves(states)
+    q = [fp8.cast_fp8(x, dtype).reshape(-1) for x in leaves]
+    flat = torch.cat([t.view(torch.uint8) for t in q]).cpu()
+    pieces = iter(torch.split(flat, [t.numel() for t in q]))
+    host = tree_map(lambda x: next(pieces).view(dtype).reshape(x.shape), states)
+    return host, tree_map(lambda x: x.dtype, states)
 
 
 def masked_reset(caches: Any, mask: torch.Tensor) -> Any:
@@ -74,6 +95,19 @@ class StatePool:
             return c
 
         tree_map(_set, self.caches, snapshot)
+
+    def snapshot_fp8(self, lane: int, dtype=fp8.FP8_E4M3) -> tuple[Any, Any]:
+        """Host FP8 copy of lane ``lane``'s state plus the leaf dtypes: the
+        prefix cache's storage format (and its 2^-4 relative rounding
+        bound), the engine's preemption snapshot. Restored by
+        ``inject_fp8``."""
+        return to_host_fp8(self.extract(lane), dtype)
+
+    def inject_fp8(self, lane: int, snapshot: Any, dtypes: Any) -> None:
+        """Widen a ``snapshot_fp8`` tree back to the pool dtypes and
+        overwrite lane ``lane`` (an injected lane must not also be reset in
+        the same step: the reset would zero the injection)."""
+        self.inject(lane, tree_map(lambda q, dt: q.to(dt), snapshot, dtypes))
 
     def swap(self, new_caches: Any) -> None:
         """Install the post-step state (once per engine step)."""

@@ -1221,3 +1221,149 @@ def test_pipeline_and_checkpoints_on_the_card(dev, tmp_path):
     assert step == 4
     for a, b in zip(tree_leaves(restored), tree_leaves(state)):
         assert a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the serving frontend on the card: prefix cache, NaN guard, replica crash
+# ---------------------------------------------------------------------------
+
+
+def _decisive_weights(params, gain=3.0):
+    """Random LM weights scaled up so that greedy margins are decisive."""
+    for k in [k for k in params if k.startswith("lstm")]:
+        params[k]["wx"], params[k]["wh"] = params[k]["wx"] * gain, params[k]["wh"] * gain
+    params["embed"]["table"] = params["embed"]["table"] * 5.0
+    return params
+
+
+@pytest.mark.cuda
+def test_prefix_cache_round_trip_at_full_width_on_the_kernels(dev):
+    """The full-width LM serves a zipf-prefix workload into a prefix cache;
+    a snapshot's FP8 bytes cast on the card equal the host cast of the same
+    state; the warm run on the kernels gives the tokens, schedule and cache
+    statistics of the warm run on the plain versions from a copy of the
+    same cache (route A is bit for bit at serving shapes)."""
+    import copy
+
+    from repro_torch.configs import lstm_wikitext2
+    from repro_torch.core import fp8
+    from repro_torch.models import build
+    from repro_torch.serving import PrefixCache, ServeEngine, zipf_prefix_prompts
+
+    model = build(lstm_wikitext2.CONFIG)
+    params = model.init(_gen(dev, 0))
+    pol = get_policy("floatsd8_table6")
+    zipf = dict(prefix_len=24, prefix_seed=7)
+    warmup = zipf_prefix_prompts(12, model.vocab, np.random.default_rng(1), **zipf)
+    measure = zipf_prefix_prompts(12, model.vocab, np.random.default_rng(2), **zipf)
+    cache = PrefixCache(block=8)
+    eng = ServeEngine(model, params, pol, lanes=4, chunk=8, prefix_cache=cache)
+    eng.submit_all(warmup, max_new=4)
+    eng.step_once()
+    snap, dtypes = eng.pool.snapshot_fp8(0)
+    state = eng.pool.extract(0)
+    for got, x in zip(tree_leaves(snap), tree_leaves(state)):
+        assert got.device.type == "cpu"
+        assert torch.equal(got.view(torch.uint8), fp8.cast_fp8(x.cpu(), fp8.FP8_E4M3).view(torch.uint8))
+    assert [str(d) for d in tree_leaves(dtypes)] == ["torch.float32", "torch.float16"] * 2
+    eng.run()
+    ref_cache = copy.deepcopy(cache)
+    runs = {}
+    for backend, c in ((None, cache), ("ref", ref_cache)):
+        kd.STATS.reset()
+        e = ServeEngine(model, params, pol, lanes=4, chunk=8, prefix_cache=c, backend=backend)
+        reqs = e.submit_all(measure, max_new=6)
+        m = e.run()
+        runs[backend] = ([r.out for r in reqs], m.report(), c.stats(), kd.STATS.snapshot())
+    (out_k, rep_k, cs_k, st_k), (out_r, rep_r, cs_r, st_r) = runs[None], runs["ref"]
+    assert out_k == out_r
+    assert rep_k["cache_hits"] > 0 and rep_k["prefill_tokens_saved"] > 0
+    for key in ("steps", "prefill_steps", "cache_hits", "cache_full_hits", "prefill_tokens_saved"):
+        assert rep_k[key] == rep_r[key], key
+    assert cs_k == cs_r
+    assert st_k.get(("floatsd_matmul", "cuda"), 0) > 0 and st_k.get(("lstm_cell", "cuda"), 0) > 0
+    assert sum(n for (_, b), n in st_k.items() if b == "ref") == 0
+    assert sum(n for (_, b), n in st_r.items() if b == "cuda") == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", [0, 1])
+@pytest.mark.parametrize("backend", [None, "ref"])
+def test_nan_cell_state_lane_retires_numeric_error_on_the_kernels(dev, layer, backend):
+    """A NaN written into one lane's cell state (layer 0 or the last
+    layer) reaches that lane's logits and retires it as numeric_error, on
+    the kernels as on the plain versions; the other lane finishes. (The
+    cell kernel's gate LUT sends a NaN pre-activation to a finite 0, so the
+    guard rests on NaN travelling through c and the e5m2 tanh of g.)"""
+    from repro_torch.serving import ServeEngine
+
+    model = WikiText2LM(vocab=512, emb=64, hidden=64, n_layers=2)
+    eng = ServeEngine(model, model.init(_gen(dev, 3)), get_policy("floatsd8_table6"), lanes=2,
+                      chunk=4, backend=backend)
+    rng = np.random.default_rng(4)
+    a, b = eng.submit_all([rng.integers(0, 512, 3).astype(np.int32) for _ in range(2)], max_new=6)
+    kd.STATS.reset()
+    eng.step_once()  # both prompts fit one chunk: both lanes now decode
+    assert len(a.out) == len(b.out) == 1
+    eng.pool.caches[layer].c[1] = float("nan")
+    m = eng.run()
+    assert a.status == "done" and len(a.out) == 6
+    assert b.status == "numeric_error" and b.cancel_reason == "nonfinite_logits" and len(b.out) == 1
+    assert m.numeric_errors == 1
+    want = "ref" if backend == "ref" else "cuda"
+    assert kd.STATS.count("lstm_cell", want) > 0 and kd.STATS.count("floatsd_matmul", want) > 0
+
+
+@pytest.mark.cuda
+def test_two_replica_crash_plan_gives_the_fault_free_tokens_on_the_card(dev):
+    """Replica 1 crashes at its second step: it is ejected, its requests
+    finish on replica 0, every token equal to the fault-free run's."""
+    from repro_torch.faults import FAULTS
+    from repro_torch.serving import Router
+
+    model = WikiText2LM(vocab=512, emb=64, hidden=64, n_layers=2)
+    params = _decisive_weights(model.init(_gen(dev, 5)))
+    pol = get_policy("floatsd8_table6")
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, 512, int(rng.integers(4, 10))).astype(np.int32) for _ in range(8)]
+
+    def serve(plan):
+        router = Router.build(model, params, pol, replicas=2, lanes=2, chunk=4)
+        if plan:
+            FAULTS.arm(plan)
+        try:
+            ts = [router.submit(p, max_new=6) for p in prompts]
+            router.drain()
+        finally:
+            FAULTS.disarm()
+        return ts, router.stats()
+
+    ref, _ = serve(None)
+    got, stats = serve("seed=1;replica_crash@2:key=1")
+    assert [t.status for t in got] == ["done"] * 8
+    assert stats["ejections"] == 1 and stats["healthy_replicas"] == 1 and stats["resubmits"] > 0
+    assert [t.tokens for t in got] == [t.tokens for t in ref]
+    assert not FAULTS.enabled
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["floatsd8_table6", "fp32"])
+def test_dense_serving_on_the_card_matches_the_plain_path(dev, policy):
+    """packed=False: the products are f32 einsums (TF32 off) on both sides,
+    the cell runs its kernel against the plain version: the same tokens."""
+    from repro_torch.serving import ServeEngine
+
+    model = WikiText2LM(vocab=512, emb=64, hidden=64, n_layers=2)
+    params = _decisive_weights(model.init(_gen(dev, 7)))
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, 512, int(rng.integers(2, 11))).astype(np.int32) for _ in range(4)]
+    outs = {}
+    for backend in (None, "ref"):
+        kd.STATS.reset()
+        eng = ServeEngine(model, params, get_policy(policy), lanes=2, chunk=4, packed=False,
+                          backend=backend)
+        reqs = eng.submit_all(prompts, max_new=6)
+        eng.run()
+        outs[backend] = ([r.out for r in reqs], kd.STATS.snapshot())
+    assert outs[None][0] == outs["ref"][0]
+    assert outs[None][1] == {("lstm_cell", "cuda"): outs["ref"][1][("lstm_cell", "ref")]}

@@ -107,3 +107,16 @@ def test_walk_reaches_the_training_runtime_modules():
     assert {"repro_torch.obs", "repro_torch.obs.telemetry", "repro_torch.distributed",
             "repro_torch.distributed.checkpointing", "repro_torch.distributed.fault_tolerance",
             "repro_torch.data.pipeline"} <= names
+
+
+def test_walk_reaches_the_serving_frontend_modules():
+    """The blocked import above walks the serving frontend too: the fault
+    switchboard, the tracer, the prefix cache and the router."""
+    import pkgutil
+
+    import repro_torch
+
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
+    assert {"repro_torch.faults", "repro_torch.obs.trace", "repro_torch.serving.frontend",
+            "repro_torch.serving.frontend.prefix_cache",
+            "repro_torch.serving.frontend.router"} <= names

@@ -254,7 +254,7 @@ def test_scheduler_fifo_and_sjf():
         assert s.remove(99) is None
         assert [s.pop().rid for _ in lens] == want and s.pop() is None
     with pytest.raises(ValueError):
-        Scheduler("edf")
+        Scheduler("lifo")  # unknown (edf and sjf_work are ported since the frontend slice)
 
 
 def test_cli_serves_reduced_model_on_cpu(capsys):
