@@ -206,6 +206,42 @@ Phases, in order; the first failure exits non-zero:
                 a miss, FAULTS disarmed after. Every kernel run's
                 floatsd_matmul and lstm_cell launches equal the main path's
                 formula summed over the engines, every dispatch record cuda.
+ 17. http       the same LM behind HttpServer on 127.0.0.1 (2 replicas x 8
+                lanes, chunk 8, 3 tenants, the tracer on): (a) 32 random
+                prompts of 16-48 tokens, 16 new each, no prefix cache, one
+                connection each, half /v1/generate and half /v1/stream:
+                every request's tokens equal the same prompts in-process on
+                backend="ref"; (b) a DELETE mid-stream ends it with
+                done(status=cancelled) and all 16 lanes free; (d) /metrics
+                parses as Prometheus text, its dispatch counts all cuda and
+                equal to STATS, repro_cost_calls_total equal to the
+                launches (the main path's formula over the engines), the
+                launches' predicted bytes at least the plain version's
+                model's for the same calls; (e) /admin/trace validates
+                (scripts/check_trace.py) with the cost.<op> counter tracks;
+                (f) /admin/drain ends serve_forever within 30 s with a
+                client connected; (c) the frontend phase's 48 zipf-prefix
+                requests over HTTP with the FP8 prefix cache: hits, and
+                /metrics' cache counters equal to the cache's own stats;
+                (g) `launch/serve.py --full --http --port 0 --replicas 2`
+                as a subprocess: healthz, generate, stream, metrics (all
+                cuda) and drain through Client, exit 0 with its report line.
+                Printed: generated tok/s, TTFT p50/p95 per tenant and the
+                median decode pump beside the frontend phase's, and one
+                emit_counters call against the pump.
+
+Phase 3 ends with the cost ledger: every timed kernel row's launch cost
+model recorded with its measured time (STATS.add_time), LEDGER.table()
+printed with each row's achieved GB/s and GFLOP/s, and each row's bound from
+the plain version's cost model (device-memory bytes over 3.35 TB/s or 2 x
+MACs over the operands' peak) held within 1% of its hand bound, or the
+reason printed (the f32 flash rows: the hand bound counts the kernel's
+six-piece bf16 QK^T); then the cost models' mirrors against the libraries:
+the scratch of rwkv_wkv and flash_attention, each launcher's dynamic shared
+memory, and every kernel function's static shared memory against ptxas's.
+Phase 4 adds the ledger's host cost: one decode-shape floatsd_matmul call's
+bookkeeping over 10,000 calls, x 7 calls a step, under 2% of the main
+path's median decode step.
 
 The second-to-last line is nvidia-smi's name/power-limit line, the line
 before it the kernels' JSON record, and the last line the result JSON.
@@ -266,6 +302,24 @@ SPIN_CYCLES = 40_000_000  # ~20 ms of device time: longer than the host needs to
 def check(cond, msg: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+#: every timed kernel row of phase 3 with its dispatch op, its shape's cost
+#: models (the plain version's and the launch's) and the peak the cost
+#: model's bound uses: (op, what, row, ref Cost, cuda Cost, peak)
+COSTED: list = []
+
+
+def costed(row: dict, op: str, what: str, *dims, peak: str | None = None, cuda_kw=None, **kw) -> dict:
+    """Attach ``op``'s cost models at ``dims`` to a kernel row (for the
+    ledger phase); ``peak`` defaults to the row's bound's single type."""
+    from repro_torch.kernels.dispatch import COST_SPECS
+
+    fn = COST_SPECS[op].fn
+    peak = peak or (row["ops_peak"] if "+" not in row["ops_peak"] else "fp32")
+    COSTED.append((op, what, row, fn(*dims, backend="ref", **kw), fn(*dims, backend="cuda", **kw, **(cuda_kw or {})),
+                   peak))
+    return row
 
 
 def bound(nbytes: float, ops, peak: str = "fp32") -> dict:
@@ -551,7 +605,7 @@ def mm_row(torch, flush, x, codes, bias, tr, served: bool, what: str, ordered: b
           f"{' (ordered)' if ordered else ''}: max_abs_err {err:.3e}, {mism} of {m * n} not bit-identical, "
           f"two launches bit-identical | kernel {t:.4f} ms{extra}, plain {t_plain:.3f} ms, torch.matmul "
           f"{t_lib:.4f} ms, {fmt_bound(row)}", flush=True)
-    return row
+    return costed(row, "floatsd_matmul", f"{what} [{m},{k}]x[{k},{n}]", m, k, n, cuda_kw=dict(ordered=ordered))
 
 
 def dx_row(torch, flush, gr, codes, bias, ordered: bool) -> dict:
@@ -584,7 +638,7 @@ def dx_row(torch, flush, gr, codes, bias, ordered: bool) -> dict:
     print(f"  [{m},{n}] x codes[{k},{n}]^T, route {route}{' (ordered)' if ordered else ''}: max_abs_err "
           f"{row['err']:.3e}, {mism} of {m * k} not bit-identical, two launches bit-identical | kernel {t:.4f} ms, "
           f"plain {t_plain:.3f} ms, torch.matmul {t_lib:.4f} ms, {fmt_bound(row)}", flush=True)
-    return row
+    return costed(row, "floatsd_matmul_dx", f"[{m},{n}]xcodes[{k},{n}]^T", m, n, k, cuda_kw=dict(ordered=ordered))
 
 
 def dw_row(torch, flush, x, gr, quant: bool) -> dict:
@@ -620,7 +674,7 @@ def dw_row(torch, flush, x, gr, quant: bool) -> dict:
           f"({2.0 * m * k * n / t / 1e9:.1f} TFLOP/s, {t / row['bound_ms']:.2f}x the bound, {t / t_lib:.2f}x "
           f"torch.matmul), plain {t_plain:.3f} ms, torch.matmul(x.t(), g) (no FP8 snap) {t_lib:.4f} ms, "
           f"{fmt_bound(row)}", flush=True)
-    return row
+    return costed(row, "floatsd_matmul_dw", f"quant={quant} [{m},{k}]^Tx[{m},{n}]", k, m, n, quant=quant)
 
 
 def cell_row(torch, flush, z, c, what: str = "") -> dict:
@@ -644,7 +698,7 @@ def cell_row(torch, flush, z, c, what: str = "") -> dict:
                **bound(b * 4 * h * 4 + b * h * 2 + b * h * 4 + b * h * 2, float(b * h * CELL_OPS)))
     print(f"  [{b},{4 * h}] -> h,c [{b},{h}]{what}: max_abs_err {err:.3e}, {flips} of {b * h} differ, two "
           f"launches bit-identical | kernel {t:.4f} ms, plain {t_plain:.3f} ms, {fmt_bound(row)}", flush=True)
-    return row
+    return costed(row, "lstm_cell", f"[{b},{4 * h}]{what}", b, h, peak="fp32")
 
 
 def cell_grad_row(torch, flush, z, c, dh, dc, what: str = "") -> dict:
@@ -667,7 +721,7 @@ def cell_grad_row(torch, flush, z, c, dh, dc, what: str = "") -> dict:
     row = dict(ms=t, plain_ms=t_plain, err=err, **bound(46.0 * b * h, float(b * h * CELL_BWD_OPS)))
     print(f"  [{b},{4 * h}] + 3 x [{b},{h}] -> dz, dc_prev{what}: max_abs_err {err:.3e}, {flips} differ, two "
           f"launches bit-identical | kernel {t:.4f} ms, plain {t_plain:.3f} ms, {fmt_bound(row)}", flush=True)
-    return row
+    return costed(row, "lstm_cell_grad", f"[{b},{4 * h}]{what}", b, h, peak="fp32")
 
 
 def kernel_phase(torch, dev, flush, floor_ms):
@@ -799,7 +853,9 @@ def kernel_phase4(torch, dev, flush, floor_ms):
             t_lib = timed_ms(torch, lambda: torch.matmul(x, wk), 20, flush)
         bd = bound(x.numel() * 4 + codes.numel() + exps.numel() + m * n * 4, 2.0 * m * n * k, matmul_peak(x, wd))
         p = plan(m, n, k, ordered=True)
-        mm4[(site, m)] = dict(ms=t, plain_ms=t_plain, library_ms=t_lib, err=err, route=p.route, **bd)
+        mm4[(site, m)] = costed(dict(ms=t, plain_ms=t_plain, library_ms=t_lib, err=err, route=p.route, **bd),
+                                "floatsd4_matmul", f"{site} [{m},{k}]x[{k},{n}]", m, k, n,
+                                wt_nbytes=codes.numel() + exps.numel())
         print(f"  {site:8s} [{m},{k}] x {'table[N,K]^T' if tr else '[K,N]'} N={n}, route {p.route} (ordered, "
               f"{p.splits} chunks of {p.chunk} k): max_abs_err {err:.3e}, {mism} of {m * n} differ | kernel "
               f"{t:.4f} ms ({t / t_lib:.2f}x torch.matmul), plain {t_plain:.3f} ms, torch.matmul on the decoded f32 "
@@ -833,7 +889,8 @@ def kernel_phase4(torch, dev, flush, floor_ms):
         t = timed_ms(torch, lambda: floatsd_quantize(x, bias), 20, flush)
         t_plain = timed_ms(torch, lambda: floatsd.encode(x, bias), 5, flush)
         bd = bound(x.numel() * (x.element_size() + 1) + 4, float(x.numel() * QUANT_OPS))
-        quant[name] = dict(ms=t, plain_ms=t_plain, library_ms=None, err=0.0, **bd)
+        quant[name] = costed(dict(ms=t, plain_ms=t_plain, library_ms=None, err=0.0, **bd), "floatsd_quantize",
+                             f"{name} {list(shape)}", x.numel(), x_bytes=x.element_size())
         print(f"  {name:8s} {list(shape)} {str(dt)[6:]}{f', {offset} elements past a 16-element boundary' if offset else ''}: "
               f"{mism} of {x.numel()} codes differ, two launches bit-identical | kernel {t:.4f} ms, "
               f"plain {t_plain:.3f} ms, {fmt_bound(bd)}; no library call")
@@ -891,7 +948,8 @@ def kernel_phase4(torch, dev, flush, floor_ms):
         t = timed_ms(torch, lambda: qsigmoid(x), 50, flush)
         t_plain = timed_ms(torch, lambda: qsigmoid_raw(x), 10, flush)
         bd = bound(x.numel() * 8, float(x.numel() * QSIG_OPS))
-        qsig[shape] = dict(ms=t, plain_ms=t_plain, library_ms=None, err=err, bf16_differ=n_bf, **bd)
+        qsig[shape] = costed(dict(ms=t, plain_ms=t_plain, library_ms=None, err=err, bf16_differ=n_bf, **bd),
+                             "qsigmoid", f"{list(shape)} f32", x.numel())
         print(f"  {list(shape)} f32: max_abs_err {err:.3e}, {mism} of {x.numel()} differ, two launches bit-identical | bf16 input: {n_bf} of "
               f"{x.numel()} differ (kernel sigma in f32, plain in bf16), max {err_bf:.3e} | kernel {t:.4f} ms, "
               f"plain {t_plain:.3f} ms, {fmt_bound(bd)}; no library call")
@@ -906,6 +964,147 @@ def kernel_phase4(torch, dev, flush, floor_ms):
     print(f"  every f32 bit pattern (2^32, {(1 << 32) // chunk} chunks of 2^{F32_SWEEP_LOG2_CHUNK}): 0 differ from the "
           f"plain version, in {sweep_s:.1f} s")
     return mm4, quant, qsig
+
+
+BOUND_RTOL = 0.01  # the cost model's bound against the hand bound of the same row
+
+
+def model_bound_ms(cost, peak: str) -> float:
+    """The least time by the plain version's cost model: its device-memory
+    bytes over the HBM rate, or 2 x its MACs over the peak of the operands'
+    type, whichever is larger (ms)."""
+    rate = {"fp32": FP32_OPS_PER_S, "tf32": TF32_OPS_PER_S, "bf16": BF16_OPS_PER_S}[peak]
+    return max(cost.hbm_bytes / HBM_BYTES_PER_S, 2.0 * cost.macs / rate) * 1e3
+
+
+def ledger_phase(smi: str) -> dict:
+    """Phase 3, continued: every timed kernel row through the dispatch
+    layer's cost ledger. Each row's launch cost model is recorded with its
+    measured time (STATS.add_time), the ledger's table printed with each
+    (op, cuda) row's achieved GB/s and GFLOP/s, and each row's bound from the
+    plain version's cost model held within 1% of the row's hand bound (or
+    the reason it differs printed). Returns the model bounds by row."""
+    from repro_torch.kernels import dispatch as kd
+
+    kd.STATS.reset()
+    print(f"ledger: the cost model of each kernel row ({len(COSTED)} rows; bound = max(ref bytes / 3.35 TB/s, "
+          f"2 x ref MACs / the operands' peak), within {BOUND_RTOL:.0%} of the hand bound; {smi})", flush=True)
+    agree, kept = 0, []
+    for op, what, row, ref, cuda, peak in COSTED:
+        kd.STATS.record(kd.Decision(op, "cuda", "kernel phase row", cuda))
+        kd.STATS.add_time(op, "cuda", row["ms"] / 1e3)
+        mb, hand = model_bound_ms(ref, peak), row["bound_ms"]
+        rel = abs(mb - hand) / hand
+        row["model_bound_ms"] = mb
+        note = ""
+        if rel > BOUND_RTOL:
+            # the one stated exception: the hand bound of an f32 flash row
+            # counts QK^T as six exact-piece bf16 products at the 16-bit peak
+            # (the kernel's method), the model the function's MACs at FP32
+            check(op == "flash_attention" and peak == "fp32",
+                  f"ledger: {op} {what}: the cost model's bound {mb:.5f} ms is {rel:.2%} from the hand bound "
+                  f"{hand:.5f} ms")
+            kept.append(what)
+            note = (" (hand bound kept: it counts the f32 QK^T as six exact-piece bf16 products on the tensor "
+                    "cores, the kernel's method; the model counts the function's MACs at the FP32 peak)")
+        else:
+            agree += 1
+        print(f"  {op} {what}: hand bound {hand:.5f} ms, cost-model bound {mb:.5f} ms ({rel:.3%}){note}; cuda model "
+              f"{cuda.hbm_bytes / 1e6:.3f} MB, {cuda.flops / 1e9:.4f} GFLOP, smem {cuda.smem_bytes} B; kernel "
+              f"{row['ms']:.4f} ms: {cuda.hbm_bytes / row['ms'] / 1e6:.1f} GB/s, "
+              f"{cuda.flops / row['ms'] / 1e6:.1f} GFLOP/s", flush=True)
+    print(kd.LEDGER.table(), flush=True)
+    for r in kd.LEDGER.rows():
+        print(f"  {r['op']}/{r['backend']}: {r['calls']} rows, measured {r['measured_bytes_per_s'] / 1e9:.1f} GB/s "
+              f"and {r['measured_flops_per_s'] / 1e9:.1f} GFLOP/s of the model's bytes and FLOPs", flush=True)
+    print(f"ledger: {agree} of {len(COSTED)} cost-model bounds within {BOUND_RTOL:.0%} of the hand bound; "
+          f"hand bound kept for {kept}", flush=True)
+    kd.STATS.reset()
+    return {"rows": len(COSTED), "agree": agree, "kept": kept}
+
+
+def ptxas_static_smem(log: str) -> dict:
+    """{mangled entry function: static shared memory bytes} from a ptxas -v
+    log (a function without "bytes smem" has none)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            out[name] = 0
+        elif name and "registers" in line and "Used" in line:
+            m = re.search(r"(\d+) bytes smem", line)
+            out[name] = int(m.group(1)) if m else 0
+    return out
+
+
+def mirror_phase(torch, build) -> None:
+    """Phase 3, continued: the cost model's mirrors of the kernels' sizes
+    against the libraries: the scratch of rwkv_wkv and flash_attention at
+    the kernel phase's shapes, each launcher's dynamic shared memory, and
+    each kernel function's static shared memory against ptxas's."""
+    from repro_torch.kernels.flash_attention import cost as fa_cost
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.floatsd4_matmul import cost as fm4_cost
+    from repro_torch.kernels.floatsd4_matmul import ops as fm4_ops
+    from repro_torch.kernels.floatsd_matmul import cost as fm_cost
+    from repro_torch.kernels.floatsd_matmul import ops as fm_ops
+    from repro_torch.kernels.floatsd_quantize import cost as fq_cost
+    from repro_torch.kernels.lstm_cell import cost as lc_cost
+    from repro_torch.kernels.rwkv_wkv import cost as rw_cost
+    from repro_torch.kernels.rwkv_wkv import ops as rw_ops
+
+    n = 0
+    for b, h, s, k in [(ZOO_B, 40, ZOO_S, 64), (ZOO_B, 40, 1000, 64), (1, 3, 17, 100), (2, 1, 33, 128)]:
+        check(rw_ops.library_scratch_bytes(b, h, s, k) == rw_cost.scratch_bytes(b, h, s, k),
+              f"rwkv_wkv scratch mirror at {(b, h, s, k)}")
+        n += 1
+    for k in (1, 64, 65, 128):
+        for walk in (False, True):
+            want = rw_cost.walk_smem(k) if walk else rw_cost.prep_smem(k)
+            check(rw_ops.library_smem_bytes(k, walk) == want, f"rwkv_wkv smem mirror at K {k}, walk {walk}")
+            n += 1
+    for dt in (torch.float32, torch.bfloat16):
+        e = torch.tensor([], dtype=dt).element_size()
+        for b, skv, kh, d in [(ZOO_B, ZOO_S, 8, 120), (1, 8192, 8, 120), (ZOO_B, 1000, 8, 120), (1, 17, 1, 8)]:
+            check(fa_ops.library_scratch_bytes(b, skv, kh, d, dt) == fa_cost.scratch_bytes(b, skv, kh, d, e),
+                  f"flash_attention scratch mirror at {(b, skv, kh, d, dt)}")
+            n += 1
+        for d in (8, 64, 65, 120, 128):
+            check(fa_ops.library_smem_bytes(d, dt) == fa_cost.fwd_smem(d, e), f"flash smem mirror at D {d}, {dt}")
+            n += 1
+    for m in (1, 8, 9, 16, 17, 32, 33, 64, 65, 128, 3072):
+        want = fm_cost.a_smem(fm_cost.a_row_tile(m))
+        check(fm_ops.library_smem_bytes(m, "A") == want == fm4_ops.library_smem_bytes(m),
+              f"route A smem mirror at M {m}")
+        n += 2
+    check(fm_ops.library_smem_bytes(128, "B") == fm_cost.B_SMEM, "route B smem mirror")
+    check(fm_ops.library_dw_smem_bytes() == fm_cost.DW_SMEM, "matmul_dw smem mirror")
+    n += 2
+    static = {
+        "floatsd_matmul": fm_cost.STATIC_SMEM, "floatsd_matmul_dw": fm_cost.STATIC_SMEM,
+        "floatsd4_matmul": {**fm4_cost.STATIC_SMEM, "split_pieces": fm_cost.STATIC_SMEM["split_pieces"]},
+        "lstm_cell": {"lstm_cell_kernel": None}, "lstm_cell_bwd": {"lstm_cell_bwd_kernel": None},
+        "qsigmoid": {"qsigmoid_kernel": lc_cost.static_smem(True)},
+        "floatsd_quantize": {"quantize_kernel": fq_cost.STATIC_SMEM},
+        "rwkv_wkv": rw_cost.STATIC_SMEM, "flash_attention": fa_cost.STATIC_SMEM,
+    }
+    seen = 0
+    for op, table in static.items():
+        funcs = ptxas_static_smem(build.build_log(op))
+        if not funcs:  # a library loaded from the build cache: cuobjdump reads the same field
+            usage = cuobjdump(build, op, "-res-usage") or ""
+            funcs = {name: int(dict(re.findall(r"(\w+):(\d+)", u)).get("SHARED", -1))
+                     for name, u in re.findall(r"Function (\S+?):?\s*\n\s*(REG:.*)", usage)}
+        check(funcs, f"{op}: neither a ptxas report nor cuobjdump -res-usage")
+        for mangled, got in funcs.items():
+            name = next((f for f in table if f in mangled), None)
+            check(name is not None, f"{op}: kernel function {mangled} has no static shared memory mirror")
+            # the cells' table is quantized-only: table[Q ? kSigTable : 1] (Q mangled as Lb1E / Lb0E)
+            want = table[name] if table[name] is not None else lc_cost.static_smem("Lb1E" in mangled)
+            check(got == want, f"{op}: {name} ({mangled}) static shared memory {got} B, the mirror {want} B")
+            seen += 1
+    print(f"mirrors: {n} scratch and dynamic shared-memory sizes equal the libraries' own; the static shared memory "
+          f"of {seen} kernel functions (9 libraries) equals ptxas's", flush=True)
 
 
 def serve(torch, model, params, policy, prompts, backend=None, step_times=None, weight_format="floatsd8"):
@@ -1858,7 +2057,8 @@ def wkv_phase(torch, dev, flush):
         t_plain = timed_ms(torch, lambda: wkv_ref(r, kk, vv, w, u), 3, flush)
         nbytes = 4.0 * (b * s * h * (3 * k + k) + h * k + b * s * h * k + b * h * k * k)
         bd = bound(nbytes, wkv_ops(b, s, h, k, k))
-        rows[(s, w0)] = dict(ms=t, plain_ms=t_plain, library_ms=None, err=err, **bd)
+        rows[(s, w0)] = costed(dict(ms=t, plain_ms=t_plain, library_ms=None, err=err, **bd), "rwkv_wkv",
+                               f"[{b},{s},{h},{k}] w0 {w0}", b, s, h, k, k, peak="fp32")
         print(f"  [B {b}, S {s}, H {h}, K = V = {k}] w0 {w0}: max_abs_err {err:.3e} (|y| max "
               f"{float(y_r.abs().max()):.3e}); {n_rel} of {y.numel() + s_fin.numel()} beyond rtol = atol = "
               f"{WKV_TOL}, the worst {n_terms:.2e} of its terms' magnitudes; two launches bit-identical | kernel {t:.4f} ms, plain "
@@ -1909,7 +2109,8 @@ def zoo_matmul_phase(torch, dev, flush, model="rwkv6_3b", sites=ZOO_MM_SITES, se
                 t_lib = timed_ms(torch, lambda: torch.matmul(x, wk), 10, flush)
             bd = bound(x.numel() * 4 + codes.numel() + 4 + m * n * 4, 2.0 * m * n * k,
                        matmul_peak(x, floatsd.decode(codes, 0)))
-            rows[(site, m)] = dict(ms=t, plain_ms=t_plain, library_ms=t_lib, err=err, route=route, **bd)
+            rows[(site, m)] = costed(dict(ms=t, plain_ms=t_plain, library_ms=t_lib, err=err, route=route, **bd),
+                                     "floatsd_matmul", f"{model} {site} [{m},{k}]x[{k},{n}]", m, k, n)
             print(f"  {site:6s} [{m},{k}] x {'[N,K]^T' if tr else '[K,N]'} N={n}, route {route}: max_abs_err "
                   f"{err:.3e}, {mism} of {m * n} not bit-identical, two launches bit-identical"
                   + ("" if control is None else f", a code moved one mantissa step {control} beyond the bound")
@@ -2361,7 +2562,10 @@ def flash_phase(torch, dev, flush):
             del qt, kt, vt, lib, lib_kw
         pairs = b * h * attend_pairs(s, s, causal, window)
         bd = bound(q.element_size() * (2 * q.numel() + k.numel() + v.numel()), flash_ops(pairs * d, q, k))
-        rows[name] = dict(ms=t, plain_ms=t_plain, library_ms=t_lib, err=max(e for e, _ in errs.values()), **bd)
+        rows[name] = costed(dict(ms=t, plain_ms=t_plain, library_ms=t_lib, err=max(e for e, _ in errs.values()), **bd),
+                            "flash_attention", f"{name} q [{b},{s},{h},{d}] {str(dt)[6:]}", b, s, s, h, kh, d,
+                            peak="bf16" if dt == torch.bfloat16 else "fp32", causal=causal, window=window,
+                            elem_bytes=q.element_size())
         print(f"  {name:8s} q [{b},{s},{h},{d}], k, v [{b},{s},{kh},{d}] {str(dt)[6:]}, causal {causal}, window "
               f"{window}: vs oracle max_abs_err {errs['oracle'][0]:.3e} ({errs['oracle'][1]} of {o.numel()} not "
               f"bit-identical), vs plain {errs['plain'][0]:.3e} ({errs['plain'][1]} not bit-identical); |o| max "
@@ -2695,7 +2899,10 @@ def frontend_phase(torch, model, params, policy, smi):
     check(rw["cache_hit_rate"] > 0.5 and rw["prefill_tokens_saved"] > 0,
           f"frontend: warm hit rate {rw['cache_hit_rate']:.3f}, saved {rw['prefill_tokens_saved']}")
     full, prefix = front_agree(warm_t, cold_t)
+    perf = {}
     for name, r, wall, pumps in (("cold", rc, cold_wall, cold_pumps), ("warm", rw, warm_wall, warm_pumps)):
+        perf[name] = dict(tok_s=r["emitted_tokens"] / wall, pump_ms=statistics.median(pumps) * 1e3,
+                          ttft_ms={k: (v["ttft_p50_s"] * 1e3, v["ttft_p95_s"] * 1e3) for k, v in r["tenants"].items()})
         tenants = "; ".join(f"{k} TTFT p50 {v['ttft_p50_s'] * 1e3:.3f} ms p95 {v['ttft_p95_s'] * 1e3:.3f} ms"
                             for k, v in r["tenants"].items())
         print(f"frontend {name}: {FRONT_REQUESTS} zipf-prefix requests (prefix {FRONT_PREFIX}, seed "
@@ -2805,7 +3012,330 @@ def frontend_phase(torch, model, params, policy, smi):
           f"fault-free run injected the FP8 one); FAULTS disarmed", flush=True)
     print(f"frontend: launches {launches} (every record cuda); phase {time.perf_counter() - t_phase:.1f} s",
           flush=True)
-    return dict(launches=launches)
+    return dict(launches=launches, perf=perf)
+
+
+# the HTTP/SSE service (phase 17): the main path's full-width LM behind
+# HttpServer on 127.0.0.1, the frontend phase's router shape (2 replicas x 8
+# lanes, chunk 8, 3 tenants)
+HTTP_REQUESTS, HTTP_PROMPT_LEN = 32, (16, 48)  # random prompts of 16-48 tokens, no prefix cache
+HTTP_TIMEOUT = 120  # seconds: a hung socket fails the phase, not the whole call
+HTTP_DRAIN_S = 30  # /admin/drain must end serve_forever within this, clients connected
+LEDGER_CALLS = 10_000  # decode-shape bookkeeping calls timed on the host
+STEP_CALLS = 7  # dispatch calls a decode step: 2 layers x (2 gate matmuls + a cell) + the head
+HTTP_CLI = ["--full", "--http", "--port", "0", "--replicas", str(FRONT_REPLICAS)]  # phase 17 (g)
+
+
+def parse_prometheus(text: str) -> dict:
+    """{name{labels}: value} of a Prometheus text exposition; fails on a
+    line that is neither a comment (HELP/TYPE) nor a sample."""
+    sample = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^{}]*\})? [-+]?[0-9.e+-]+(e[+-]?\d+)?$")
+    out = {}
+    for line in text.strip().splitlines():
+        if line.startswith("#"):
+            check(line.startswith(("# HELP ", "# TYPE ")), f"http: /metrics comment line {line!r}")
+            continue
+        check(bool(sample.match(line)), f"http: /metrics line {line!r} is not Prometheus text")
+        name, value = line.rsplit(" ", 1)
+        out[name] = float(value)
+    return out
+
+
+def timed_pumps(router) -> list:
+    """Wrap ``router.pump`` (which the server's worker thread calls) to
+    record the host time of each pump in which no replica prefilled."""
+    pumps, pump = [], router.pump
+
+    def timed():
+        pre = sum(e.metrics.prefill_steps for e in router.engines)
+        t = time.perf_counter()
+        more = pump()
+        if sum(e.metrics.prefill_steps for e in router.engines) == pre:
+            pumps.append(time.perf_counter() - t)
+        return more
+
+    router.pump = timed
+    return pumps
+
+
+def validate_trace(trace: dict) -> list:
+    """scripts/check_trace.py's checks of a Chrome trace export (a stdlib
+    script beside the JAX package, loaded by path)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("check_trace", ROOT / "scripts" / "check_trace.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.validate_trace(trace)
+
+
+def http_phase(torch, model, params, policy, smi, front) -> dict:
+    """Phase 17: the HTTP/SSE service at full width on the kernels."""
+    import asyncio
+    import os
+
+    import numpy as np
+
+    from repro_torch.kernels import dispatch as kd
+    from repro_torch.kernels.floatsd_matmul import cost as fm_cost
+    from repro_torch.kernels.floatsd_matmul.ops import floatsd_matmul
+    from repro_torch.kernels.lstm_cell import cost as lc_cost
+    from repro_torch.kernels.lstm_cell.ops import lstm_cell
+    from repro_torch.obs.trace import TRACER
+    from repro_torch.serving import PrefixCache, Router, zipf_prefix_prompts
+    from repro_torch.serving.http import Client, HttpError, HttpServer
+
+    t_phase = time.perf_counter()
+    V = model.vocab
+    rng = np.random.default_rng(SEED + 31)
+    prompts = [rng.integers(0, V, int(rng.integers(HTTP_PROMPT_LEN[0], HTTP_PROMPT_LEN[1] + 1))).astype(np.int32)
+               for _ in range(HTTP_REQUESTS)]
+    tenant = lambda i: f"tenant{i % FRONT_TENANTS}"  # noqa: E731
+
+    def build(cache=None, backend=None):
+        return Router.build(model, params, policy, replicas=FRONT_REPLICAS, prefix_cache=cache,
+                            router_kw=dict(max_queue=4 * FRONT_REQUESTS), lanes=LANES, chunk=CHUNK, backend=backend)
+
+    def want_launches(engines) -> dict:
+        L, want = engines[0].model.n_layers, {"floatsd_matmul": 0, "lstm_cell": 0}
+        for e in engines:
+            positions = CHUNK * e.metrics.prefill_steps + e.metrics.decode_steps
+            want["floatsd_matmul"] += 2 * L * positions + e.metrics.steps
+            want["lstm_cell"] += L * positions
+        return want
+
+    async def one(host, port, i, p, stream, max_new=MAX_NEW):
+        async with Client(host, port, tenant=tenant(i), timeout_s=HTTP_TIMEOUT) as c:
+            if not stream:
+                return (await c.generate(p, max_new=max_new))["tokens"]
+            return [d["token"] async for ev, d in c.stream(p, max_new=max_new) if ev == "message"]
+
+    # (a) no prefix cache: concurrent clients, half /v1/generate, half /v1/stream;
+    # (b) a DELETE mid-stream; (d) /metrics; (e) /admin/trace; (f) /admin/drain
+    router = build()
+    pumps = timed_pumps(router)
+    kd.STATS.reset()
+    floatsd_matmul.launches = lstm_cell.launches = 0
+
+    async def run_a():
+        server = await HttpServer(router, port=0).start()
+        task = asyncio.create_task(server.serve_forever())
+        admin = Client(server.host, server.port, timeout_s=HTTP_TIMEOUT)
+        try:
+            TRACER.clear()
+            t0 = time.perf_counter()
+            toks = await asyncio.gather(*(one(server.host, server.port, i, p, i % 2 == 1)
+                                          for i, p in enumerate(prompts)))
+            wall = time.perf_counter() - t0
+            streamer = Client(server.host, server.port, timeout_s=HTTP_TIMEOUT)
+            gen = streamer.stream(prompts[0], max_new=512)
+            rid = (await gen.__anext__())[1]["rid"]
+            check((await gen.__anext__())[0] == "message", "http: the stream to cancel sent no token")
+            check(await admin.cancel(rid) == {"rid": rid, "cancelled": True}, "http: DELETE refused")
+            done = [ev async for ev in gen][-1]
+            await streamer.close()
+            health = await admin.healthz()
+            text = await admin.metrics()
+            snapshot = kd.STATS.snapshot()
+            launches = {"floatsd_matmul": floatsd_matmul.launches, "lstm_cell": lstm_cell.launches}
+            trace = await admin.trace()
+            t_drain = time.perf_counter()
+            drained = await admin.drain()  # the admin connection stays open
+            await asyncio.wait_for(task, HTTP_DRAIN_S)
+            drain_s = time.perf_counter() - t_drain
+            return toks, wall, done, health, text, snapshot, launches, trace, drained, drain_s
+        finally:
+            await admin.close()
+            if not task.done():
+                server.shutdown()
+                await asyncio.wait_for(task, HTTP_DRAIN_S)
+
+    toks, wall, done, health, text, snapshot, launches, trace, drained, drain_s = asyncio.run(
+        asyncio.wait_for(run_a(), 4 * HTTP_TIMEOUT))
+    rep = router.report()
+    TRACER.disable()
+    TRACER.clear()
+    check(all(len(t) == MAX_NEW for t in toks), "http: a request did not get its tokens")
+    check(done[0] == "done" and done[1].get("status") == "cancelled" and done[1].get("reason") == "client_cancel",
+          f"http: the cancelled stream ended with {done}")
+    check(health["free_lanes"] == health["lanes"] == FRONT_REPLICAS * LANES, f"http: lanes after DELETE {health}")
+    # the same prompts in-process on the plain versions (route A is bit for
+    # bit and a row's sum does not depend on the rows beside it, so arrival
+    # order does not matter)
+    plain = build(backend="ref")
+    tickets = [plain.submit(p.copy(), max_new=MAX_NEW, tenant=tenant(i)) for i, p in enumerate(prompts)]
+    plain.drain()
+    differ = [i for i, (a, t) in enumerate(zip(toks, tickets)) if a != t.tokens]
+    check(not differ, f"http: requests {differ} differ from the in-process run on backend=\"ref\"")
+    # (d) the scrape against the counters, the launches and the ref cost model
+    m = parse_prometheus(text)
+    want = want_launches(router.engines)
+    check(launches == want, f"http: launches {launches} != the formula's {want}")
+    check(all(be == "cuda" for _, be in snapshot), f"http: dispatch records {snapshot}")
+    for (op, be), n in snapshot.items():
+        lbl = f'{{op="{op}",backend="{be}"}}'
+        check(m[f"repro_dispatch_decisions_total{lbl}"] == n, f"http: /metrics dispatch {op} against STATS {n}")
+    for op in ("floatsd_matmul", "lstm_cell"):
+        lbl = f'{{op="{op}",backend="cuda"}}'
+        check(m[f"repro_cost_calls_total{lbl}"] == launches[op] == snapshot[(op, "cuda")],
+              f"http: repro_cost_calls_total {op} {m[f'repro_cost_calls_total{lbl}']} != launches {launches[op]}")
+    shapes = {id(d): key for key, d in kd._DECISIONS.items()}
+    ref_bytes = {"floatsd_matmul": 0, "lstm_cell": 0}
+    for d, n, _ in kd.STATS._entries():
+        if d.backend != "cuda":  # the plain run above
+            continue
+        op, _, _, sh = shapes[id(d)]
+        ref = (fm_cost.matmul_fwd_cost(*sh[:3], backend="ref") if op == "floatsd_matmul" else
+               lc_cost.lstm_cell_cost(*sh[:2], backend="ref", z_bytes=sh[2], c_in_bytes=sh[3], h_out_bytes=sh[4],
+                                      c_out_bytes=sh[5], quantized=sh[6]))
+        ref_bytes[op] += n * ref.hbm_bytes
+    cuda_bytes = {op: m[f'repro_cost_hbm_read_bytes_total{{op="{op}",backend="cuda"}}']
+                  + m[f'repro_cost_hbm_write_bytes_total{{op="{op}",backend="cuda"}}'] for op in ref_bytes}
+    check(all(cuda_bytes[op] >= ref_bytes[op] > 0 for op in ref_bytes),
+          f"http: the launches' predicted bytes {cuda_bytes} below the ref model's {ref_bytes}")
+    # (e) the trace
+    problems = validate_trace(trace)
+    names = {e["name"] for e in trace["traceEvents"]}
+    check(not problems, f"http: /admin/trace: {problems[:5]}")
+    check({"cost.floatsd_matmul", "cost.lstm_cell", "http.request", "router.pump"} <= names,
+          f"http: /admin/trace lacks tracks: {sorted(names)[:20]}")
+    check(drained["status"] == "draining" and drain_s < HTTP_DRAIN_S, f"http: drain {drained} in {drain_s:.1f} s")
+    tenants = "; ".join(f"{k} TTFT p50 {v['ttft_p50_s'] * 1e3:.3f} ms p95 {v['ttft_p95_s'] * 1e3:.3f} ms"
+                        for k, v in rep["tenants"].items() if "ttft_p50_s" in v)  # not the cancelled stream's
+    pump_ms = statistics.median(pumps) * 1e3
+    tok_s = HTTP_REQUESTS * MAX_NEW / wall
+    cold = front["perf"]["cold"]
+    print(f"http (a): {HTTP_REQUESTS} requests (prompts of {HTTP_PROMPT_LEN[0]}-{HTTP_PROMPT_LEN[1]} tokens, "
+          f"{MAX_NEW} new; half /v1/generate, half /v1/stream; {FRONT_TENANTS} tenants, one connection each), "
+          f"{FRONT_REPLICAS} replicas x {LANES} lanes, chunk {CHUNK}, no prefix cache: every request's tokens equal "
+          f"the in-process run on backend=\"ref\"; {tok_s:.1f} generated tok/s over {wall:.3f} s; median decode pump "
+          f"{pump_ms:.3f} ms over {len(pumps)}; {tenants} | the in-process frontend phase (cold, 48 zipf-prefix "
+          f"requests): {cold['tok_s']:.1f} tok/s, pump {cold['pump_ms']:.3f} ms ({smi})", flush=True)
+    print(f"http (b, d-f): DELETE mid-stream -> done(status=cancelled) and {health['free_lanes']} free lanes; "
+          f"/metrics parses ({len(m)} samples), dispatch {dict((f'{o}/{b}', n) for (o, b), n in snapshot.items())} "
+          f"= STATS, repro_cost_calls_total = launches {launches}, the launches' predicted bytes {cuda_bytes} >= the "
+          f"ref model's {ref_bytes}; /admin/trace valid ({len(trace['traceEvents'])} events, cost.floatsd_matmul and "
+          f"cost.lstm_cell tracks); /admin/drain ended serve_forever in {drain_s:.2f} s with a client connected",
+          flush=True)
+
+    # (c) the frontend phase's 48 zipf-prefix requests over HTTP with the FP8 prefix cache
+    cache = PrefixCache(block=CHUNK)
+    router_c = build(cache)
+    zipf = zipf_prefix_prompts(FRONT_REQUESTS, V, np.random.default_rng(SEED + 21), prefix_len=FRONT_PREFIX,
+                               prefix_seed=FRONT_PREFIX_SEED)
+    kd.STATS.reset()
+    floatsd_matmul.launches = lstm_cell.launches = 0
+
+    async def run_c():
+        server = await HttpServer(router_c, port=0, trace=False).start()
+        task = asyncio.create_task(server.serve_forever())
+        try:
+            out = await asyncio.gather(*(one(server.host, server.port, i, p, i % 2 == 1) for i, p in enumerate(zipf)))
+            async with Client(server.host, server.port, timeout_s=HTTP_TIMEOUT) as c:
+                text = await c.metrics()
+                await c.drain()
+            await asyncio.wait_for(task, HTTP_DRAIN_S)
+            return out, text
+        finally:
+            if not task.done():
+                server.shutdown()
+                await asyncio.wait_for(task, HTTP_DRAIN_S)
+
+    out_c, text_c = asyncio.run(asyncio.wait_for(run_c(), 4 * HTTP_TIMEOUT))
+    mc, cst = parse_prometheus(text_c), cache.stats()
+    launches_c = {"floatsd_matmul": floatsd_matmul.launches, "lstm_cell": lstm_cell.launches}
+    check(launches_c == want_launches(router_c.engines), f"http (c): launches {launches_c}")
+    check(all(len(t) == MAX_NEW for t in out_c), "http (c): a request did not get its tokens")
+    pairs = {"repro_cache_hits_total": cst["hits"], "repro_cache_lookups_total": cst["hits"] + cst["misses"],
+             "repro_cache_entries": cst["entries"], "repro_cache_bytes": cst["nbytes"],
+             "repro_cache_evictions_total": cst["evictions"], "repro_cache_corruptions_total": cst["corruptions"]}
+    check(all(mc[k] == v for k, v in pairs.items()), f"http (c): /metrics {[(k, mc[k], v) for k, v in pairs.items()]}")
+    check(cst["hits"] > 0, f"http (c): no prefix-cache hit: {cst}")
+    print(f"http (c): {FRONT_REQUESTS} zipf-prefix requests over HTTP with the FP8 prefix cache: hit rate "
+          f"{cst['hits'] / (cst['hits'] + cst['misses']):.4f}, {router_c.report()['prefill_tokens_saved']} prefill "
+          f"tokens saved; /metrics' cache counters equal the cache's own stats {pairs}; launches {launches_c}",
+          flush=True)
+
+    # (g) the CLI as a subprocess
+    cli = [sys.executable, "-m", "repro_torch.launch.serve", *HTTP_CLI]
+
+    async def run_g():
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        proc = await asyncio.create_subprocess_exec(*cli, cwd=str(ROOT), env=env, stdout=asyncio.subprocess.PIPE,
+                                                    stderr=asyncio.subprocess.PIPE)
+        try:
+            line = (await asyncio.wait_for(proc.stdout.readline(), 4 * HTTP_TIMEOUT)).decode()
+            check(line.startswith("http: listening on http://"), f"http (g): the CLI printed {line!r}")
+            host, port = line.split("http://", 1)[1].split()[0].rsplit(":", 1)
+            async with Client(host, int(port), timeout_s=HTTP_TIMEOUT) as c:
+                health = await c.healthz()
+                gen = await c.generate(prompts[1], max_new=MAX_NEW)
+                streamed = [d["token"] async for ev, d in c.stream(prompts[2], max_new=MAX_NEW) if ev == "message"]
+                text = await c.metrics()
+                drained = await c.drain()
+            out, err = await asyncio.wait_for(proc.communicate(), HTTP_TIMEOUT)
+            return health, gen, streamed, text, drained, proc.returncode, out.decode(), err.decode()
+        finally:
+            if proc.returncode is None:
+                proc.kill()
+                await proc.wait()
+
+    health, gen, streamed, text_g, drained, rc, out_g, err_g = asyncio.run(run_g())
+    mg = parse_prometheus(text_g)
+    dispatch_g = {k: v for k, v in mg.items() if k.startswith("repro_dispatch_decisions_total")}
+    check(rc == 0, f"http (g): the CLI exited {rc}: {err_g[-2000:]}")
+    check(health["replicas"] == FRONT_REPLICAS and len(gen["tokens"]) == len(streamed) == MAX_NEW,
+          "http (g): healthz, generate or stream")
+    check(dispatch_g and all('backend="cuda"' in k for k in dispatch_g), f"http (g): dispatch {dispatch_g}")
+    check(f"http: served 2 requests, {2 * MAX_NEW} tokens over {FRONT_REPLICAS} replica(s)" in out_g,
+          f"http (g): report line missing: {out_g[-500:]}")
+    print(f"http (g): {' '.join(cli[1:])}: healthz, generate, stream, metrics ({dispatch_g}), drain "
+          f"({drained['status']}); exit 0; {out_g.strip().splitlines()[-1]}", flush=True)
+
+    # the ledger's host cost against the pump: one emit_counters, as the pump
+    # calls it while tracing, with the (a) run's rows
+    from repro_torch.obs.trace import Tracer
+
+    tr = Tracer()
+    tr.enable()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        kd.LEDGER.emit_counters(tr)
+    emit_ms = (time.perf_counter() - t0) / 1000 * 1e3
+    print(f"http: emit_counters {emit_ms:.4f} ms a call (over 1000) = {emit_ms / pump_ms:.3%} of the HTTP decode pump "
+          f"{pump_ms:.3f} ms", flush=True)
+    print(f"http: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    launches_all = {k: launches[k] + launches_c[k] for k in launches}
+    return dict(launches=launches_all, tok_s=tok_s, pump_ms=pump_ms, emit_ms=emit_ms, drain_s=drain_s)
+
+
+def ledger_host_cost(torch, dev, step_ms: float) -> float:
+    """The dispatch ledger's bookkeeping of one decode-shape floatsd_matmul
+    call (its Decision lookup, the record and the touched bytes), timed
+    over LEDGER_CALLS calls on the host, times the STEP_CALLS calls of a
+    decode step, against the main path's median decode step."""
+    from repro_torch.kernels import dispatch as kd
+    from repro_torch.kernels.floatsd_matmul import cost as fm_cost
+
+    x = torch.empty((LANES, 1024), device=dev)
+    codes = torch.empty((1024, 4096), dtype=torch.uint8, device=dev)
+    y = torch.empty((LANES, 4096), device=dev)
+    shape = (LANES, 1024, 4096, False, False)
+    stats, kd.STATS = kd.STATS, kd.DispatchStats()  # the main path's records stay as they were
+    try:
+        t0 = time.perf_counter()
+        for _ in range(LEDGER_CALLS):
+            kd._record("floatsd_matmul", "cuda", "cuda tensor", shape,
+                       lambda: fm_cost.matmul_fwd_cost(*shape[:3], backend="cuda"), kd._nbytes(x, codes, y))
+        per_ms = (time.perf_counter() - t0) / LEDGER_CALLS * 1e3
+    finally:
+        kd.STATS = stats
+    share = STEP_CALLS * per_ms / step_ms
+    print(f"ledger: bookkeeping {per_ms * 1e3:.3f} us a call (over {LEDGER_CALLS}); x {STEP_CALLS} calls a decode step "
+          f"= {STEP_CALLS * per_ms * 1e3:.2f} us, {share:.3%} of the main path's median decode step {step_ms:.3f} ms "
+          f"(bound 2%)", flush=True)
+    check(share < 0.02, f"ledger: the bookkeeping takes {share:.2%} of a decode step")
+    return per_ms
 
 
 
@@ -2863,6 +3393,8 @@ def main() -> int:
     fa = flash_phase(torch, dev, flush)
     task_rows, task_steps = task_kernel_phase(torch, dev, flush)
     del flush
+    ledger_phase(smi)
+    mirror_phase(torch, _build)
 
     # 4. the main path at full width
     cfg = lstm_wikitext2.CONFIG
@@ -2897,6 +3429,7 @@ def main() -> int:
           f"{m.report()['total_tok_per_s']:.1f} total tok/s, median decode step {step_ms:.3f} ms "
           f"over {len(decode_times)} steps ({LANES} lanes; {smi}); launches {launches}; "
           f"dispatch {dict((f'{o}/{b}', n) for (o, b), n in stats.items())}", flush=True)
+    ledger_host_cost(torch, dev, step_ms)
 
     # 5. cross-check against the plain versions on the card
     _, refs = serve(torch, model, params, policy, prompts, backend="ref")
@@ -2936,6 +3469,9 @@ def main() -> int:
     # 16. the serving frontend: the main path's model behind the router
     torch.cuda.empty_cache()
     front = frontend_phase(torch, model, params, policy, smi)
+
+    # 17. the HTTP/SSE service over the router, and the CLI's --http
+    http = http_phase(torch, model, params, policy, smi, front)
 
     # result lines: each kernel's time per decode step (serving), per train
     # step, or per entry-point pass, from the kernel phase's per-launch times
@@ -2983,7 +3519,7 @@ def main() -> int:
     ]
     paths = {"serve": launches, "train": tr_launches, "tasks": tasks["launches"], "serve4": s4["launches"],
              "entry": ent["launches"], "runtime": rt["launches"], "zoo": zoo["launches"],
-             "dense": dense["launches"], "frontend": front["launches"]}
+             "dense": dense["launches"], "frontend": front["launches"], "http": http["launches"]}
     # the zoo prefill's share of the kernels it shares with the LSTM paths
     zoo_prefill = {
         "floatsd_matmul": ([(6 * ZL, zmm[("dd", ZOO_B * ZOO_S)]), (ZL, zmm[("cmix-k", ZOO_B * ZOO_S)]),

@@ -15,7 +15,10 @@ version on any device; the tests and ``chip_smoke.py``'s cross-check use
 it. There is no fallback from the kernel to the plain version: the kernels
 bounds-check every tile, so every shape runs unpadded, and a kernel that
 cannot run raises. Every call is recorded in ``STATS`` under the backend
-that actually ran.
+that actually ran, with its predicted ``Cost`` (``COST_SPECS``: one
+``obs.costmodel.CostSpec`` per op, its function in ``kernels/<op>/cost.py``)
+and the bytes of the tensors it handed over; ``LEDGER`` joins the two with
+the measured times fed through ``STATS.add_time``.
 """
 from __future__ import annotations
 
@@ -28,25 +31,33 @@ import numpy as np
 import torch
 
 from ..core import floatsd, floatsd4
+from ..obs import costmodel
 from ..obs import telemetry as obs_telemetry
+from .flash_attention import cost as fa_cost
 from .flash_attention import ops as fa_ops
 from .flash_attention.ref import flash_attention_gqa
+from .floatsd4_matmul import cost as fm4_cost
 from .floatsd4_matmul import ops as fm4_ops
 from .floatsd4_matmul.ref import floatsd4_matmul_ref
+from .floatsd_matmul import cost as fm_cost
 from .floatsd_matmul import ops as fm_ops
 from .floatsd_matmul.ref import matmul_dw_ref, split_matmul
+from .floatsd_quantize import cost as fq_cost
 from .floatsd_quantize import ops as fq_ops
 from .floatsd_quantize.ref import quantize_ref
+from .lstm_cell import cost as lc_cost
 from .lstm_cell import ops as lc_ops
 from .lstm_cell.ref import lstm_cell_bwd_ref, lstm_cell_ref
+from .qsigmoid import cost as qs_cost
 from .qsigmoid import ops as qs_ops
 from .qsigmoid.ref import qsigmoid_ref
+from .rwkv_wkv import cost as rw_cost
 from .rwkv_wkv import ops as rw_ops
 from .rwkv_wkv.ref import wkv_ref
 
 __all__ = [
     "BACKENDS", "ZERO_CODE", "PackedTensor", "is_packed", "Decision",
-    "DispatchStats", "STATS", "use_backend", "matmul", "lstm_cell",
+    "DispatchStats", "STATS", "LEDGER", "COST_SPECS", "use_backend", "matmul", "lstm_cell",
     "packed_einsum", "hoist_packed", "matmul_dx", "matmul_dw", "lstm_cell_grad",
     "pack_train", "hoist_train", "train_matmul", "lstm_cell_train", "inference_only",
     "PackedTensor4", "is_packed4", "is_any_packed", "pack4",
@@ -109,43 +120,129 @@ def unpack4(w4: PackedTensor4, dtype=torch.float32) -> torch.Tensor:
     return floatsd4.decode_packed(w4.codes, w4.exps, w4.k, dtype=dtype)
 
 
-class Decision(NamedTuple):
+class _DecisionFields(NamedTuple):
     op: str
     backend: str  # "ref" | "cuda"
     reason: str
 
 
+class Decision(_DecisionFields):
+    """What the resolver decided for one call, and ``cost``, the predicted
+    ``obs.costmodel.Cost`` of that call: an attribute, not a field, so two
+    Decisions are equal when they decided the same."""
+
+    def __new__(cls, op: str, backend: str, reason: str, cost: costmodel.Cost | None = None):
+        self = super().__new__(cls, op, backend, reason)
+        self.cost = cost
+        return self
+
+
 class DispatchStats:
-    """Per-(op, backend) call counters and the last Decision per op."""
+    """Per-(op, backend) call counters, the last Decision per op, and the
+    cost ledger's inputs:
+
+      * calls per recorded Decision (the dispatch records one cached
+        Decision, with its predicted ``Cost``, per call shape), summed per
+        (op, backend) by ``snapshot`` and ``cost_snapshot``;
+      * the bytes touched: the ``nbytes`` of the tensors each call handed
+        to the backend plus its outputs (and ``add_touched``'s); on ref, the
+        measurement the predicted bytes must equal exactly;
+      * ``wall``: measured (timed calls, seconds) per (op, backend), fed by
+        ``add_time`` (``chip_smoke.py``'s kernel phase).
+
+    One short lock guards them: calls are recorded on whatever thread runs
+    them (the serving pump's worker thread, a test) while the HTTP
+    server's /metrics scrape reads the snapshots from the event loop."""
 
     def __init__(self):
-        self.counts: collections.Counter = collections.Counter()
+        # id(decision) -> [decision, calls, touched bytes]; the entry holds
+        # the Decision, so its id is not reused while the entry lives
+        self._calls: dict[int, list] = {}
+        self._touched: collections.Counter = collections.Counter()  # add_touched's, per (op, backend)
         self.last: dict[str, Decision] = {}
+        self.wall: dict[tuple[str, str], list] = {}
         self._lock = threading.Lock()
 
-    def record(self, d: Decision) -> None:
+    def record(self, d: Decision, touched: int = 0) -> None:
         with self._lock:
-            self.counts[(d.op, d.backend)] += 1
+            entry = self._calls.get(id(d))
+            if entry is None:
+                entry = self._calls[id(d)] = [d, 0, 0]
+            entry[1] += 1
+            entry[2] += touched
             self.last[d.op] = d
 
-    def count(self, op: str | None = None, backend: str | None = None) -> int:
+    def add_touched(self, op: str, backend: str, nbytes: int) -> None:
         with self._lock:
-            return sum(
-                n for (o, b), n in self.counts.items()
-                if (op is None or o == op) and (backend is None or b == backend)
-            )
+            self._touched[(op, backend)] += int(nbytes)
+
+    def add_time(self, op: str, backend: str, seconds: float, calls: int = 1) -> None:
+        """Attribute measured time to (op, backend): the ledger's measured
+        columns, per call."""
+        with self._lock:
+            entry = self.wall.setdefault((op, backend), [0, 0.0])
+            entry[0] += int(calls)
+            entry[1] += float(seconds)
+
+    def count(self, op: str | None = None, backend: str | None = None) -> int:
+        return sum(n for (o, b), n in self.snapshot().items()
+                   if (op is None or o == op) and (backend is None or b == backend))
 
     def reset(self) -> None:
         with self._lock:
-            self.counts.clear()
+            self._calls.clear()
+            self._touched.clear()
             self.last.clear()
+            self.wall.clear()
+
+    def _entries(self) -> list:
+        with self._lock:
+            return [(d, n, t) for d, n, t in self._calls.values()]
 
     def snapshot(self) -> dict:
+        """{(op, backend): calls}: what /metrics exports as
+        ``repro_dispatch_decisions_total{op,backend}``."""
+        out: collections.Counter = collections.Counter()
+        for d, n, _ in self._entries():
+            out[(d.op, d.backend)] += n
+        return dict(out)
+
+    def cost_snapshot(self) -> dict:
+        """{(op, backend): {cost, calls, touched_bytes, timed_calls, wall_s}}:
+        the CostLedger's join input."""
+        entries = self._entries()
         with self._lock:
-            return dict(self.counts)
+            wall, extra = dict(self.wall), dict(self._touched)
+        sums: dict[tuple[str, str], list] = {}
+        for d, n, touched in entries:
+            acc = sums.setdefault((d.op, d.backend), [0] * 9)
+            c = d.cost or costmodel.ZERO_COST
+            acc[0] += n * c.flops
+            acc[1] += n * c.macs
+            acc[2] += n * c.hbm_read_bytes
+            acc[3] += n * c.hbm_write_bytes
+            acc[4] = max(acc[4], c.smem_bytes)
+            acc[5] += n * c.pad_waste_flops
+            acc[6] += n * c.pad_waste_bytes
+            acc[7] += n
+            acc[8] += touched
+        return {
+            key: {
+                "cost": costmodel.Cost(*sums[key][:7]) if key in sums else costmodel.ZERO_COST,
+                "calls": sums[key][7] if key in sums else 0,
+                "touched_bytes": (sums[key][8] if key in sums else 0) + extra.get(key, 0),
+                "timed_calls": wall.get(key, (0, 0.0))[0],
+                "wall_s": wall.get(key, (0, 0.0))[1],
+            }
+            for key in set(sums) | set(wall) | set(extra)
+        }
 
 
 STATS = DispatchStats()
+
+#: The predicted-and-measured cost ledger over STATS: the /metrics export,
+#: the tracer's ``cost.<op>`` counter tracks and ``chip_smoke.py``'s table.
+LEDGER = costmodel.CostLedger(STATS)
 
 _OVERRIDE: list[str] = []  # use_backend() stack
 
@@ -167,13 +264,39 @@ def use_backend(name: str | None):
         _OVERRIDE.pop()
 
 
-def _decide(op: str, t: torch.Tensor, backend: str | None) -> Decision:
+def _resolve(t: torch.Tensor, backend: str | None) -> tuple[str, str]:
+    """(backend, reason): the device rule, or the ``ref`` override."""
     _check(backend)
     if (backend or (_OVERRIDE[-1] if _OVERRIDE else None)) == "ref":
-        return Decision(op, "ref", "policy:ref")
+        return "ref", "policy:ref"
     if t.device.type == "cuda":
-        return Decision(op, "cuda", "cuda tensor")
-    return Decision(op, "ref", f"{t.device.type} tensor")
+        return "cuda", "cuda tensor"
+    return "ref", f"{t.device.type} tensor"
+
+
+_DECISIONS: dict[tuple, Decision] = {}  # (op, backend, reason, shape key) -> its Decision and Cost
+_DECISIONS_MAX = 1 << 16
+
+
+def _record(op: str, be: str, reason: str, shape: tuple, cost_fn, touched: int) -> None:
+    """Record one call: the Decision of its (op, backend, reason, shape),
+    made with ``cost_fn()``'s Cost at the first call of that shape and
+    reused after, and the bytes it ``touched``."""
+    key = (op, be, reason, shape)
+    d = _DECISIONS.get(key)
+    if d is None:
+        if len(_DECISIONS) >= _DECISIONS_MAX:
+            _DECISIONS.clear()
+        d = _DECISIONS[key] = Decision(op, be, reason, cost_fn())
+    STATS.record(d, touched)
+
+
+def _nbytes(*ts) -> int:
+    """Bytes of the given tensors: what a call handed over and got back."""
+    n = 0
+    for t in ts:
+        n += t.nbytes
+    return n
 
 
 def matmul(x: torch.Tensor, codes: torch.Tensor, bias, *, transposed: bool = False,
@@ -192,28 +315,35 @@ def matmul(x: torch.Tensor, codes: torch.Tensor, bias, *, transposed: bool = Fal
     k = x.shape[-1]
     n = codes.shape[0] if transposed else codes.shape[1]
     x2 = x.reshape(-1, k).to(torch.float32).contiguous()
-    dec = _decide("floatsd_matmul", x2, backend)
-    if dec.backend == "ref":
+    be, why = _resolve(x2, backend)
+    if be == "ref":
         w = floatsd.decode(codes, bias, dtype=torch.float32) if dense is None else dense
         y = split_matmul(x2, w.t() if transposed else w, ordered)
+        touched = _nbytes(x2, codes if dense is None else dense, y)
     else:
         y = fm_ops.floatsd_matmul(x2, codes, bias, transposed=transposed, ordered=ordered)
-    STATS.record(dec)
+        touched = _nbytes(x2, codes, y)
+    m, hoisted = x2.shape[0], dense is not None
+    _record("floatsd_matmul", be, why, (m, k, n, ordered, hoisted), lambda: fm_cost.matmul_fwd_cost(
+        m, k, n, backend=be, ordered=ordered, dense=hoisted), touched)
     return y.reshape(*x.shape[:-1], n)
 
 
 def lstm_cell(z: torch.Tensor, c_prev: torch.Tensor, *, quantized: bool = True,
               c_dtype=torch.float16, backend: str | None = None):
     """Fused gates -> (h, c). z: [B, 4H] (i|f|g|o), c_prev: [B, H]."""
-    dec = _decide("lstm_cell", z, backend)
-    if dec.backend == "ref":
-        out = lstm_cell_ref(z, c_prev, quantized, c_dtype=c_dtype)
+    be, why = _resolve(z, backend)
+    if be == "cuda":
+        z, c_prev = z.contiguous(), c_prev.contiguous()
+        h, c = lc_ops.lstm_cell(z, c_prev, quantized=quantized, c_dtype=c_dtype)
     else:
-        out = lc_ops.lstm_cell(
-            z.contiguous(), c_prev.contiguous(), quantized=quantized, c_dtype=c_dtype
-        )
-    STATS.record(dec)
-    return out
+        h, c = lstm_cell_ref(z, c_prev, quantized, c_dtype=c_dtype)
+    shape = (z.numel() // z.shape[-1], z.shape[-1] // 4, z.element_size(), c_prev.element_size(),
+             h.element_size(), c.element_size(), quantized)
+    _record("lstm_cell", be, why, shape, lambda: lc_cost.lstm_cell_cost(
+        *shape[:2], backend=be, z_bytes=shape[2], c_in_bytes=shape[3], h_out_bytes=shape[4], c_out_bytes=shape[5],
+        quantized=quantized), _nbytes(z, c_prev, h, c))
+    return h, c
 
 
 def matmul4(x: torch.Tensor, w4: PackedTensor4, *, transposed: bool = False,
@@ -227,13 +357,20 @@ def matmul4(x: torch.Tensor, w4: PackedTensor4, *, transposed: bool = False,
     k = x.shape[-1]
     n = w4.k if transposed else w4.codes.shape[1]
     x2 = x.reshape(-1, k).to(torch.float32).contiguous()
-    dec = _decide("floatsd4_matmul", x2, backend)
-    if dec.backend == "ref":
+    m = x2.shape[0]
+    be, why = _resolve(x2, backend)
+    if be == "ref":
         y = floatsd4_matmul_ref(x2, w4.codes, w4.exps, w4.k, transposed=transposed,
                                 dense=w4.dense)
     else:
         y = fm4_ops.floatsd4_matmul(x2, w4.codes, w4.exps, w4.k, transposed=transposed)
-    STATS.record(dec)
+    if be == "ref" and w4.dense is not None:  # the plain version reads the hoisted decode
+        _record("floatsd4_matmul", be, why, (m, k, n, True), lambda: fm_cost.matmul_like_cost(
+            m, k, n, b_bytes=4, decode=False), _nbytes(x2, w4.dense, y))
+    else:
+        wt = _nbytes(w4.codes, w4.exps)
+        _record("floatsd4_matmul", be, why, (m, k, n, wt), lambda: fm4_cost.matmul4_fwd_cost(
+            m, k, n, backend=be, wt_nbytes=wt), wt + _nbytes(x2, y))
     return y.reshape(*x.shape[:-1], n)
 
 
@@ -269,8 +406,7 @@ def hoist_packed(w, *, backend: str | None = None):
     """
     if not is_any_packed(w) or w.dense is not None:
         return w
-    op = "floatsd4_matmul" if is_packed4(w) else "floatsd_matmul"
-    if _decide(op, w.codes, backend).backend != "ref":
+    if _resolve(w.codes, backend)[0] != "ref":
         return w
     if is_packed4(w):
         return w._replace(dense=unpack4(w))
@@ -291,13 +427,17 @@ def matmul_dx(g: torch.Tensor, codes: torch.Tensor, bias, *, dense: torch.Tensor
     [out, contraction]; ``dense`` is the codes' decode from ``hoist_train``."""
     k, n = codes.shape
     g2 = g.reshape(-1, n).to(torch.float32).contiguous()
-    dec = _decide("floatsd_matmul_dx", g2, backend)
-    if dec.backend == "ref":
+    be, why = _resolve(g2, backend)
+    if be == "ref":
         w = floatsd.decode(codes, bias, dtype=torch.float32) if dense is None else dense
         y = split_matmul(g2, w.t(), ordered)
+        touched = _nbytes(g2, codes if dense is None else dense, y)
     else:
         y = fm_ops.matmul_dx(g2, codes, bias, ordered=ordered)
-    STATS.record(dec)
+        touched = _nbytes(g2, codes, y)
+    m, hoisted = g2.shape[0], dense is not None
+    _record("floatsd_matmul_dx", be, why, (m, n, k, ordered, hoisted), lambda: fm_cost.matmul_dx_cost(
+        m, n, k, backend=be, ordered=ordered, dense=hoisted), touched)
     return y.reshape(*g.shape[:-1], k)
 
 
@@ -312,12 +452,14 @@ def matmul_dw(x: torch.Tensor, g: torch.Tensor, *, quant: bool = True,
     g2 = g.reshape(-1, n).to(torch.float32).contiguous()
     if x2.shape[0] != g2.shape[0]:
         raise ValueError(f"matmul_dw: x {tuple(x.shape)} vs g {tuple(g.shape)}")
-    dec = _decide("floatsd_matmul_dw", x2, backend)
-    if dec.backend == "ref":
+    be, why = _resolve(x2, backend)
+    if be == "ref":
         dw = matmul_dw_ref(x2, g2, quant)
     else:
         dw = fm_ops.matmul_dw(x2, g2, quant=quant)
-    STATS.record(dec)
+    m = x2.shape[0]
+    _record("floatsd_matmul_dw", be, why, (k, m, n, quant), lambda: fm_cost.matmul_dw_cost(
+        k, m, n, backend=be, quant=quant), _nbytes(x2, g2, dw))
     return _dw_flush_telemetry(dw, quant)
 
 
@@ -340,16 +482,20 @@ def lstm_cell_grad(z: torch.Tensor, c_prev: torch.Tensor, dh: torch.Tensor, dc: 
     """Recompute-gates backward of the fused cell. z: [B, 4H], c_prev: [B, H]
     in ``c_dtype`` (as the forward stored it), dh, dc: [B, H] -> (dz [B, 4H]
     f32, dc_prev [B, H] f32). Its only residuals are (z, c_prev)."""
-    dec = _decide("lstm_cell_grad", z, backend)
-    if dec.backend == "ref":
-        out = lstm_cell_bwd_ref(z, c_prev.to(torch.float32), dh, dc, quantized, c_dtype=c_dtype)
+    be, why = _resolve(z, backend)
+    if be == "ref":
+        c_prev = c_prev.to(torch.float32)  # the plain version takes the f32 cell state
+        dz, dcp = lstm_cell_bwd_ref(z, c_prev, dh, dc, quantized, c_dtype=c_dtype)
     else:
-        out = lc_ops.lstm_cell_grad(
-            z.contiguous(), c_prev.contiguous(), dh.to(torch.float32).contiguous(),
-            dc.to(torch.float32).contiguous(), quantized=quantized, c_dtype=c_dtype,
-        )
-    STATS.record(dec)
-    return out
+        z, c_prev = z.contiguous(), c_prev.contiguous()
+        dh, dc = dh.to(torch.float32).contiguous(), dc.to(torch.float32).contiguous()
+        dz, dcp = lc_ops.lstm_cell_grad(z, c_prev, dh, dc, quantized=quantized, c_dtype=c_dtype)
+    shape = (z.numel() // z.shape[-1], z.shape[-1] // 4, z.element_size(), c_prev.element_size(),
+             dh.element_size(), dc.element_size(), dz.element_size(), dcp.element_size(), quantized)
+    _record("lstm_cell_grad", be, why, shape, lambda: lc_cost.lstm_cell_grad_cost(
+        *shape[:2], backend=be, z_bytes=shape[2], c_in_bytes=shape[3], dh_bytes=shape[4], dc_bytes=shape[5],
+        dz_bytes=shape[6], dcp_bytes=shape[7], quantized=quantized), _nbytes(z, c_prev, dh, dc, dz, dcp))
+    return dz, dcp
 
 
 class _InferenceOnly(torch.autograd.Function):
@@ -420,7 +566,11 @@ class _TrainMatmulDense(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, wq = ctx.saved_tensors
-        STATS.record(Decision("floatsd_matmul_dx", "ref", "train:hoisted-dense"))
+        (k2, n2), m = wq.shape, g.numel() // g.shape[-1]
+        shape = (m, n2, k2, g.element_size(), wq.element_size(), x.element_size())
+        _record("floatsd_matmul_dx", "ref", "train:hoisted-dense", shape, lambda: fm_cost.matmul_like_cost(
+            m, n2, k2, a_bytes=shape[3], b_bytes=shape[4], o_bytes=shape[5], decode=False),
+            _nbytes(g, wq) + m * k2 * x.element_size())
         dx = torch.matmul(g, wq.to(torch.float32).t()).to(x.dtype)
         return dx, matmul_dw(x, g, backend="ref").to(wq.dtype)
 
@@ -435,7 +585,10 @@ def train_matmul(x: torch.Tensor, w: torch.Tensor, wq, *, backend: str | None = 
     _check(backend)
     if is_packed(wq):
         return _TrainMatmulPacked.apply(x, w, wq, backend)
-    STATS.record(Decision("floatsd_matmul", "ref", "train:hoisted-dense"))
+    (k2, n2), m = wq.shape, x.numel() // x.shape[-1]
+    shape = (m, k2, n2, x.element_size(), wq.element_size())
+    _record("floatsd_matmul", "ref", "train:hoisted-dense", shape, lambda: fm_cost.matmul_like_cost(
+        m, k2, n2, a_bytes=shape[3], b_bytes=shape[4], decode=False), _nbytes(x, wq) + m * n2 * 4)
     return _TrainMatmulDense.apply(x, wq)
 
 
@@ -478,21 +631,28 @@ def quantize(x: torch.Tensor, bias=None, *, backend: str | None = None):
     as ``floatsd.encode`` clamps it."""
     bias = floatsd.fit_bias(x) if bias is None else torch.as_tensor(
         bias, dtype=torch.int32, device=x.device)
-    dec = _decide("floatsd_quantize", x, backend)
-    if dec.backend == "ref":
+    be, why = _resolve(x, backend)
+    if be == "ref":
         codes = quantize_ref(x, bias)
+        x_bytes = x.element_size()
     else:
         codes = fq_ops.floatsd_quantize(x, bias)
-    STATS.record(dec)
+        # the kernel reads f32 and fp16 as they are, any other dtype cast to f32
+        x_bytes = x.element_size() if x.dtype in (torch.float32, torch.float16) else 4
+    shape = (x.numel(), x_bytes, bias.element_size())
+    _record("floatsd_quantize", be, why, shape, lambda: fq_cost.quantize_cost(
+        shape[0], backend=be, x_bytes=x_bytes, bias_bytes=shape[2]), _nbytes(x, bias, codes))
     return codes, bias
 
 
 def qsigmoid(x: torch.Tensor, *, backend: str | None = None) -> torch.Tensor:
     """Two-region FloatSD8 sigmoid of any-shape ``x``, same shape and
     dtype."""
-    dec = _decide("qsigmoid", x, backend)
-    y = qsigmoid_ref(x) if dec.backend == "ref" else qs_ops.qsigmoid(x)
-    STATS.record(dec)
+    be, why = _resolve(x, backend)
+    y = qsigmoid_ref(x) if be == "ref" else qs_ops.qsigmoid(x)
+    shape = (x.numel(), x.element_size(), y.element_size())
+    _record("qsigmoid", be, why, shape, lambda: qs_cost.qsigmoid_cost(
+        shape[0], backend=be, x_bytes=shape[1], y_bytes=shape[2]), _nbytes(x, y))
     return y
 
 
@@ -512,10 +672,13 @@ def rwkv_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     last chunk is bounds-checked, so every S runs unpadded."""
     if chunk != rw_ops.CHUNK:
         raise ValueError(f"rwkv_wkv: the kernel's chunk is {rw_ops.CHUNK}, got {chunk}")
-    dec = _decide("rwkv_wkv", r, backend)
-    out = wkv_ref(r, k, v, w, u) if dec.backend == "ref" else rw_ops.rwkv_wkv(r, k, v, w, u)
-    STATS.record(dec)
-    return out
+    be, why = _resolve(r, backend)
+    y, state = wkv_ref(r, k, v, w, u) if be == "ref" else rw_ops.rwkv_wkv(r, k, v, w, u)
+    b, s, h, kk = r.shape
+    shape = (b, s, h, kk, v.shape[-1], u.dim() == 3, r.element_size())
+    _record("rwkv_wkv", be, why, shape, lambda: rw_cost.wkv_cost(
+        *shape[:5], backend=be, u_batched=shape[5], elem_bytes=shape[6]), _nbytes(r, k, v, w, u, y, state))
+    return y, state
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
@@ -528,10 +691,61 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     softmax (1024 query rows against 512 keys at a time, the reference
     model's split), the same function: both round p and v to bf16 before
     their product."""
-    dec = _decide("flash_attention", q, backend)
-    if dec.backend == "ref":
+    be, why = _resolve(q, backend)
+    if be == "ref":
         o = flash_attention_gqa(q, k, v, causal=causal, window=window)
     else:
         o = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
-    STATS.record(dec)
+    b, sq, h, d = q.shape
+    shape = (b, sq, k.shape[1], h, k.shape[2], d, causal, window, q.element_size())
+    _record("flash_attention", be, why, shape, lambda: fa_cost.flash_attention_cost(
+        *shape[:6], backend=be, causal=causal, window=window, elem_bytes=shape[8]), _nbytes(q, k, v, o))
     return o
+
+
+# ---------------------------------------------------------------------------
+# the cost model of each op (obs.costmodel's CostSpec contract)
+# ---------------------------------------------------------------------------
+
+#: op -> its CostSpec: every op name a Decision is recorded under.
+COST_SPECS: dict[str, costmodel.CostSpec] = {spec.op: spec for spec in (
+    costmodel.CostSpec(
+        "floatsd_matmul", fm_cost.matmul_fwd_cost,
+        "decode-in-tile GEMM, codes 1 byte a weight (ref: a read of the hoisted f32 decode instead, "
+        "and the train path's dense product); cuda: plan()'s route, x once per 128-column block, codes "
+        "once per row block, partials written and read back when split; route B's bf16 pieces of x "
+        "written once and read per column block"),
+    costmodel.CostSpec(
+        "floatsd_matmul_dx", fm_cost.matmul_dx_cost,
+        "the forward kernel on the codes read in place as [out, contraction]; f32 g"),
+    costmodel.CostSpec(
+        "floatsd_matmul_dw", fm_cost.matmul_dw_cost,
+        "dense f32 GEMM summed over the rows in order, FP8-e5m2 snap at the flush; cuda: 128 x 128 "
+        "tiles, x once per column tile, g once per row tile, 48 KiB of shared memory"),
+    costmodel.CostSpec(
+        "lstm_cell", lc_cost.lstm_cell_cost,
+        "element-wise, one pass; 3 MACs an element (Table-7 Eq. 5-6 lanes); c in c_dtype (fp16 state); "
+        "cuda: the gate function's 289-entry table in shared memory"),
+    costmodel.CostSpec(
+        "lstm_cell_grad", lc_cost.lstm_cell_grad_cost,
+        "recompute-gates backward, one pass; residuals (z, c_prev) only; ref reads c_prev as f32"),
+    costmodel.CostSpec(
+        "floatsd4_matmul", fm4_cost.matmul4_fwd_cost,
+        "sub-byte decode-in-tile GEMM: 2 codes a byte + int8 group exponents (~0.53 byte a weight); "
+        "cuda: route A at every M, as floatsd_matmul's"),
+    costmodel.CostSpec(
+        "floatsd_quantize", fq_cost.quantize_cost,
+        "element-wise encode to 1-byte codes, one pass; the bias a 4-byte device int"),
+    costmodel.CostSpec(
+        "qsigmoid", qs_cost.qsigmoid_cost,
+        "element-wise two-region LUT sigmoid, one pass"),
+    costmodel.CostSpec(
+        "rwkv_wkv", rw_cost.wkv_cost,
+        "ref: the per-token recurrence; cuda: chunks of 16, the pre-pass's records written once and "
+        "read once per 16-column slice of V; y and the final state f32"),
+    costmodel.CostSpec(
+        "flash_attention", fa_cost.flash_attention_cost,
+        "online softmax, GQA read in place; cuda: K/V bf16 pieces written once by the pre-pass and read "
+        "per 128-row query block over the tiles its band admits; masked pairs of visited tiles charged "
+        "to pad_waste_flops"),
+)}

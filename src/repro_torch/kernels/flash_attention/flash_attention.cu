@@ -516,3 +516,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                                                         window, st);
   return static_cast<int>(e);
 }
+
+// Dynamic shared memory of the forward kernel at head size D (dtype 0: f32,
+// 1: bf16); flash_attention/cost.py mirrors it.
+extern "C" long long flash_attention_smem_bytes(int D, int dtype) {
+  const bool wide = padded_d(D) == 128;
+  if (dtype == 1) return static_cast<long long>(wide ? smem_bytes<__nv_bfloat16, 128>() : smem_bytes<__nv_bfloat16, 64>());
+  return static_cast<long long>(wide ? smem_bytes<float, 128>() : smem_bytes<float, 64>());
+}

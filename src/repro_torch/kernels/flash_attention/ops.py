@@ -81,3 +81,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
 
 
 flash_attention.launches = 0
+
+
+def library_smem_bytes(d: int, dtype: torch.dtype) -> int:
+    """The library's dynamic shared memory of the forward kernel at head size
+    D, which ``cost.py`` mirrors."""
+    fn = _build.load("flash_attention").flash_attention_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_longlong
+    return int(fn(d, _DTYPES[dtype]))
+
+
+def library_scratch_bytes(b: int, skv: int, kh: int, d: int, dtype: torch.dtype) -> int:
+    """The library's K/V scratch bytes of a call, which
+    ``cost.scratch_bytes`` mirrors."""
+    return int(_library().flash_attention_scratch_bytes(b, skv, kh, d, _DTYPES[dtype]))

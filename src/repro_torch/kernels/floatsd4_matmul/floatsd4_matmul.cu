@@ -201,3 +201,12 @@ extern "C" int floatsd4_matmul_launch(const float* x, const uint8_t* codes, cons
   if (e != cudaSuccess || !partials) return static_cast<int>(e);
   return static_cast<int>(launch_add_partials(part, y, (size_t)M * N, splits, s));
 }
+
+// Dynamic shared memory of a launch at M rows (route A's a_smem<MT>() at the
+// row tile M takes); floatsd4_matmul/cost.py's model mirrors it.
+extern "C" long long floatsd4_matmul_smem_bytes(int M) {
+  return static_cast<long long>(M <= 8    ? routed_gemm::a_smem<8>()
+                                : M <= 16 ? routed_gemm::a_smem<16>()
+                                : M <= 32 ? routed_gemm::a_smem<32>()
+                                          : routed_gemm::a_smem<64>());
+}

@@ -73,3 +73,11 @@ def floatsd4_matmul(x: torch.Tensor, codes: torch.Tensor, exps: torch.Tensor, ro
 
 
 floatsd4_matmul.launches = 0
+
+
+def library_smem_bytes(m: int) -> int:
+    """The library's dynamic shared memory at M rows, which ``cost.py``
+    mirrors."""
+    fn = _build.load("floatsd4_matmul").floatsd4_matmul_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+    return int(fn(m))

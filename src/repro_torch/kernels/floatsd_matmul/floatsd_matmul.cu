@@ -267,3 +267,14 @@ extern "C" int floatsd_matmul_launch(const float* x, const uint8_t* codes, int b
   if (e != cudaSuccess || !partials) return static_cast<int>(e);
   return static_cast<int>(launch_add_partials(part, y, (size_t)M * N, splits, s));
 }
+
+// Dynamic shared memory of the main kernel of a launch at M rows on `route`
+// (0: route A's a_smem<MT>() at the row tile M takes; 1: route B's kBSmem);
+// floatsd_matmul/cost.py mirrors it, and the card's checks hold the two equal.
+extern "C" long long floatsd_matmul_smem_bytes(int M, int route) {
+  if (route != 0) return static_cast<long long>(routed_gemm::kBSmem);
+  return static_cast<long long>(M <= 8    ? routed_gemm::a_smem<8>()
+                                : M <= 16 ? routed_gemm::a_smem<16>()
+                                : M <= 32 ? routed_gemm::a_smem<32>()
+                                          : routed_gemm::a_smem<64>());
+}

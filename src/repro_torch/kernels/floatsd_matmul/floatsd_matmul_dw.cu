@@ -185,3 +185,6 @@ extern "C" int matmul_dw_launch(const float* x, const float* g, float* dw, int M
                      reinterpret_cast<uintptr_t>(dw)) & 15) == 0;
   return static_cast<int>(vec ? launch<true>(x, g, dw, M, K, N, quant, s) : launch<false>(x, g, dw, M, K, N, quant, s));
 }
+
+// Dynamic shared memory of a launch (kSmem); floatsd_matmul/cost.py mirrors it.
+extern "C" long long matmul_dw_smem_bytes() { return static_cast<long long>(kSmem); }

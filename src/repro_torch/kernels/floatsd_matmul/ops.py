@@ -144,3 +144,20 @@ def matmul_dw(x: torch.Tensor, g: torch.Tensor, *, quant: bool = True) -> torch.
 floatsd_matmul.launches = 0
 matmul_dx.launches = 0
 matmul_dw.launches = 0
+
+
+def _query(lib: str, name: str, n_args: int):
+    fn = getattr(_build.load(lib), name)
+    fn.argtypes, fn.restype = [ctypes.c_int] * n_args, ctypes.c_longlong
+    return fn
+
+
+def library_smem_bytes(m: int, route: str) -> int:
+    """The library's dynamic shared memory of the main kernel at M rows on
+    ``route`` ("A" or "B"), which ``cost.py`` mirrors."""
+    return int(_query("floatsd_matmul", "floatsd_matmul_smem_bytes", 2)(m, ROUTES[route]))
+
+
+def library_dw_smem_bytes() -> int:
+    """The dw library's dynamic shared memory, which ``cost.py`` mirrors."""
+    return int(_query("floatsd_matmul_dw", "matmul_dw_smem_bytes", 0)())

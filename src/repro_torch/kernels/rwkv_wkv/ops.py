@@ -78,3 +78,16 @@ def rwkv_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
 
 
 rwkv_wkv.launches = 0
+
+
+def library_smem_bytes(k: int, walk: bool) -> int:
+    """The library's dynamic shared memory of the pre-pass, or of the walk,
+    at head size K, which ``cost.py`` mirrors."""
+    fn = _build.load("rwkv_wkv").rwkv_wkv_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_longlong
+    return int(fn(k, int(walk)))
+
+
+def library_scratch_bytes(b: int, h: int, s: int, k: int) -> int:
+    """The library's record bytes of a call, which ``cost.scratch_bytes`` mirrors."""
+    return int(_library().rwkv_wkv_scratch_bytes(b, h, s, k))

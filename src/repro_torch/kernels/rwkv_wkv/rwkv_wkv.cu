@@ -414,3 +414,10 @@ extern "C" int rwkv_wkv_launch(const void* r, const void* k, const void* v, cons
   return static_cast<int>(go(f(r), f(k), f(v), f(w), f(u), static_cast<float*>(y), static_cast<float*>(s_fin),
                              static_cast<float*>(scratch), B, H, S, K, V, u_sb, static_cast<cudaStream_t>(stream)));
 }
+
+// Dynamic shared memory of the pre-pass (which == 0) or of the walk (which
+// != 0) at head size K; rwkv_wkv/cost.py mirrors both.
+extern "C" long long rwkv_wkv_smem_bytes(int K, int which) {
+  if (padded_k(K) == 64) return static_cast<long long>(which ? walk_smem<64>() : prep_smem<64>());
+  return static_cast<long long>(which ? walk_smem<128>() : prep_smem<128>());
+}

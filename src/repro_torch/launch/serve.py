@@ -30,6 +30,15 @@ whose steps fail; if every replica is ejected, the backlog is rejected as
 ``no_healthy_replicas`` and the CLI exits 1 with each replica's last error,
 so a kernel that fails on the card is not mistaken for load shedding.
 
+``--http`` puts the router (``--frontend`` is implied) behind the HTTP/SSE
+server (``serving/http/``) on ``--host``:``--port`` (0: an ephemeral port)
+instead of draining a synthetic workload: it prints ``http: listening on
+http://HOST:PORT``, serves /v1/generate, /v1/stream, DELETE
+/v1/requests/{rid}, /healthz, /metrics and /admin/trace until POST
+/admin/drain, then prints the report line. ``--no-trace`` leaves the
+request-lifecycle tracer off. It exits 1, with each replica's last error,
+when a request was rejected because every replica was ejected.
+
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu   # reduced, CPU
   PYTHONPATH=src python -m repro_torch.launch.serve --full         # 1024-wide LM, GPU
   PYTHONPATH=src python -m repro_torch.launch.serve --full --weight-format floatsd4
@@ -38,10 +47,13 @@ so a kernel that fails on the card is not mistaken for load shedding.
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --frontend --replicas 2 --workload zipf-prefix
   PYTHONPATH=src python -m repro_torch.launch.serve --full --frontend --replicas 2 --workload zipf-prefix
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --dense --policy fp32
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --http --port 0 --replicas 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --full --http --port 0 --replicas 2
 """
 from __future__ import annotations
 
 import argparse
+import asyncio
 import sys
 
 import numpy as np
@@ -52,9 +64,43 @@ from ..core.policy import get_policy
 from ..device import resolve_device
 from ..models import build
 from ..serving import (
-    ADMISSION_POLICIES, WEIGHT_FORMATS, PrefixCache, Router, ServeEngine, synthetic_prompts,
-    zipf_prefix_prompts,
+    ADMISSION_POLICIES, WEIGHT_FORMATS, HttpServer, PrefixCache, Router, ServeEngine,
+    synthetic_prompts, zipf_prefix_prompts,
 )
+
+
+def _exit_on_outage(router: Router, rep: dict) -> None:
+    """Every replica was ejected: report why instead of passing it off as
+    load shedding, and exit 1."""
+    if rep["rejections"].get("no_healthy_replicas"):
+        for h in router.stats()["replica_health"]:
+            print(f"replica {h['replica']}: {h['last_error']}", file=sys.stderr, flush=True)
+        raise SystemExit(1)
+
+
+def _serve_http(router: Router, args) -> None:
+    """Serve the router over HTTP/SSE until /admin/drain (or Ctrl-C), then
+    print the report line."""
+
+    async def run():
+        server = await HttpServer(router, host=args.host, port=args.port, default_max_new=args.max_new,
+                                  trace=not args.no_trace).start()
+        print(f"http: listening on http://{server.host}:{server.port} ({args.replicas} replica(s) x "
+              f"{args.batch} lanes, admission={args.admission}); POST /admin/drain to stop", flush=True)
+        await server.serve_forever()
+
+    try:
+        asyncio.run(run())
+    except KeyboardInterrupt:
+        pass
+    rep = router.report()
+    print(
+        f"http: served {rep['requests']} requests, {rep['emitted_tokens']} tokens over "
+        f"{rep['replicas']} replica(s) | cache hit rate {rep['cache_hit_rate']:.0%} "
+        f"({rep['prefill_tokens_saved']} prefill tok saved) | rejections {rep['rejections']}",
+        flush=True,
+    )
+    _exit_on_outage(router, rep)
 
 
 def _serve_frontend(model, params, policy, prompts, engine_kw, args) -> None:
@@ -63,6 +109,9 @@ def _serve_frontend(model, params, policy, prompts, engine_kw, args) -> None:
     router = Router.build(model, params, policy, replicas=args.replicas, prefix_cache=cache,
                           router_kw=dict(admission=args.admission, max_queue=args.requests),
                           **engine_kw)
+    if args.http:
+        _serve_http(router, args)
+        return
     for i, p in enumerate(prompts):
         router.submit(p, max_new=args.max_new, tenant=f"tenant{i % args.tenants}")
     router.drain()
@@ -82,11 +131,7 @@ def _serve_frontend(model, params, policy, prompts, engine_kw, args) -> None:
             f"latency p95 {t.get('latency_p95_s', 0.0)*1e3:.0f}ms",
             flush=True,
         )
-    if rep["rejections"].get("no_healthy_replicas"):
-        # every replica was ejected: report why instead of passing it off as load shedding
-        for h in router.stats()["replica_health"]:
-            print(f"replica {h['replica']}: {h['last_error']}", file=sys.stderr, flush=True)
-        raise SystemExit(1)
+    _exit_on_outage(router, rep)
 
 
 def main(argv=None):
@@ -130,7 +175,19 @@ def main(argv=None):
     ap.add_argument("--workload", choices=("uniform", "zipf-prefix"), default="uniform",
                     help="uniform prompt lengths, or shared system prompts (zipf over a small "
                          "prefix pool)")
+    ap.add_argument("--http", action="store_true",
+                    help="serve the frontend router over HTTP/SSE (/v1/generate, /v1/stream, "
+                         "/healthz, /metrics, /admin/drain) instead of draining a synthetic "
+                         "workload; runs until POST /admin/drain")
+    ap.add_argument("--host", default="127.0.0.1", help="http: bind address")
+    ap.add_argument("--port", type=int, default=8000,
+                    help="http: bind port (0 picks an ephemeral port, printed on startup)")
+    ap.add_argument("--no-trace", action="store_true",
+                    help="http: leave the request-lifecycle tracer off (GET /admin/trace then "
+                         "exports an empty trace)")
     args = ap.parse_args(argv)
+    if args.http:
+        args.frontend = True  # the HTTP layer sits on the router
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)

@@ -1,8 +1,10 @@
 """Batched serving of the port: packed FloatSD8 / FloatSD4 weight store,
 lane-state pool, admission policies, metrics, the continuous-batching
-engine, and the frontend (router and FP8 prefix cache)."""
+engine, the frontend (router and FP8 prefix cache) and the HTTP/SSE
+service over it."""
 from .engine import Lane, ServeEngine
 from .frontend import AsyncRouter, PrefixCache, RequestRejected, Router, Ticket
+from .http import HttpServer
 from .metrics import RequestRecord, ServeMetrics, phase_summary, tenant_summary
 from .scheduler import (
     ADMISSION_POLICIES, Request, Scheduler, synthetic_prompts, zipf_prefix_prompts,
@@ -18,7 +20,7 @@ __all__ = [
     "ServeMetrics", "RequestRecord", "tenant_summary", "phase_summary",
     "Scheduler", "Request", "ADMISSION_POLICIES", "synthetic_prompts", "zipf_prefix_prompts",
     "StatePool", "masked_reset",
-    "PrefixCache", "Router", "AsyncRouter", "Ticket", "RequestRejected",
+    "PrefixCache", "Router", "AsyncRouter", "Ticket", "RequestRejected", "HttpServer",
     "WeightStore", "PackedTensor", "PackedTensor4", "WEIGHT_FORMATS",
     "pack_tree", "pack_floatsd4", "unpack_tree", "tree_nbytes",
 ]

@@ -1,12 +1,12 @@
 """Multi-tenant async request router over ServeEngine replicas.
 
-Counterpart of ``repro.serving.frontend.router`` without its two readers of
-the kernel cost ledger (``obs/costmodel.py``, not ported yet): the
-predicted-cost counter tracks ``pump`` emits while tracing, and
-``Router.scrape``. Nor does it have what only the HTTP layer calls
-(``Router.note_retry``, ``AsyncRouter.cancel`` and ``AsyncRouter.snapshot``),
-or the ``drop_expired`` switch nothing turns off: expired requests are
-always dropped.
+Counterpart of ``repro.serving.frontend.router``, without the
+``drop_expired`` switch nothing turns off: expired requests are always
+dropped. The HTTP layer (``serving/http/server.py``) reads it through
+``AsyncRouter.snapshot`` (``Router.scrape`` for /metrics, with the kernel
+cost ledger's rows), cancels through ``AsyncRouter.cancel`` and counts its
+admission retries with ``Router.note_retry``; ``pump`` emits the ledger's
+``cost.<op>`` counter tracks while the tracer is on.
 
 The router is the traffic layer the ROADMAP's "millions of users" story
 needs above the batching engine: requests arrive asynchronously, are
@@ -54,6 +54,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 
 from ...faults import FAULTS, ReplicaCrash
+from ...kernels import dispatch as kernel_dispatch
 from ...obs.trace import TRACER
 from ..engine import ServeEngine
 from ..metrics import LatencyHistogram, phase_summary, tenant_summary
@@ -166,6 +167,7 @@ class Router:
         self.ejections = 0
         self.reinstatements = 0
         self.resubmits = 0
+        self.retries = 0  # admission retries noted by the HTTP layer
         for i, e in enumerate(self.engines):
             e.replica = i  # fault-rule / trace identity
             if e.metrics.t_start is None:
@@ -516,6 +518,10 @@ class Router:
                         self._on_step_failure(i, exc)
                         progressed = True  # health state advanced
             self._deliver()
+            if TRACER.enabled:
+                # predicted-cost counter tracks (cost.<op>) beside the pump
+                # spans: the kernels' modelled FLOPs and bytes against time
+                kernel_dispatch.LEDGER.emit_counters(TRACER)
         return progressed or bool(self._queue) or bool(self._inflight)
 
     def drain(self) -> None:
@@ -526,6 +532,11 @@ class Router:
             e.metrics.stop()
 
     # -- reporting -------------------------------------------------------
+    def note_retry(self) -> None:
+        """Count one admission retry made by an upstream layer (the HTTP
+        server's backoff loop): ``repro_retries_total``."""
+        self.retries += 1
+
     @property
     def idle(self) -> bool:
         """True when nothing is queued or in flight — the drain condition
@@ -556,6 +567,7 @@ class Router:
             "ejections": self.ejections,
             "reinstatements": self.reinstatements,
             "resubmits": self.resubmits,
+            "retries": self.retries,
             "replica_health": [
                 {
                     "replica": i,
@@ -585,6 +597,7 @@ class Router:
         summed["ejections"] = self.ejections
         summed["reinstatements"] = self.reinstatements
         summed["resubmits"] = self.resubmits
+        summed["retries"] = self.retries
         summed["healthy_replicas"] = self.healthy_replicas
         summed["faults_injected"] = dict(FAULTS.injected)
         summed["cache_hit_rate"] = (
@@ -615,6 +628,22 @@ class Router:
             r.get("tpot_hist_ms") for r in reps
         )
         return summed
+
+    def scrape(self) -> dict:
+        """Everything a /metrics scrape reads, in one call: the aggregate
+        report, the liveness stats, the shared prefix cache's stats and the
+        kernel cost ledger's rows. Like ``report``/``stats`` it iterates
+        collections a pump mutates, so the HTTP layer calls it through
+        ``AsyncRouter.snapshot`` (the pump lock); one entry point keeps
+        every scrape consumer behind that lock."""
+        cache = self.prefix_cache
+        return {
+            "report": self.report(),
+            "stats": self.stats(),
+            "cache": cache.stats() if cache is not None else None,
+            # the process-wide dispatch ledger: the kernels this router's replicas ran
+            "cost": kernel_dispatch.LEDGER.rows(),
+        }
 
 
 class AsyncRouter:
@@ -718,6 +747,20 @@ class AsyncRouter:
                 await task
 
         return ticket, tokens()
+
+    async def cancel(self, rid: int, reason: str = "client_cancel") -> bool:
+        """Cancel an in-flight request by rid (the DELETE endpoint), under
+        the pump lock: the lane is released between two batched steps."""
+        async with self._lock:
+            return self.router.cancel(rid, reason=reason)
+
+    async def snapshot(self, fn):
+        """``fn(router)`` under the pump lock, and its result: the safe way to
+        read aggregate state (``report``, ``stats``, ``scrape``) while pumps
+        run in a worker thread. Keep ``fn`` host-side and cheap; it delays
+        the next pump."""
+        async with self._lock:
+            return fn(self.router)
 
     async def stream(self, prompt, **kw):
         """Async generator of tokens as they are produced. Raises

@@ -54,7 +54,11 @@ for bit (B 4 and 128; plain, reverse, masked, fp16 cell), ``train_matmul``
 ``matmul_dx`` and ``matmul_dw``) and
 ``lstm_cell_train`` bit for bit against their plain versions, the train
 step's telemetry equal to the plain path's, the ``matmul_dw`` flush hook's
-counts equal to the snapped dW's.
+counts equal to the snapped dW's. The cost ledger: the cost models' mirrors
+of each launcher's dynamic shared memory and scratch equal to the
+libraries' own, every dispatched call's cuda Cost recorded; the HTTP/SSE
+service on the kernels: tokens equal to the plain path's in-process, the
+ledger's calls equal to the launches.
 """
 import numpy as np
 import pytest
@@ -1367,3 +1371,116 @@ def test_dense_serving_on_the_card_matches_the_plain_path(dev, policy):
         outs[backend] = ([r.out for r in reqs], kd.STATS.snapshot())
     assert outs[None][0] == outs["ref"][0]
     assert outs[None][1] == {("lstm_cell", "cuda"): outs["ref"][1][("lstm_cell", "ref")]}
+
+
+# ---------------------------------------------------------------------------
+# the kernel cost ledger and the HTTP/SSE service on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_cost_model_mirrors_equal_the_libraries(dev):
+    """The cost models' mirrors of each launcher's dynamic shared memory and
+    of the two pre-passes' scratch sizes equal the libraries' own."""
+    from repro_torch.kernels.flash_attention import cost as fa_cost
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.floatsd4_matmul import ops as fm4_ops
+    from repro_torch.kernels.floatsd_matmul import cost as fm_cost
+    from repro_torch.kernels.floatsd_matmul import ops as fm_ops
+    from repro_torch.kernels.rwkv_wkv import cost as rw_cost
+    from repro_torch.kernels.rwkv_wkv import ops as rw_ops
+
+    for m in (1, 8, 9, 17, 33, 64, 65, 3072):
+        want = fm_cost.a_smem(fm_cost.a_row_tile(m))
+        assert fm_ops.library_smem_bytes(m, "A") == want == fm4_ops.library_smem_bytes(m)
+    assert fm_ops.library_smem_bytes(128, "B") == fm_cost.B_SMEM
+    assert fm_ops.library_dw_smem_bytes() == fm_cost.DW_SMEM
+    for k in (1, 64, 65, 128):
+        assert rw_ops.library_smem_bytes(k, False) == rw_cost.prep_smem(k)
+        assert rw_ops.library_smem_bytes(k, True) == rw_cost.walk_smem(k)
+        assert rw_ops.library_scratch_bytes(2, 3, 33, k) == rw_cost.scratch_bytes(2, 3, 33, k)
+    for dt, e in ((torch.float32, 4), (torch.bfloat16, 2)):
+        for d in (8, 64, 65, 120, 128):
+            assert fa_ops.library_smem_bytes(d, dt) == fa_cost.fwd_smem(d, e)
+            assert fa_ops.library_scratch_bytes(2, 1001, 4, d, dt) == fa_cost.scratch_bytes(2, 1001, 4, d, e)
+
+
+@pytest.mark.cuda
+def test_dispatch_records_the_launch_costs_on_the_card(dev):
+    """Every dispatched kernel call records a cuda Cost: shared memory held,
+    and at least the bytes of the plain version's model at the same shapes
+    (which the touched bytes equal)."""
+    g = _gen(dev, 41)
+    kd.STATS.reset()
+    x = quantize_fp8(torch.randn((8, 1024), device=dev, generator=g))
+    codes, bias = floatsd.encode(torch.randn((1024, 4096), device=dev, generator=g) * 0.03)
+    kd.matmul(x, codes, int(bias))
+    kd.matmul(torch.randn((128, 1024), device=dev, generator=g), codes, int(bias))
+    kd.lstm_cell(torch.randn((8, 4096), device=dev, generator=g), torch.zeros((8, 1024), device=dev).half())
+    kd.qsigmoid(torch.randn((64, 4096), device=dev, generator=g))
+    kd.quantize(torch.randn((1024, 4096), device=dev, generator=g) * 0.03)
+    torch.cuda.synchronize()
+    rows = {r["op"]: r for r in kd.LEDGER.rows()}
+    assert {r["backend"] for r in rows.values()} == {"cuda"}
+    assert rows["floatsd_matmul"]["calls"] == 2
+    for r in rows.values():
+        assert r["smem_bytes"] > 0 and r["hbm_bytes"] >= r["touched_bytes"] > 0
+    assert rows["lstm_cell"]["hbm_bytes"] == rows["lstm_cell"]["touched_bytes"]  # one pass
+
+
+@pytest.mark.cuda
+def test_http_tokens_on_the_kernels_equal_the_plain_path_in_process(dev):
+    """Two replicas behind HttpServer on the kernels: every request's tokens
+    (generate and stream, concurrently) equal the same prompts in-process on
+    backend="ref" (route A is bit for bit), every dispatch record cuda, the
+    ledger's calls equal to the launches; the drain ends the server with a
+    client connected."""
+    import asyncio
+
+    from repro_torch.kernels.floatsd_matmul.ops import floatsd_matmul as fm_kernel
+    from repro_torch.serving import Router
+    from repro_torch.serving.http import Client, HttpServer
+
+    model = WikiText2LM(vocab=512, emb=64, hidden=64, n_layers=2)
+    params = _decisive_weights(model.init(_gen(dev, 9)))
+    pol = get_policy("floatsd8_table6")
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(0, 512, int(rng.integers(4, 20))).astype(np.int32) for _ in range(8)]
+
+    def build(backend=None):
+        return Router.build(model, params, pol, replicas=2, lanes=2, chunk=4, backend=backend)
+
+    async def main():
+        server = await HttpServer(build(), port=0).start()
+        task = asyncio.create_task(server.serve_forever())
+
+        async def one(i, p):
+            async with Client(server.host, server.port) as c:
+                if i % 2:
+                    return [d["token"] async for e, d in c.stream(p, max_new=6) if e == "message"]
+                return (await c.generate(p, max_new=6))["tokens"]
+
+        admin = Client(server.host, server.port)
+        try:
+            toks = await asyncio.gather(*(one(i, p) for i, p in enumerate(prompts)))
+            text = await admin.metrics()
+            await admin.drain()
+            await asyncio.wait_for(task, 30)
+            return toks, text
+        finally:
+            await admin.close()
+            if not task.done():
+                server.shutdown()
+                await asyncio.wait_for(task, 30)
+
+    kd.STATS.reset()
+    fm_kernel.launches = 0
+    toks, text = asyncio.run(asyncio.wait_for(main(), 120))
+    snap = kd.STATS.snapshot()
+    plain = build("ref")
+    ts = [plain.submit(p, max_new=6) for p in prompts]
+    plain.drain()
+    assert toks == [t.tokens for t in ts]
+    assert {be for _, be in snap} == {"cuda"}
+    assert f'repro_cost_calls_total{{op="floatsd_matmul",backend="cuda"}} {fm_kernel.launches}' in text
+    assert snap[("floatsd_matmul", "cuda")] == fm_kernel.launches > 0

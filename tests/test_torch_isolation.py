@@ -120,3 +120,19 @@ def test_walk_reaches_the_serving_frontend_modules():
     assert {"repro_torch.faults", "repro_torch.obs.trace", "repro_torch.serving.frontend",
             "repro_torch.serving.frontend.prefix_cache",
             "repro_torch.serving.frontend.router"} <= names
+
+
+def test_walk_reaches_the_http_and_cost_ledger_modules():
+    """The blocked import above walks the HTTP/SSE service and the kernel
+    cost ledger too: the protocol, server, client and Prometheus modules,
+    ``obs.costmodel`` and each kernel package's ``cost`` module."""
+    import pkgutil
+
+    import repro_torch
+
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
+    assert {f"repro_torch.serving.http.{m}" for m in ("protocol", "server", "client", "prometheus")} <= names
+    assert "repro_torch.obs.costmodel" in names
+    assert {f"repro_torch.kernels.{k}.cost" for k in ("floatsd_matmul", "floatsd4_matmul", "lstm_cell",
+                                                      "floatsd_quantize", "qsigmoid", "rwkv_wkv",
+                                                      "flash_attention")} <= names

@@ -2,9 +2,10 @@
 tests/test_obs.py's tracer section, and the serving stack's trace: a
 router over two engine replicas with a prefix cache, a preemption, a
 cancel and an injected fault, run with the tracer on, exports a Chrome
-trace that scripts/check_trace.py accepts (apart from the predicted-cost
-counter tracks, which wait for the port of ``obs/costmodel.py``) and that
-carries every lifecycle event the reference's engine and router emit.
+trace that scripts/check_trace.py accepts in full (its predicted-cost
+counter tracks included, which the router's pumps emit from the kernel cost
+ledger) and that carries every lifecycle event the reference's engine and
+router emit.
 """
 import asyncio
 import importlib.util
@@ -212,7 +213,7 @@ def test_serving_stack_trace_has_every_lifecycle_event():
         assert name in names, name
     steps = [e for e in trace["traceEvents"] if e["name"] == "engine.step" and e["ph"] == "B"]
     assert all(e["args"]["kind"] in ("prefill", "decode") and e["args"]["lanes"] for e in steps)
-    # the validator's only complaints: no predicted-cost counter tracks
+    # the validator passes in full: the pumps emit the cost ledger's
+    # cost.floatsd_matmul and cost.lstm_cell counter tracks
     problems = validate_trace(trace)
-    assert problems and all("counter track (cost-ledger emission missing)" in p
-                            for p in problems), problems
+    assert problems == [], problems
