@@ -2208,13 +2208,13 @@ def zoo_build(torch, dev, n_layers=None, arch="rwkv6_3b"):
     return cfg, model, store, time.perf_counter() - t0
 
 
-def zoo_serve(torch, model, tree, policy, prompts, backend=None, cache_len=None):
+def zoo_serve(torch, model, tree, policy, prompts, backend=None, cache_len=None, max_new=ZOO_MAX_NEW):
     """ServeEngine over the packed store: lanes in lockstep, one token a
     step; returns (engine, requests by rid, decode-step wall times)."""
     from repro_torch.serving import ServeEngine
 
     eng = ServeEngine(model, tree, policy, lanes=ZOO_LANES, backend=backend, cache_len=cache_len)
-    reqs = eng.submit_all([p.copy() for p in prompts], max_new=ZOO_MAX_NEW)
+    reqs = eng.submit_all([p.copy() for p in prompts], max_new=max_new)
     times = []
     eng.metrics.start()
     while True:
@@ -2224,6 +2224,21 @@ def zoo_serve(torch, model, tree, policy, prompts, backend=None, cache_len=None)
         times.append(time.perf_counter() - t0)
     eng.metrics.stop()
     return eng, sorted(reqs, key=lambda r: r.rid), times
+
+
+def decisive_tokens(reqs, refs, what: str) -> tuple[int, int]:
+    """Greedy streams of the kernels against the plain path's, equal over
+    each request's margin-decisive prefix (the plain run's top-2 gap above
+    MARGIN_FLOOR), at least half the tokens decisive: (decisive tokens,
+    streams equal in full)."""
+    decisive = agree = 0
+    for r, ref in zip(reqs, refs):
+        n = next((i for i, g in enumerate(ref.margins) if g <= MARGIN_FLOOR), len(ref.out))
+        check(r.out[:n] == ref.out[:n], f"{what}: request {r.rid}: {r.out} vs plain {ref.out} (decisive {n})")
+        decisive += n
+        agree += r.out == ref.out
+    check(decisive >= sum(len(ref.out) for ref in refs) // 2, f"{what}: only {decisive} decisive tokens")
+    return decisive, agree
 
 
 def zoo_phase(torch, dev, smi):
@@ -2389,13 +2404,7 @@ def zoo_x_phase(torch, dev, smi):
     pol8 = get_policy("floatsd8_table6")
     _, reqs, _ = zoo_serve(torch, model, store.tree, pol8, prompts)
     _, refs, ref_times = zoo_serve(torch, model, store.tree, pol8, prompts, backend="ref")
-    decisive = agree = 0
-    for r, ref in zip(reqs, refs):
-        n = next((i for i, g in enumerate(ref.margins) if g <= MARGIN_FLOOR), ZOO_MAX_NEW)
-        check(r.out[:n] == ref.out[:n], f"zoo-x: request {r.rid}: {r.out} vs plain {ref.out} (decisive {n})")
-        decisive += n
-        agree += r.out == ref.out
-    check(decisive >= ZOO_LANES * ZOO_MAX_NEW // 2, f"zoo-x: only {decisive} decisive tokens")
+    decisive, agree = decisive_tokens(reqs, refs, "zoo-x")
     print(f"zoo-x ({ZOO_X_LAYERS} of {get_config('rwkv6_3b').n_layers} layers at full width, kernels vs "
           f"backend='ref' on the card): prefill logits [{ZOO_B},{ZOO_S}] with no activation quantizer (policy "
           f"fp32, the same codes) max err {g32['max']:.3e} of the scale {g32['scale']:.3f} (bound {ZOO_X_TOL}), "
@@ -2440,15 +2449,23 @@ DENSE_X_TOL = 2.0 ** -8
 # kernel-vs-oracle bounds (tests/test_flash_kernel.py), |err| <= atol + rtol
 # |want|, f32 and bf16 inputs
 FLASH_TOL = {"float32": (6e-3, 2e-2), "bfloat16": (2e-2, 3e-2)}
+# rows held against the oracle as the plain version is: no more outputs
+# beyond the JAX package's bound than the plain version (the kernel's
+# function: p and v rounded to bf16, an error of up to 2^-8 sum p |v| from the
+# f32 oracle) has there; every row is held to the bound against the plain
+# version
+FLASH_AS_PLAIN = ("jamba",)
 FLASH_Q_SCALE = 2.0  # q ~ N(0, 4): scores of std 2 (a peaked attention, as a trained model's)
 # (name, B, S, H, Kh, D, causal, window, dtype): the dense prefill (the
 # window of 4096 inactive at S 1024), the window biting, a ragged S, no
-# causal mask, bf16
+# causal mask, bf16, and the hybrid's prefill (head size 128, the kernel's
+# D_MAX, no window)
 FLASH_CASES = [("prefill", ZOO_B, ZOO_S, 32, 8, 120, True, 4096, "float32"),
                ("window", 1, 8192, 32, 8, 120, True, 4096, "float32"),
                ("ragged", ZOO_B, 1000, 32, 8, 120, True, 4096, "float32"),
                ("full", ZOO_B, ZOO_S, 32, 8, 120, False, None, "float32"),
-               ("bf16", ZOO_B, ZOO_S, 32, 8, 120, True, 4096, "bfloat16")]
+               ("bf16", ZOO_B, ZOO_S, 32, 8, 120, True, 4096, "bfloat16"),
+               ("jamba", ZOO_B, ZOO_S, 32, 8, 128, True, None, "float32")]
 
 
 def attend_pairs(sq: int, skv: int, causal: bool, window) -> int:
@@ -2522,12 +2539,17 @@ def flash_phase(torch, dev, flush):
         check(torch.equal(o, o2), f"flash_attention {name}: two launches differ")
         atol, rtol = FLASH_TOL[str(dt).split(".")[-1]]
         errs = {}
+        # the plain version's own outputs beyond the oracle's bound: where it
+        # has some, the kernel may have no more than it (FLASH_AS_PLAIN)
+        plain_beyond = int(((plain.float() - oracle.float()).abs()
+                            > atol + rtol * oracle.float().abs()).sum())
         for ref_name, want in (("oracle", oracle), ("plain", plain)):
             e = (o.float() - want.float()).abs()
             beyond = int((e > atol + rtol * want.float().abs()).sum())
-            check(beyond == 0, f"flash_attention {name}: {beyond} outputs beyond the bound against the {ref_name} "
-                               f"(max err {float(e.max()):.3e})")
-            errs[ref_name] = (float(e.max()), int((o != want).sum()))
+            allowed = plain_beyond if ref_name == "oracle" and name in FLASH_AS_PLAIN else 0
+            check(beyond <= allowed, f"flash_attention {name}: {beyond} outputs beyond the bound against the "
+                                     f"{ref_name} (max err {float(e.max()):.3e}; the plain version {plain_beyond})")
+            errs[ref_name] = (float(e.max()), int((o != want).sum()), beyond)
         caught = None
         if name == "prefill":  # the f32 scores' precision control
             one_piece = flash_attention_gqa(q.bfloat16().float(), k.bfloat16().float(), v, causal=causal, window=window)
@@ -2562,14 +2584,15 @@ def flash_phase(torch, dev, flush):
             del qt, kt, vt, lib, lib_kw
         pairs = b * h * attend_pairs(s, s, causal, window)
         bd = bound(q.element_size() * (2 * q.numel() + k.numel() + v.numel()), flash_ops(pairs * d, q, k))
-        rows[name] = costed(dict(ms=t, plain_ms=t_plain, library_ms=t_lib, err=max(e for e, _ in errs.values()), **bd),
+        rows[name] = costed(dict(ms=t, plain_ms=t_plain, library_ms=t_lib, err=max(v[0] for v in errs.values()), **bd),
                             "flash_attention", f"{name} q [{b},{s},{h},{d}] {str(dt)[6:]}", b, s, s, h, kh, d,
                             peak="bf16" if dt == torch.bfloat16 else "fp32", causal=causal, window=window,
                             elem_bytes=q.element_size())
         print(f"  {name:8s} q [{b},{s},{h},{d}], k, v [{b},{s},{kh},{d}] {str(dt)[6:]}, causal {causal}, window "
               f"{window}: vs oracle max_abs_err {errs['oracle'][0]:.3e} ({errs['oracle'][1]} of {o.numel()} not "
               f"bit-identical), vs plain {errs['plain'][0]:.3e} ({errs['plain'][1]} not bit-identical); |o| max "
-              f"{float(oracle.float().abs().max()):.3f}; two launches bit-identical"
+              f"{float(oracle.float().abs().max()):.3f}; outputs beyond the bound of the oracle: the kernel "
+              f"{errs['oracle'][2]}, the plain version {plain_beyond}; two launches bit-identical"
               + (f"; without the window {caught:.2%} beyond the bound" if caught is not None else "")
               + (f"; vs plain {precision:.3f} of the error of one bf16 pass of the scores (bound 0.25)"
                  if name == "prefill" else "")
@@ -2759,13 +2782,7 @@ def dense_x_phase(torch, dev, smi):
     pol8 = get_policy("floatsd8_table6")
     _, reqs, _ = zoo_serve(torch, model, store.tree, pol8, prompts, cache_len=DENSE_CACHE_LEN)
     _, refs, ref_times = zoo_serve(torch, model, store.tree, pol8, prompts, backend="ref", cache_len=DENSE_CACHE_LEN)
-    decisive = agree = 0
-    for r, ref in zip(reqs, refs):
-        n = next((i for i, g in enumerate(ref.margins) if g <= MARGIN_FLOOR), ZOO_MAX_NEW)
-        check(r.out[:n] == ref.out[:n], f"dense-x: request {r.rid}: {r.out} vs plain {ref.out} (decisive {n})")
-        decisive += n
-        agree += r.out == ref.out
-    check(decisive >= ZOO_LANES * ZOO_MAX_NEW // 2, f"dense-x: only {decisive} decisive tokens")
+    decisive, agree = decisive_tokens(reqs, refs, "dense-x")
     print(f"dense-x ({DENSE_X_LAYERS} of {get_config(DENSE_ARCH).n_layers} layers at full width, kernels vs "
           f"backend='ref' on the card): prefill logits [{ZOO_B},{ZOO_S}] with no activation quantizer (policy "
           f"fp32, the same codes) max err {g32['max']:.3e} of the scale {g32['scale']:.3f} (bound {DENSE_X_TOL}), "
@@ -3309,6 +3326,357 @@ def http_phase(torch, model, params, policy, smi, front) -> dict:
     return dict(launches=launches_all, tok_s=tok_s, pump_ms=pump_ms, emit_ms=emit_ms, drain_s=drain_s)
 
 
+# the hybrid family (phases 18-19): jamba_v01_52b at its published width, one
+# period of its 32 layers, and the moe family's reduced configs (phase 20)
+HYBRID_ARCH = "jamba_v01_52b"
+# one period of Jamba's 32 layers (7 Mamba + 1 attention sub-layer, 4 FFN + 4
+# MoE MLPs): the 32 layers' f32 init is 205 GB and a period's 52.1 GB, so the
+# store is drawn and packed one block at a time; the peak is the codes plus one
+# MoE block's f32 (11.3 GB)
+HYBRID_LAYERS = 8
+HYBRID_CODE_BYTES = 13_026_795_520  # the FloatSD8 codes of the period, from the shapes
+HYBRID_BYTES = 13_026_812_352  # tree_nbytes: + 4 B of bias a packed leaf (112) + the f32 final norm
+HYBRID_LEAVES = 112
+HYBRID_MM = 237  # floatsd_matmul a prefill or decode step: 7 x 4 Mamba + 4 attention + 4 x 3 FFN + 4 x 3 x 16 experts + head
+HYBRID_KV_BYTES = 67_108_864  # the engine's bf16 KV cache: 1 attention layer x 2 x 8 lanes x 2048 x 8 x 128 x 2 B
+# one Mamba layer and one MoE layer at full width, kernels against the plain
+# versions with no activation quantizer: each product's route B (M > 64) is
+# within 1e-5 of |x| @ |W| (floatsd_matmul's stated bound); four products in
+# a chain and the scan's exp and softplus carry that forward, so a layer's
+# output is held to ten times it, 1e-4 of its scale
+HYBRID_X_TOL = 1e-4
+HYBRID_X_NEW = 8  # the engine cross-check's new tokens (the plain decode step takes seconds at this width)
+MOE_ARCHS = ("dbrx_132b", "kimi_k2_1t_a32b")
+MOE_S = 64  # the reduced models' prefill: 2 x 64 tokens, 8 tokens a dispatch group
+
+
+def hybrid_cfg():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(HYBRID_ARCH), n_layers=HYBRID_LAYERS)
+
+
+def mm_sites(model) -> int:
+    """floatsd_matmul launches of one prefill or decode step of a zoo
+    CausalLM: 4 a Mamba or attention mixer, 3 an FFN, 3 an expert, + the
+    head."""
+    def block(b):
+        return 4 + 3 * (b.moe_mod.n_experts if b.mlp == "moe" else 1)
+
+    return (sum(block(b) for b in model._period()) * model._stack().n_groups
+            + sum(block(b) for b in model._head_blocks()) + 1)
+
+
+def attn_layers(model) -> int:
+    return (sum(b.mixer == "attn" for b in model._period()) * model._stack().n_groups
+            + len(model._head_blocks()))
+
+
+def hybrid_phase(torch, dev, smi, cfg=None):
+    """Phase 18: jamba_v01_52b at full width, one period, built block by
+    block, prefilled, decoded and served. Returns (results, model, store)
+    for phase 19. ``cfg`` replaces the period's config (a reduced one
+    rehearses the phase on the CPU); the full-width byte and launch counts
+    are asserted at d_model 4096 only."""
+    import numpy as np
+
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import dispatch as kd
+    from repro_torch.models import build
+    from repro_torch.serving import WeightStore, synthetic_prompts
+
+    cfg = cfg or hybrid_cfg()
+    full = cfg.d_model == 4096
+    model = build(cfg)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    store = WeightStore.pack_streamed(lambda pack: model.init(gen, each=pack))
+    torch.cuda.synchronize()
+    t_build, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    codes = sum(x.codes.numel() for x in tree_leaves(store.tree, is_leaf=kd.is_packed) if kd.is_packed(x))
+    print(f"hybrid: {cfg.name} at d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.hd} over {cfg.kv_heads} KV "
+          f"heads, d_ff {cfg.d_ff}, {cfg.n_experts} experts top-{cfg.top_k}, vocab {cfg.vocab}, Mamba d_state "
+          f"{cfg.mamba_state}, {cfg.n_layers} of its {get_config(cfg.name).n_layers} layers (one period: "
+          + ", ".join(f"{b.mixer}+{b.mlp}" for b in model._period()) + f") from seed {SEED}, drawn and packed "
+          f"block by block: {store.dense_nbytes} B f32 -> {store.packed_nbytes} B packed FloatSD8 ({codes} B of "
+          f"codes, {store.n_packed} leaves) in {t_build:.1f} s, peak {peak} B on the card ({held} B held before)",
+          flush=True)
+    if full:
+        check(store.packed_nbytes == HYBRID_BYTES and codes == HYBRID_CODE_BYTES and store.n_packed == HYBRID_LEAVES,
+              f"hybrid resident bytes {store.packed_nbytes} != {HYBRID_BYTES} (codes {codes}, {store.n_packed} "
+              "leaves)")
+    pol = get_policy("floatsd8_table6").replace(weight_quant="none")
+    tree = model.hoist(store.tree)
+    toks = torch.as_tensor(np.random.default_rng(SEED).integers(0, cfg.vocab, (ZOO_B, ZOO_S)), device=dev)
+    n_mm, n_attn = mm_sites(model), attn_layers(model)
+    if full:
+        check(n_mm == HYBRID_MM, f"hybrid: {n_mm} weight sites, not {HYBRID_MM}")
+    out = {}
+
+    kd.STATS.reset()
+    zoo_counters(reset=True)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits = model.prefill(tree, {"tokens": toks}, pol)
+        torch.cuda.synchronize()
+        wall_first = time.perf_counter() - t0
+    launches, stats = zoo_counters(), kd.STATS.snapshot()
+    want = {"floatsd_matmul": n_mm, "qsigmoid": 0, "rwkv_wkv": 0, "flash_attention": n_attn}
+    check(launches == want, f"hybrid prefill launches {launches} != {want}")
+    check(stats == {(op, "cuda"): n for op, n in want.items() if n}, f"hybrid prefill dispatch records {stats}")
+    check(tuple(logits.shape) == (ZOO_B, ZOO_S, cfg.vocab_padded()) and bool(torch.isfinite(logits).all()),
+          f"hybrid prefill logits {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        model.prefill(tree, {"tokens": toks}, pol)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    groups, wall_prof = profile_prefill(torch, model, tree, toks, pol)
+    busy = sum(ms for ms, _ in groups.values())
+    # the selective scan alone (plain torch ops), at one Mamba layer's prefill
+    # inputs, CUDA events: its share of the "other torch ops"
+    m = next(b.mamba_mod for b in model._period() if b.mixer == "mamba")
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    x = torch.randn((ZOO_B, ZOO_S, m.d_inner), device=dev, generator=g)
+    dt = torch.rand((ZOO_B, ZOO_S, m.d_inner), device=dev, generator=g) * 0.1
+    bm, cm = (torch.randn((ZOO_B, ZOO_S, m.d_state), device=dev, generator=g) for _ in range(2))
+    a = -torch.arange(1, m.d_state + 1, device=dev, dtype=torch.float32).repeat(m.d_inner, 1)
+    h0 = torch.zeros((ZOO_B, m.d_inner, m.d_state), device=dev)
+    flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev)
+    scan_ms = timed_ms(torch, lambda: m._scan(h0, x, dt, bm, cm, a), 3, flush)
+    n_mamba = sum(b.mixer == "mamba" for b in model._period()) * model._stack().n_groups
+    del x, dt, bm, cm, h0, flush
+    out["prefill"] = dict(launches=launches, wall_s=wall, tok_s=ZOO_B * ZOO_S / wall, profile=groups,
+                          scan_ms=scan_ms, n_mamba=n_mamba)
+    print(f"hybrid prefill: B {ZOO_B} x S {ZOO_S}: {wall * 1e3:.1f} ms wall ({wall_first * 1e3:.1f} ms the first), "
+          f"{ZOO_B * ZOO_S / wall:.0f} tok/s ({smi}); launches {launches}; dispatch "
+          f"{dict((f'{o}/{b}', n) for (o, b), n in stats.items())}; logits finite, |max| "
+          f"{float(logits.abs().max()):.3f}. Profiled prefill: {wall_prof:.1f} ms wall, device busy {busy:.1f} ms: "
+          + ", ".join(f"{grp} {ms:.1f} ms ({n} kernels)" for grp, (ms, n) in groups.items())
+          + f"; the selective scan alone (one layer's, plain torch ops, {ZOO_S} steps) {scan_ms:.2f} ms, x "
+          f"{n_mamba} layers = {scan_ms * n_mamba:.1f} ms", flush=True)
+
+    kd.STATS.reset()
+    zoo_counters(reset=True)
+    dec, times = zoo_decode(torch, model, tree, toks, pol)
+    launches, stats = zoo_counters(), kd.STATS.snapshot()
+    with torch.no_grad():  # one more step, after the counters are read: its host work
+        cache = model.init_cache(1, pol, dev, cache_len=ZOO_DECODE)
+        n_ops = torch_ops(torch, lambda: model.decode_step(tree, toks[:1, :1], cache, pol))
+        del cache
+    want = {"floatsd_matmul": n_mm * ZOO_DECODE, "qsigmoid": 0, "rwkv_wkv": 0, "flash_attention": 0}
+    check(launches == want and sum(n for (_, b), n in stats.items() if b == "ref") == 0,
+          f"hybrid decode launches {launches} != {want}; dispatch {stats}")
+    check(bool(torch.isfinite(dec).all()), "hybrid decode: nonfinite logits")
+    served = positions_gap(torch, dec, logits[0, :ZOO_DECODE], DENSE_TOL)
+    fp32 = get_policy("fp32")
+    with torch.no_grad():
+        ref32 = model.prefill(tree, {"tokens": toks[:1, :ZOO_DECODE]}, fp32)[0]
+    dec32, _ = zoo_decode(torch, model, tree, toks, fp32)
+    plain = positions_gap(torch, dec32, ref32, DENSE_TOL)
+    check(plain["max"] <= DENSE_TOL, f"hybrid decode vs prefill, no activation quantizer: max err {plain['max']:.3e} "
+                                     f"of the scale {plain['scale']:.3f} (bound {DENSE_TOL})")
+    step = statistics.median(times[1:])
+    out["decode"] = dict(launches=launches, step_ms=step * 1e3, aten_ops=n_ops, served=served, plain=plain)
+    print(f"hybrid decode: {ZOO_DECODE} steps of sequence 0 (B 1): median step {step * 1e3:.2f} ms, "
+          f"{1 / step:.1f} tok/s ({smi}), {n_ops} ATen operations a step; launches {launches}. Against the prefill's logits at positions "
+          f"0-{ZOO_DECODE - 1}: with no activation quantizer (policy fp32, the same codes) max err {plain['max']:.3e} "
+          f"of the scale {plain['scale']:.3f} (bound {DENSE_TOL}), argmax equal at {plain['argmax']} of {ZOO_DECODE}; "
+          f"under floatsd8_table6 (reported) max err {served['max']:.3e} of the scale {served['scale']:.3f}, within "
+          f"{DENSE_TOL} up to position {served['first'] - 1}, argmax equal at {served['argmax']}", flush=True)
+    del logits, ref32, dec, dec32
+
+    prompts = synthetic_prompts(ZOO_LANES, cfg.vocab, np.random.default_rng(SEED))
+    kd.STATS.reset()
+    zoo_counters(reset=True)
+    eng, reqs, times = zoo_serve(torch, model, store.tree, get_policy("floatsd8_table6"), prompts,
+                                 cache_len=DENSE_CACHE_LEN)
+    launches, stats = zoo_counters(), kd.STATS.snapshot()
+    me = eng.metrics
+    kv = [c for c in eng.pool.caches["stack"].values() if hasattr(c, "pos")]
+    kv_bytes = sum(c.k.numel() * c.k.element_size() + c.v.numel() * c.v.element_size() for c in kv)
+    state_bytes = sum(t.numel() * t.element_size() for c in eng.pool.caches["stack"].values()
+                      if not hasattr(c, "pos") for t in c)
+    check(all(r.status == "done" and len(r.out) == ZOO_MAX_NEW for r in reqs) and me.numeric_errors == 0,
+          f"hybrid engine: {[r.status for r in reqs]}, {me.numeric_errors} nonfinite")
+    want = {"floatsd_matmul": n_mm * me.steps, "qsigmoid": 0, "rwkv_wkv": 0, "flash_attention": 0}
+    check(launches == want and sum(n for (_, b), n in stats.items() if b == "ref") == 0,
+          f"hybrid engine launches {launches} != {want}; dispatch {stats}")
+    if full:
+        check(kv_bytes == HYBRID_KV_BYTES, f"hybrid engine KV cache {kv_bytes} B != {HYBRID_KV_BYTES}")
+    step = statistics.median(times)
+    out["engine"] = dict(launches=launches, step_ms=step * 1e3, gen_tok_s=me.report()["gen_tok_per_s"],
+                         lane_tok_s=ZOO_LANES / step)
+    print(f"hybrid engine: {me.format()}; KV cache {kv_bytes} B ({DENSE_CACHE_LEN} positions), Mamba states "
+          f"{state_bytes} B; median step {step * 1e3:.2f} ms over {len(times)} steps at {ZOO_LANES} lanes = "
+          f"{ZOO_LANES / step:.1f} tok/s ({smi}); launches {launches}", flush=True)
+    out["launches"] = {op: sum(out[p]["launches"][op] for p in ("prefill", "decode", "engine")) for op in want}
+    del eng, tree
+    torch.cuda.empty_cache()
+    return out, model, store
+
+
+def hybrid_x_phase(torch, dev, smi, model, store):
+    """Phase 19: phase 18's model on the kernels against backend="ref" on
+    the card: one Mamba and one MoE layer at full width on one input, then
+    the period's prefill and the engine's greedy tokens."""
+    import numpy as np
+
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import dispatch as kd
+    from repro_torch.nn.moe import record_routes
+    from repro_torch.nn.transformer import _layer
+    from repro_torch.serving import synthetic_prompts
+
+    cfg = model.cfg
+    tree = model.hoist(store.tree)
+    lp = _layer(tree["stack"], 0)
+    period = model._period()
+    fp32 = get_policy("fp32")
+    toks = torch.as_tensor(np.random.default_rng(SEED).integers(0, cfg.vocab, (ZOO_B, ZOO_S)), device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    h = torch.randn((ZOO_B, ZOO_S, cfg.d_model), device=dev, generator=g)
+    layers = {}
+    with torch.no_grad():
+        i = next(i for i, b in enumerate(period) if b.mixer == "mamba")
+        got = period[i].mamba_mod.apply(lp[f"b{i}"]["mixer"], h, fp32)
+        with kd.use_backend("ref"):
+            want = period[i].mamba_mod.apply(lp[f"b{i}"]["mixer"], h, fp32)
+        layers["mamba"] = positions_gap(torch, got.reshape(-1, cfg.d_model), want.reshape(-1, cfg.d_model),
+                                        HYBRID_X_TOL)
+        i = next(i for i, b in enumerate(period) if b.mlp == "moe")
+        with record_routes() as r_got:
+            got, _ = period[i].moe_mod.apply(lp[f"b{i}"]["mlp"], h, fp32)
+        with record_routes() as r_want, kd.use_backend("ref"):
+            want, _ = period[i].moe_mod.apply(lp[f"b{i}"]["mlp"], h, fp32)
+        same = all(torch.equal(getattr(a, f), getattr(b, f)) for a, b in zip(r_got, r_want)
+                   for f in ("expert_idx", "slot_e", "slot_c", "keep", "gate"))
+        check(same, "hybrid-x: the MoE layer's routing differs between the kernels and the plain versions")
+        kept = int(r_got[0].keep.sum())
+        layers["moe"] = positions_gap(torch, got.reshape(-1, cfg.d_model), want.reshape(-1, cfg.d_model),
+                                      HYBRID_X_TOL)
+    del got, want, h
+    for name, gap in layers.items():
+        check(gap["max"] <= HYBRID_X_TOL, f"hybrid-x {name} layer: max err {gap['max']:.3e} of the scale "
+                                          f"{gap['scale']:.3f} (bound {HYBRID_X_TOL})")
+
+    # the period's prefill with no activation quantizer: routing counted
+    # against the plain path's; the logits held over the flattened positions
+    # before the first token routed differently (a moved token changes its
+    # own row, later tokens of its sequence and later ranks of its group)
+    with torch.no_grad():
+        with record_routes() as r_got:
+            got = model.prefill(tree, {"tokens": toks}, fp32)
+        t0 = time.perf_counter()
+        with record_routes() as r_want, kd.use_backend("ref"):
+            want = model.prefill(tree, {"tokens": toks}, fp32)
+        torch.cuda.synchronize()
+        t_ref = time.perf_counter() - t0
+    differ = torch.zeros(ZOO_B * ZOO_S, dtype=torch.bool, device=dev)
+    for a, b in zip(r_got, r_want):
+        differ |= (a.expert_idx.sort(-1).values != b.expert_idx.sort(-1).values).any(-1).reshape(-1)
+    moved = int(differ.sum())
+    first = int(differ.nonzero()[0]) if moved else ZOO_B * ZOO_S
+    flat = lambda t: t.reshape(-1, t.shape[-1])  # noqa: E731
+    gap = positions_gap(torch, flat(got)[:first], flat(want)[:first], DENSE_X_TOL)
+    gap_all = positions_gap(torch, flat(got), flat(want), DENSE_X_TOL)
+    check(first > 0, "hybrid-x: the first token of the prefill is routed differently")
+    check(gap["max"] <= DENSE_X_TOL, f"hybrid-x prefill logits before the first token routed differently "
+                                     f"({first} positions), no activation quantizer: max err {gap['max']:.3e} of the "
+                                     f"scale {gap['scale']:.3f} (bound {DENSE_X_TOL})")
+    del got, want
+    # the engine, kernels against the plain path: a shorter run than zoo-x's,
+    # since the plain versions' decode step at this width takes seconds
+    # (route A's plain version sums each product's k in order, one launch a k)
+    prompts = synthetic_prompts(ZOO_LANES, cfg.vocab, np.random.default_rng(SEED), lo=4, hi=8)
+    pol8 = get_policy("floatsd8_table6")
+    _, reqs, _ = zoo_serve(torch, model, store.tree, pol8, prompts, cache_len=DENSE_CACHE_LEN,
+                           max_new=HYBRID_X_NEW)
+    _, refs, ref_times = zoo_serve(torch, model, store.tree, pol8, prompts, backend="ref",
+                                   cache_len=DENSE_CACHE_LEN, max_new=HYBRID_X_NEW)
+    decisive, agree = decisive_tokens(reqs, refs, "hybrid-x")
+    print(f"hybrid-x (kernels vs backend='ref' on the card, {smi}): one Mamba layer at full width on one input "
+          f"[{ZOO_B},{ZOO_S},{cfg.d_model}], policy fp32: max err {layers['mamba']['max']:.3e} of the scale "
+          f"{layers['mamba']['scale']:.3f} (bound {HYBRID_X_TOL}); one MoE layer: routing equal (expert indices, "
+          f"slots, keep mask, gates; {kept} of {r_got[0].keep.numel()} assignments kept), max err "
+          f"{layers['moe']['max']:.3e} of the scale {layers['moe']['scale']:.3f} (bound {HYBRID_X_TOL}). The period's "
+          f"prefill [{ZOO_B},{ZOO_S}], policy fp32: {moved} tokens whose top-{cfg.top_k} set differs at some MoE "
+          f"layer, the first at flattened position {first}; logits before it max err {gap['max']:.3e} of the scale "
+          f"{gap['scale']:.3f} (bound {DENSE_X_TOL}), over all positions {gap_all['max']:.3e}, argmax equal at "
+          f"{gap_all['argmax']} of {ZOO_B * ZOO_S}; plain prefill {t_ref:.2f} s; engine ({ZOO_LANES} lanes, prompts "
+          f"of 4-7 tokens, {HYBRID_X_NEW} new, floatsd8_table6): {decisive} of {ZOO_LANES * HYBRID_X_NEW} tokens "
+          f"margin-decisive (floor {MARGIN_FLOOR}) and equal, {agree} of {ZOO_LANES} streams equal in full; plain "
+          f"decode step {statistics.median(ref_times) * 1e3:.1f} ms", flush=True)
+    del tree
+    torch.cuda.empty_cache()
+    return dict(layers=layers, moved=moved, first=first, gap=gap, decisive=decisive)
+
+
+def moe_phase(torch, dev, smi):
+    """Phase 20: the moe family's reduced dbrx_132b and kimi_k2_1t_a32b on
+    the kernels against backend="ref" on the card: prefill logits and
+    greedy tokens. Their published widths need 132 GB and over 1 TB of
+    codes."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import dispatch as kd
+    from repro_torch.models import build
+    from repro_torch.serving import WeightStore, synthetic_prompts
+
+    out = {"launches": {}}
+    for arch in MOE_ARCHS:
+        cfg = get_config(arch).reduced()
+        model = build(cfg)
+        store = WeightStore.pack(model.init(torch.Generator(device=dev).manual_seed(SEED)))
+        tree = model.hoist(store.tree)
+        toks = torch.as_tensor(np.random.default_rng(SEED).integers(0, cfg.vocab, (ZOO_B, MOE_S)), device=dev)
+        fp32 = get_policy("fp32")
+        kd.STATS.reset()
+        zoo_counters(reset=True)
+        with torch.no_grad():
+            got = model.prefill(tree, {"tokens": toks}, fp32)
+        launches, stats = zoo_counters(), kd.STATS.snapshot()
+        want = {"floatsd_matmul": mm_sites(model), "qsigmoid": 0, "rwkv_wkv": 0,
+                "flash_attention": attn_layers(model)}
+        check(launches == want and stats == {(op, "cuda"): n for op, n in want.items() if n},
+              f"moe {arch} prefill launches {launches} != {want}; dispatch {stats}")
+        with torch.no_grad(), kd.use_backend("ref"):
+            ref = model.prefill(tree, {"tokens": toks}, fp32)
+        gap = positions_gap(torch, got.reshape(-1, got.shape[-1]), ref.reshape(-1, ref.shape[-1]), DENSE_X_TOL)
+        check(gap["max"] <= DENSE_X_TOL, f"moe {arch}: prefill logits max err {gap['max']:.3e} of the scale "
+                                         f"{gap['scale']:.3f} (bound {DENSE_X_TOL})")
+        prompts = synthetic_prompts(ZOO_LANES, cfg.vocab, np.random.default_rng(SEED))
+        pol8 = get_policy("floatsd8_table6")
+        zoo_counters(reset=True)
+        eng, reqs, _ = zoo_serve(torch, model, store.tree, pol8, prompts, cache_len=DENSE_CACHE_LEN)
+        eng_launches = zoo_counters()
+        check(eng_launches["floatsd_matmul"] == mm_sites(model) * eng.metrics.steps,
+              f"moe {arch} engine launches {eng_launches}")
+        _, refs, _ = zoo_serve(torch, model, store.tree, pol8, prompts, backend="ref", cache_len=DENSE_CACHE_LEN)
+        decisive, agree = decisive_tokens(reqs, refs, f"moe {arch}")
+        for op in want:
+            out["launches"][op] = out["launches"].get(op, 0) + launches[op] + eng_launches[op]
+        print(f"moe: {arch} reduced (d_model {cfg.d_model}, {cfg.n_layers} layers, {cfg.n_experts} experts "
+              f"top-{cfg.top_k}, first_k_dense {cfg.first_k_dense}; {store.n_packed} leaves, {store.packed_nbytes} B) "
+              f"on the card ({smi}): prefill [{ZOO_B},{MOE_S}] launches {launches}; logits under fp32 max err "
+              f"{gap['max']:.3e} of the scale {gap['scale']:.3f} (bound {DENSE_X_TOL}) against backend='ref'; engine "
+              f"({ZOO_LANES} lanes, {ZOO_MAX_NEW} new): launches {eng_launches}, {decisive} of "
+              f"{ZOO_LANES * ZOO_MAX_NEW} tokens margin-decisive and equal to the plain path's, {agree} of "
+              f"{ZOO_LANES} streams equal in full", flush=True)
+        del store, tree, got, ref
+    torch.cuda.empty_cache()
+    return out
+
+
 def ledger_host_cost(torch, dev, step_ms: float) -> float:
     """The dispatch ledger's bookkeeping of one decode-shape floatsd_matmul
     call (its Decision lookup, the record and the touched bytes), timed
@@ -3473,6 +3841,24 @@ def main() -> int:
     # 17. the HTTP/SSE service over the router, and the CLI's --http
     http = http_phase(torch, model, params, policy, smi, front)
 
+    # 18-19. the hybrid family: jamba_v01_52b at full width, one period (the
+    # main path's model freed), then its kernel-vs-plain cross-check
+    del model, params, s
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    hybrid, hmodel, hstore = hybrid_phase(torch, dev, smi)
+    print(f"hybrid: phase 18 in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    hybrid_x_phase(torch, dev, smi, hmodel, hstore)
+    del hstore
+    torch.cuda.empty_cache()
+    print(f"hybrid-x: phase 19 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 20. the moe family's reduced configs against the plain path
+    t0 = time.perf_counter()
+    moe = moe_phase(torch, dev, smi)
+    print(f"moe: phase 20 in {time.perf_counter() - t0:.1f} s", flush=True)
+
     # result lines: each kernel's time per decode step (serving), per train
     # step, or per entry-point pass, from the kernel phase's per-launch times
     # and the launch counts of each path
@@ -3519,7 +3905,8 @@ def main() -> int:
     ]
     paths = {"serve": launches, "train": tr_launches, "tasks": tasks["launches"], "serve4": s4["launches"],
              "entry": ent["launches"], "runtime": rt["launches"], "zoo": zoo["launches"],
-             "dense": dense["launches"], "frontend": front["launches"], "http": http["launches"]}
+             "dense": dense["launches"], "frontend": front["launches"], "http": http["launches"],
+             "hybrid": hybrid["launches"], "moe": moe["launches"]}
     # the zoo prefill's share of the kernels it shares with the LSTM paths
     zoo_prefill = {
         "floatsd_matmul": ([(6 * ZL, zmm[("dd", ZOO_B * ZOO_S)]), (ZL, zmm[("cmix-k", ZOO_B * ZOO_S)]),
@@ -3568,7 +3955,8 @@ def main() -> int:
                 parts = [(2 * DL, dmm[("wq-wo", m)]), (2 * DL, dmm[("wk-wv", m)]), (2 * DL, dmm[("wi-wg", m)]),
                          (DL, dmm[("ffn-wo", m)]), (1, dmm[("head", m)])]
                 rec[key] = {**composite(parts), "per": f"{what}: {DENSE_SITES * DL + 1} sites at M = {m}"}
-        for key, path in (("zoo_prefill_profiled", zoo), ("dense_prefill_profiled", dense)):
+        for key, path in (("zoo_prefill_profiled", zoo), ("dense_prefill_profiled", dense),
+                          ("hybrid_prefill_profiled", hybrid)):
             ms, n = path["prefill"]["profile"].get(name, (0.0, 0))
             if n:
                 rec[key] = {"device_ms": ms, "kernels": n}

@@ -1,10 +1,11 @@
 """Architecture config schema and lookup.
 
 Counterpart of ``repro.configs.base`` for the families the port builds:
-the paper's LSTM (``lstm``), the model zoo's RWKV-6 family (``ssm``) and
-its dense decoders (``dense``). The fields are the reference's that those
-families read; the MoE, hybrid, audio and vision fields come with their
-families (``ROADMAP.md`` Queue 1 item 8)."""
+the paper's LSTM (``lstm``), the model zoo's RWKV-6 family (``ssm``), its
+dense decoders (``dense``), its mixtures of experts (``moe``) and the
+Mamba/attention hybrid (``hybrid``). The fields are the reference's that
+those families read; the audio and vision fields come with their families
+(``ROADMAP.md`` Queue 1 item 8)."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,7 +17,7 @@ __all__ = ["ArchConfig", "get_config"]
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # lstm | ssm | dense (moe | hybrid | audio | vlm: not ported yet)
+    family: str  # lstm | ssm | dense | moe | hybrid (audio | vlm: not ported yet)
     n_layers: int
     d_model: int
     vocab: int
@@ -32,6 +33,15 @@ class ArchConfig:
     ffn_kind: str = "swiglu"  # swiglu | gelu | geglu
     norm: str = "rmsnorm"  # rmsnorm | layernorm
     tie_embeddings: bool = True
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    moe_every: int = 1  # an MoE MLP every k-th sub-layer (jamba: 2)
+    first_k_dense: int = 0  # leading dense layers (kimi-k2: 1)
+    first_dense_ff: int = 0  # their FFN width (0: d_ff)
+    # --- hybrid (jamba) ---
+    attn_every: int = 0  # one attention sub-layer per this many (0: every layer attends)
+    mamba_state: int = 16
     rwkv_head_dim: int = 64
     source: str = ""
     notes: str = ""
@@ -44,17 +54,23 @@ class ArchConfig:
         return -(-self.vocab // multiple) * multiple
 
     def reduced(self) -> "ArchConfig":
-        """The reference's tiny same-family config for CPU tests: 2 layers,
-        d_model 128, d_ff 256, vocab 512, at most 4 heads over the largest
-        KV head count that divides them, head_dim 32, a window of 64 where
-        there is one, RWKV head_dim 32."""
+        """The reference's tiny same-family config for CPU tests: d_model
+        128, d_ff 256, vocab 512, at most 4 heads over the largest KV head
+        count that divides them, head_dim 32, a window of 64 where there is
+        one, RWKV head_dim 32; max(2, 2 moe_every, attn_every) layers (2 for
+        every family but the hybrid's one period of 8), at most 4 experts,
+        top-2, one leading dense layer of width 256."""
         heads = min(self.n_heads, 4)
         kvh = max(1, min(self.kv_heads, heads))
         while heads % kvh:
             kvh -= 1
         return dataclasses.replace(
-            self, n_layers=2, d_model=128, d_ff=256, vocab=512, n_heads=heads, kv_heads=kvh,
-            head_dim=32, window=64 if self.window else None, rwkv_head_dim=32)
+            self, n_layers=max(2, 2 * max(self.moe_every, 1), self.attn_every or 2), d_model=128,
+            d_ff=256, vocab=512, n_heads=heads, kv_heads=kvh, head_dim=32,
+            n_experts=min(self.n_experts, 4), top_k=min(self.top_k, 2),
+            first_k_dense=min(self.first_k_dense, 1),
+            first_dense_ff=256 if self.first_dense_ff else 0,
+            window=64 if self.window else None, rwkv_head_dim=32)
 
 
 def get_config(name: str) -> ArchConfig:

@@ -2,7 +2,9 @@
 plain PyTorch version.
 
 Counterpart of ``repro.kernels.dispatch``: the serving ops over FloatSD8
-(``PackedTensor``) and FloatSD4 (``PackedTensor4``) weights, the backward
+(``PackedTensor``) and FloatSD4 (``PackedTensor4``) weights (an MoE's
+expert products one matmul launch an expert, where the reference's engine
+decodes the packed tree), the backward
 ops, weight hoists and training wrappers (``train_matmul``,
 ``lstm_cell_train``) of the fused quantized-BPTT training path, and the
 element-wise ``quantize`` and ``qsigmoid`` entry points, the chunked
@@ -58,7 +60,7 @@ from .rwkv_wkv.ref import wkv_ref
 __all__ = [
     "BACKENDS", "ZERO_CODE", "PackedTensor", "is_packed", "Decision",
     "DispatchStats", "STATS", "LEDGER", "COST_SPECS", "use_backend", "matmul", "lstm_cell",
-    "packed_einsum", "hoist_packed", "matmul_dx", "matmul_dw", "lstm_cell_grad",
+    "packed_einsum", "expert_einsum", "hoist_packed", "matmul_dx", "matmul_dw", "lstm_cell_grad",
     "pack_train", "hoist_train", "train_matmul", "lstm_cell_train", "inference_only",
     "PackedTensor4", "is_packed4", "is_any_packed", "pack4",
     "unpack4", "matmul4", "quantize", "qsigmoid", "rwkv_wkv", "flash_attention",
@@ -377,13 +379,17 @@ def matmul4(x: torch.Tensor, w4: PackedTensor4, *, transposed: bool = False,
 def packed_einsum(eq: str, x: torch.Tensor, packed, *,
                   backend: str | None = None) -> torch.Tensor:
     """The weight-site einsums over a PackedTensor or PackedTensor4:
-    ``...d,df->...f`` / ``bd,dk->bk`` (contract w's first axis) and
+    ``...d,df->...f`` / ``bd,dk->bk`` (contract w's first axis),
     ``...d,vd->...v`` (contract w's second axis: the tied logits head,
-    whose codes the kernel reads in place). Returns f32."""
+    whose codes the kernel reads in place), and the experts' products
+    ``gecd,edh->gech`` / ``gech,ehd->gecd`` over FloatSD8 codes [E, K, N]
+    (``expert_einsum``). Returns f32."""
     ins, out = eq.replace(" ", "").split("->")
     xl, wl = ins.split(",")
     cl = xl[-1]
-    if len(wl) != 2 or cl not in wl:
+    if len(wl) == 3 and is_packed(packed):
+        return expert_einsum(eq, x, packed, backend=backend)
+    if len(wl) != 2 or cl not in wl or packed.codes.dim() != 2:
         raise NotImplementedError(f"packed_einsum does not support {eq!r}")
     transposed = wl[1] == cl  # w stored [free, contract], e.g. "vd"
     wf = wl[0] if transposed else wl[1]
@@ -393,6 +399,27 @@ def packed_einsum(eq: str, x: torch.Tensor, packed, *,
         return matmul4(x, packed, transposed=transposed, backend=backend)
     return matmul(x, packed.codes, packed.bias, transposed=transposed, dense=packed.dense,
                   backend=backend)
+
+
+def expert_einsum(eq: str, x: torch.Tensor, packed: PackedTensor, *,
+                  backend: str | None = None) -> torch.Tensor:
+    """The MoE's per-expert products over FloatSD8 codes [E, K, N] with
+    one bias: ``gecd,edh->gech`` (and ``gech,ehd->gecd``). For each expert
+    e, x[:, e] ([g, C, K], g*C rows) times the codes[e] through ``matmul``: E calls,
+    each the kernel on the card (and recorded) or the plain version's
+    decode and product. Returns f32 [g, E, C, N]."""
+    ins, out = eq.replace(" ", "").split("->")
+    xl, wl = ins.split(",")
+    el, cl, fl = wl
+    if (len(xl) != 4 or xl[1] != el or xl[-1] != cl or out != xl[:-1] + fl
+            or packed.codes.shape[0] != x.shape[1]):
+        raise NotImplementedError(f"packed_einsum does not support {eq!r} on codes "
+                                  f"{tuple(packed.codes.shape)}")
+    e = x.shape[1]
+    ys = [matmul(x[:, i], packed.codes[i], packed.bias,
+                 dense=None if packed.dense is None else packed.dense[i], backend=backend)
+          for i in range(e)]
+    return torch.stack(ys, dim=1)
 
 
 def hoist_packed(w, *, backend: str | None = None):

@@ -7,7 +7,8 @@ codes), and drains a synthetic workload through ``ServeEngine`` (continuous
 batching, chunked prefill, greedy decoding). On the card every weight site,
 the tied head and the cell run the hand-written CUDA kernels. A model-zoo
 arch (``--arch rwkv6_3b``, ``--arch h2o_danube3_4b`` or another dense
-config) serves its reduced config, as the reference CLI does: lockstep
+config, ``--arch jamba_v01_52b``, ``dbrx_132b`` or ``kimi_k2_1t_a32b``)
+serves its reduced config, as the reference CLI does: lockstep
 one-token steps, each lane once, so ``--requests`` must not exceed
 ``--batch``, and an attention model gets a KV cache of 2048 positions; its
 full width is driven from the API (``chip_smoke.py``).
@@ -44,6 +45,7 @@ when a request was rejected because every replica was ejected.
   PYTHONPATH=src python -m repro_torch.launch.serve --full --weight-format floatsd4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_3b --device cpu --requests 4 --batch 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o_danube3_4b --device cpu --requests 4 --batch 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba_v01_52b --device cpu --requests 2 --batch 2
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --frontend --replicas 2 --workload zipf-prefix
   PYTHONPATH=src python -m repro_torch.launch.serve --full --frontend --replicas 2 --workload zipf-prefix
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --dense --policy fp32

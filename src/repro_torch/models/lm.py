@@ -1,14 +1,18 @@
 """Causal language models of the model zoo, and the loss helpers.
 
 Counterpart of ``repro.models.lm``: ``CausalLM`` for the ``ssm`` family
-(RWKV-6) and the ``dense`` family (attention + FFN blocks): embedding ->
-stack of blocks -> final norm -> tied head, with the reference's parameter
-names (``embed/table``, ``stack/b0/<leaf>`` stacked over the layers,
-``final_norm``), so ``repro_torch.bridge`` carries a JAX model or its
-packed store across unchanged. The ``moe``, ``hybrid``, ``audio`` and
-``vlm`` families raise until they are ported (``ROADMAP.md`` Queue 1 item
-8). Inference only (forward, loss, prefill, decode): the zoo's training is
-not ported.
+(RWKV-6), the ``dense`` family (attention + FFN blocks), the ``moe`` family
+(attention + MoE blocks, after ``first_k_dense`` leading dense layers) and
+the ``hybrid`` family (Jamba's period of ``attn_every`` sub-layers: Mamba
+mixers with attention at sub-layer attn_every/2 - 1, an MoE MLP on every
+``moe_every``-th): embedding -> leading dense blocks -> stack of periods ->
+final norm -> tied head, with the reference's parameter names
+(``embed/table``, ``head_block{i}/<leaf>``, ``stack/b{i}/<leaf>`` stacked
+over the groups, ``final_norm``), so ``repro_torch.bridge`` carries a JAX
+model or its packed store across unchanged. The ``audio`` and ``vlm``
+families raise until they are ported (``ROADMAP.md`` Queue 1 item 8).
+Inference only (forward, loss, prefill, decode): the zoo's training is not
+ported.
 """
 from __future__ import annotations
 
@@ -22,11 +26,13 @@ from ..device import resolve_device
 from ..nn.attention import Attention
 from ..nn.ffn import FFN
 from ..nn.linear import QuantEmbedding
+from ..nn.mamba import Mamba
+from ..nn.moe import MoE
 from ..nn.norms import LayerNorm, RMSNorm
 from ..nn.rwkv import RWKV6ChannelMix, RWKV6TimeMix
 from ..nn.transformer import Block, Stack, hoist
 
-__all__ = ["CausalLM", "cross_entropy", "mask_padded_vocab"]
+__all__ = ["CausalLM", "FAMILIES", "cross_entropy", "mask_padded_vocab"]
 
 
 def mask_padded_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:
@@ -60,29 +66,67 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 CACHE_DTYPE = torch.bfloat16
 
 
+#: the families ``CausalLM`` builds
+FAMILIES = ("ssm", "dense", "moe", "hybrid")
+
+
 @dataclasses.dataclass(frozen=True)
 class CausalLM:
     cfg: ArchConfig
 
     def __post_init__(self):
-        if self.cfg.family not in ("ssm", "dense"):
+        if self.cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"the port's CausalLM builds the ssm (RWKV-6) and dense families; family "
+                f"the port's CausalLM builds the {', '.join(FAMILIES)} families; family "
                 f"{self.cfg.family!r} ({self.cfg.name}) is still to port (ROADMAP.md Queue 1 item 8)")
 
-    def _block(self) -> Block:
-        """The stack's one block (the reference's one-block period)."""
+    def _attn(self) -> Attention:
+        c = self.cfg
+        return Attention(c.d_model, c.n_heads, c.kv_heads, head_dim=c.hd, window=c.window, rope=c.rope,
+                         rope_theta=c.rope_theta, qkv_bias=c.qkv_bias)
+
+    def _ffn(self, hidden: int | None = None) -> FFN:
+        c = self.cfg
+        return FFN(c.d_model, hidden or c.d_ff, kind=c.ffn_kind)
+
+    def _moe(self) -> MoE:
+        c = self.cfg
+        return MoE(c.d_model, c.d_ff, c.n_experts, c.top_k)
+
+    def _period(self) -> tuple:
+        """The blocks of one stack group, as the reference's ``_period``."""
         c = self.cfg
         if c.family == "dense":
-            attn = Attention(c.d_model, c.n_heads, c.kv_heads, head_dim=c.hd, window=c.window, rope=c.rope,
-                             rope_theta=c.rope_theta, qkv_bias=c.qkv_bias)
-            return Block(c.d_model, attn=attn, ffn_mod=FFN(c.d_model, c.d_ff, kind=c.ffn_kind),
-                         norm=c.norm)
-        return Block(c.d_model, rwkv_mod=RWKV6TimeMix(c.d_model, c.rwkv_head_dim),
-                     cmix_mod=RWKV6ChannelMix(c.d_model, c.d_ff), norm=c.norm)
+            return (Block(c.d_model, attn=self._attn(), ffn_mod=self._ffn(), norm=c.norm),)
+        if c.family == "moe":
+            return (Block(c.d_model, attn=self._attn(), moe_mod=self._moe(), norm=c.norm),)
+        if c.family == "hybrid":
+            return tuple(
+                Block(c.d_model, norm=c.norm,
+                      **({"attn": self._attn()} if i == c.attn_every // 2 - 1
+                         else {"mamba_mod": Mamba(c.d_model, d_state=c.mamba_state)}),
+                      **({"moe_mod": self._moe()} if i % c.moe_every == c.moe_every - 1
+                         else {"ffn_mod": self._ffn()}))
+                for i in range(c.attn_every))
+        return (Block(c.d_model, rwkv_mod=RWKV6TimeMix(c.d_model, c.rwkv_head_dim),
+                      cmix_mod=RWKV6ChannelMix(c.d_model, c.d_ff), norm=c.norm),)
+
+    def _block(self) -> Block:
+        """The period's first block (a one-block family's only one)."""
+        return self._period()[0]
 
     def _stack(self) -> Stack:
-        return Stack(self._block(), self.cfg.n_layers)
+        period = self._period()
+        body = self.cfg.n_layers - self.cfg.first_k_dense
+        if body % len(period):
+            raise ValueError(f"{self.cfg.name}: {body} stacked layers are not whole periods of {len(period)}")
+        return Stack(period, body // len(period))
+
+    def _head_blocks(self) -> tuple:
+        """The leading dense layers, unstacked (kimi's ``first_k_dense``)."""
+        c = self.cfg
+        return tuple(Block(c.d_model, attn=self._attn(), ffn_mod=self._ffn(c.first_dense_ff or c.d_ff),
+                           norm=c.norm) for _ in range(c.first_k_dense))
 
     def _embed(self) -> QuantEmbedding:
         return QuantEmbedding(self.cfg.vocab_padded(), self.cfg.d_model)
@@ -91,30 +135,47 @@ class CausalLM:
         d = self.cfg.d_model
         return RMSNorm(d) if self.cfg.norm == "rmsnorm" else LayerNorm(d)
 
-    def init(self, generator: torch.Generator):
-        """Random parameters from ``generator``, on its device."""
-        return {"embed": self._embed().init(generator), "stack": self._stack().init(generator),
-                "final_norm": self._final_norm().init(generator)}
+    def init(self, generator: torch.Generator, each=None):
+        """Random parameters from ``generator``, on its device: the
+        embedding, the stack, the final norm, the leading dense blocks.
+        ``each``, where given, takes each of those parts (each of the
+        stack's blocks on its own) as soon as it is drawn and returns what
+        the tree keeps (``WeightStore.pack_streamed`` packs them), so at
+        most one block is live in f32; it needs a one-group stack."""
+        keep = each or (lambda tree: tree)
+        p = {"embed": keep(self._embed().init(generator)),
+             "stack": self._stack().init(generator, each),
+             "final_norm": keep(self._final_norm().init(generator))}
+        for i, hb in enumerate(self._head_blocks()):
+            p[f"head_block{i}"] = keep(hb.init(generator))
+        return p
 
     def hoist(self, p):
-        """A served tree with the stack's small packed leaves decoded to f32
-        once (``nn.transformer.hoist``); the weight sites and the embedding
-        keep their codes. The entry points hoist what they are given, so a
-        tree hoisted once is decoded no more at each call."""
-        return {**p, "stack": hoist(p["stack"])}
+        """A served tree with the small packed leaves of the stack and the
+        leading blocks decoded to f32 once (``nn.transformer.hoist``); the
+        weight sites and the embedding keep their codes. The entry points
+        hoist what they are given, so a tree hoisted once is decoded no
+        more at each call."""
+        return {k: v if k in ("embed", "final_norm") else hoist(v) for k, v in p.items()}
 
     def forward(self, p, batch_dict, policy: Policy):
         """Full-sequence forward of {"tokens" [B, S]} -> (logits [B, S,
-        vocab padded], aux = 0: the family has no auxiliary loss)."""
+        vocab padded], aux: the MoE layers' summed load-balancing loss, 0
+        for the families without)."""
         p = self.hoist(p)
         emb = self._embed()
         x = emb.apply(p["embed"], batch_dict["tokens"], policy)
-        x = self._stack().apply(p["stack"], x, policy)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, hb in enumerate(self._head_blocks()):
+            x, a = hb.apply(p[f"head_block{i}"], x, policy)
+            aux = aux + a
+        x, a = self._stack().apply(p["stack"], x, policy)
         x = self._final_norm().apply(p["final_norm"], x)
-        return emb.attend(p["embed"], x, policy), torch.zeros((), device=x.device)
+        return emb.attend(p["embed"], x, policy), aux + a
 
     def loss(self, p, batch_dict, policy: Policy) -> torch.Tensor:
-        """Mean next-token cross entropy, the padded vocab tail masked."""
+        """Mean next-token cross entropy, the padded vocab tail masked, plus
+        0.01 x aux."""
         logits, aux = self.forward(p, batch_dict, policy)
         logits = mask_padded_vocab(logits, self.cfg.vocab)
         return cross_entropy(logits, batch_dict["labels"], batch_dict.get("mask")) + 0.01 * aux
@@ -125,22 +186,30 @@ class CausalLM:
 
     def init_cache(self, batch: int, policy: Policy | None = None, device=None,
                    cache_len: int | None = None):
-        """Zero decode state, layer-major: per layer a KV cache of
-        min(cache_len, window) positions in ``CACHE_DTYPE`` (dense; the
-        reference's ``s_max``), or the [B, H, K, V] f32 wkv state and the
-        two shift tokens in ``CACHE_DTYPE`` (ssm; ``cache_len`` unused).
-        ``policy`` is unused (the serving pool passes it to every model)."""
+        """Zero decode state, group-major in the stack: per attention layer
+        a KV cache of min(cache_len, window) positions in ``CACHE_DTYPE``
+        (the reference's ``s_max``), per Mamba layer the f32 state and the
+        convolution window in ``CACHE_DTYPE``, per RWKV layer the [B, H, K,
+        V] f32 wkv state and the two shift tokens in ``CACHE_DTYPE``;
+        the leading dense blocks' caches are lane-major. ``policy`` is
+        unused (the serving pool passes it to every model)."""
         del policy
-        if self.cfg.family == "dense" and cache_len is None:
+        if self.cfg.family != "ssm" and cache_len is None:
             raise ValueError(f"{self.cfg.name}: an attention model's cache needs cache_len")
-        return {"stack": self._stack().init_cache(batch, cache_len, CACHE_DTYPE,
-                                                  resolve_device(device))}
+        dev = resolve_device(device)
+        caches = {"stack": self._stack().init_cache(batch, cache_len, CACHE_DTYPE, dev)}
+        for i, hb in enumerate(self._head_blocks()):
+            caches[f"head_block{i}"] = hb.init_cache(batch, cache_len, CACHE_DTYPE, dev)
+        return caches
 
     def decode_step(self, p, tokens: torch.Tensor, caches, policy: Policy):
         """tokens [B, 1] -> (logits [B, 1, vocab padded], new caches)."""
         p = self.hoist(p)
         emb = self._embed()
         x = emb.apply(p["embed"], tokens, policy)
-        x, stack = self._stack().decode(p["stack"], x, caches["stack"], policy)
+        new = dict(caches)
+        for i, hb in enumerate(self._head_blocks()):
+            x, new[f"head_block{i}"] = hb.decode(p[f"head_block{i}"], x, caches[f"head_block{i}"], policy)
+        x, new["stack"] = self._stack().decode(p["stack"], x, caches["stack"], policy)
         x = self._final_norm().apply(p["final_norm"], x)
-        return emb.attend(p["embed"], x, policy), {**caches, "stack": stack}
+        return emb.attend(p["embed"], x, policy), new

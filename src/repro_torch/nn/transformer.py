@@ -1,19 +1,20 @@
 """Residual blocks and the stack over layers.
 
-Counterpart of ``repro.nn.transformer`` for two of its blocks: the ``ssm``
-family's RWKV-6 block (norm -> time mix -> residual, norm -> channel mix ->
-residual) and the ``dense`` family's attention block (norm -> attention ->
-residual, norm -> FFN -> residual). A ``Stack`` holds ``n_groups`` copies
-of one block with every parameter leaf stacked on a leading layer axis,
-under the reference's ``b0`` key (a period of one block), as the
-reference's scanned stack has them, and loops over the layers. Mamba and
-MoE come with their families (``ROADMAP.md`` Queue 1 item 8).
+Counterpart of ``repro.nn.transformer``: a ``Block`` is norm -> mixer ->
+residual, norm -> MLP -> residual, with the reference's mixers (``attn``:
+GQA attention; ``mamba``: the S6 mixer; ``rwkv``: the RWKV-6 time mix) and
+MLPs (``ffn``; ``moe``: the mixture of experts, whose load-balancing loss
+``apply`` returns beside x; ``none``: the RWKV block's own channel mix). A
+``Stack`` holds ``n_groups`` copies of a period of blocks under the keys
+``b0`` .. ``b{P-1}`` (the dense, MoE and RWKV families: one block; Jamba's
+hybrid: 8), with every parameter leaf stacked on a leading group axis, as
+the reference's scanned stack has them, and loops over the groups.
 
 A served stack's leaves are FloatSD8 ``PackedTensor``s with one bias per
 stacked leaf. ``hoist`` decodes the small ones (everything but the weight
 sites) to f32 once, for all layers; layer ``l`` then gets ``codes[l]``
 with that bias at each weight site, which runs the matmul kernel on the
-slice.
+slice (an MoE's [E, d, h] codes: once per expert).
 """
 from __future__ import annotations
 
@@ -27,17 +28,21 @@ from ..core.policy import Policy
 from ..kernels import dispatch as kd
 from .attention import Attention, KVCache
 from .ffn import FFN
+from .mamba import Mamba, MambaCache
 from .module import stack_init
+from .moe import MoE
 from .norms import LayerNorm, RMSNorm
 from .rwkv import WEIGHT_SITES as RWKV_SITES
 from .rwkv import RWKV6ChannelMix, RWKV6TimeMix, RWKVState
 
 __all__ = ["Block", "Stack", "hoist", "WEIGHT_SITES"]
 
-#: the leaf names a matmul reads: the RWKV mixes' projections, and the
-#: weight ``w`` of every ``QuantDense`` (attention's q, k, v, o and the
-#: FFN's); their biases ``b``, like every other leaf, are small
-WEIGHT_SITES = RWKV_SITES | {"w"}
+#: the leaf names a matmul reads: the RWKV mixes' projections, Mamba's four
+#: projections, the experts' wi, wg and wo, and the weight ``w`` of every
+#: ``QuantDense`` (attention's q, k, v, o and the FFN's); their biases ``b``,
+#: like every other leaf (the router, Mamba's convolution, dt bias, a_log
+#: and d), are small
+WEIGHT_SITES = RWKV_SITES | {"w", "in_proj", "x_proj", "dt_proj", "out_proj", "wi", "wg", "wo"}
 
 
 def _norm(kind: str, dim: int):
@@ -47,10 +52,11 @@ def _norm(kind: str, dim: int):
 def hoist(tree, name: str = ""):
     """A stacked block tree with every FloatSD8-packed leaf that is not a
     weight site decoded to f32, all layers at once: norm scales and
-    biases, projection biases, and the RWKV token-shift mixes, decay base
+    biases, projection biases, the RWKV token-shift mixes, decay base
     and LoRA, bonus and output-norm scale (46.5 MB of f32 at rwkv6_3b's
-    full width). The weight sites keep their codes for the matmul kernel.
-    A decoded tree passes through unchanged."""
+    full width), the MoE router and Mamba's convolution, dt bias, a_log and
+    d. The weight sites keep their codes for the matmul kernel. A decoded
+    tree passes through unchanged."""
     if isinstance(tree, dict):
         return {k: hoist(v, k) for k, v in tree.items()}
     if kd.is_packed4(tree):
@@ -69,49 +75,86 @@ def _layer(tree, l: int):
                     tree, is_leaf=kd.is_packed)
 
 
+_MIXERS = (("attn", "attn"), ("mamba", "mamba_mod"), ("rwkv", "rwkv_mod"))
+_MLPS = (("ffn", "ffn_mod"), ("moe", "moe_mod"), ("none", "cmix_mod"))
+
+
 @dataclasses.dataclass(frozen=True)
 class Block:
-    """One residual block: attention and an FFN (``attn``, ``ffn_mod``: the
-    reference's mixer ``attn``, mlp ``ffn``), or the RWKV-6 time and
-    channel mixes (``rwkv_mod``, ``cmix_mod``: mixer ``rwkv``, mlp
-    ``none``). The modules that are set say which."""
+    """One residual block, read from the modules it is given: a mixer
+    (``attn``, ``mamba_mod`` or ``rwkv_mod``: the reference's ``mixer``
+    attn, mamba, rwkv) and its MLP (``ffn_mod`` or ``moe_mod`` after
+    attention or Mamba; ``cmix_mod``, the channel mix, after the RWKV time
+    mix: the reference's ``mlp`` ffn, moe, none)."""
 
     dim: int
     attn: Attention | None = None
     ffn_mod: FFN | None = None
     rwkv_mod: RWKV6TimeMix | None = None
     cmix_mod: RWKV6ChannelMix | None = None
+    mamba_mod: Mamba | None = None
+    moe_mod: MoE | None = None
     norm: str = "rmsnorm"
 
     def __post_init__(self):
-        pairs = ((self.attn, self.ffn_mod), (self.rwkv_mod, self.cmix_mod))
-        if sorted(sum(m is not None for m in pair) for pair in pairs) != [0, 2]:
-            raise ValueError("a Block takes attn and ffn_mod, or rwkv_mod and cmix_mod")
+        mixers = [m for m, f in _MIXERS if getattr(self, f) is not None]
+        mlps = [m for m, f in _MLPS if getattr(self, f) is not None]
+        if len(mixers) != 1 or len(mlps) != 1 or (mixers[0] == "rwkv") != (mlps[0] == "none"):
+            raise ValueError("a Block takes attn and ffn_mod, or rwkv_mod and cmix_mod, or mamba_mod "
+                             "in place of attn, or moe_mod in place of ffn_mod")
+
+    @property
+    def mixer(self) -> str:
+        return next(m for m, f in _MIXERS if getattr(self, f) is not None)
+
+    @property
+    def mlp(self) -> str:
+        return next(m for m, f in _MLPS if getattr(self, f) is not None)
+
+    def _mixer_mod(self):
+        return getattr(self, dict(_MIXERS)[self.mixer])
+
+    def _mlp_mod(self):
+        return getattr(self, dict(_MLPS)[self.mlp])
 
     def init(self, generator: torch.Generator):
         n = _norm(self.norm, self.dim)
-        mixer, mlp = (self.attn, self.ffn_mod) if self.attn is not None else (self.rwkv_mod, self.cmix_mod)
-        return {"norm1": n.init(generator), "mixer": mixer.init(generator),
-                "norm2": n.init(generator), "mlp": mlp.init(generator)}
+        return {"norm1": n.init(generator), "mixer": self._mixer_mod().init(generator),
+                "norm2": n.init(generator), "mlp": self._mlp_mod().init(generator)}
 
-    def apply(self, p, x: torch.Tensor, policy: Policy) -> torch.Tensor:
-        """Full-sequence path (forward / prefill): x [B, S, d] -> [B, S, d]."""
+    def apply(self, p, x: torch.Tensor, policy: Policy):
+        """Full-sequence path (forward / prefill): x [B, S, d] -> (x, the
+        MoE's load-balancing loss, or 0)."""
         n = _norm(self.norm, self.dim)
         h = n.apply(p["norm1"], x)
-        if self.attn is not None:
-            x = x + self.attn.apply(p["mixer"], h, policy)
-            return x + self.ffn_mod.apply(p["mlp"], n.apply(p["norm2"], x), policy)
-        mix, _ = self.rwkv_mod.apply(p["mixer"], h, policy)
+        if self.mixer == "rwkv":
+            mix, _ = self.rwkv_mod.apply(p["mixer"], h, policy)
+        else:
+            mix = self._mixer_mod().apply(p["mixer"], h, policy)
         x = x + mix
-        y, _ = self.cmix_mod.apply(p["mlp"], n.apply(p["norm2"], x), policy)
-        return x + y
+        h2 = n.apply(p["norm2"], x)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if self.mlp == "moe":
+            y, aux = self.moe_mod.apply(p["mlp"], h2, policy)
+        elif self.mlp == "ffn":
+            y = self.ffn_mod.apply(p["mlp"], h2, policy)
+        else:
+            y, _ = self.cmix_mod.apply(p["mlp"], h2, policy)
+        return x + y, aux
 
     def init_cache(self, batch: int, s_max: int | None, dtype, device):
-        """Zero decode state: a KV cache of min(s_max, window) slots, or the
-        RWKV state (s_max unused)."""
-        if self.attn is not None:
+        """Zero decode state: a KV cache of min(s_max, window) slots, the
+        Mamba state (f32) and convolution window (``dtype``), or the RWKV
+        state (s_max unused by the last two)."""
+        if self.mixer == "attn":
             a = self.attn
             return KVCache.init(batch, min(s_max, a.window or s_max), a.kv_heads, a.hd, dtype, device)
+        if self.mixer == "mamba":
+            m = self.mamba_mod
+            return MambaCache(
+                torch.zeros((batch, m.d_inner, m.d_state), dtype=torch.float32, device=device),
+                torch.zeros((batch, m.d_conv - 1, m.d_inner), dtype=dtype, device=device),
+            )
         r = self.rwkv_mod
         return RWKVState(
             torch.zeros((batch, r.heads, r.head_dim, r.head_dim), dtype=torch.float32, device=device),
@@ -122,42 +165,67 @@ class Block:
     def decode(self, p, x: torch.Tensor, cache, policy: Policy):
         n = _norm(self.norm, self.dim)
         h = n.apply(p["norm1"], x)
-        if self.attn is not None:
-            mix, cache = self.attn.decode(p["mixer"], h, cache, policy)
+        if self.mixer == "rwkv":
+            mix, (s_new, x_tm) = self.rwkv_mod.apply(p["mixer"], h, policy, state=cache)
             x = x + mix
-            return x + self.ffn_mod.apply(p["mlp"], n.apply(p["norm2"], x), policy), cache
-        mix, (s_new, x_tm) = self.rwkv_mod.apply(p["mixer"], h, policy, state=cache)
+            y, x_cm = self.cmix_mod.apply(p["mlp"], n.apply(p["norm2"], x), policy, cache.x_cm)
+            return x + y, RWKVState(s_new, x_tm, x_cm)
+        mix, cache = self._mixer_mod().decode(p["mixer"], h, cache, policy)
         x = x + mix
-        y, x_cm = self.cmix_mod.apply(p["mlp"], n.apply(p["norm2"], x), policy, cache.x_cm)
-        return x + y, RWKVState(s_new, x_tm, x_cm)
+        h2 = n.apply(p["norm2"], x)
+        y = self.moe_mod.apply(p["mlp"], h2, policy)[0] if self.mlp == "moe" else self.ffn_mod.apply(
+            p["mlp"], h2, policy)
+        return x + y, cache
 
 
 @dataclasses.dataclass(frozen=True)
 class Stack:
-    """``n_groups`` copies of ``block``, every leaf stacked on axis 0 under
-    the key ``b0``. Parameters are ``hoist``ed (a served tree's small leaves
-    decoded)."""
+    """``n_groups`` copies of a period of ``blocks``, every leaf stacked on
+    axis 0 under the keys ``b0`` .. ``b{P-1}``. Parameters are ``hoist``ed
+    (a served tree's small leaves decoded)."""
 
-    block: Block
+    blocks: tuple
     n_groups: int
 
-    def init(self, generator: torch.Generator):
-        return stack_init(lambda g: {"b0": self.block.init(g)}, self.n_groups)(generator)
+    def init(self, generator: torch.Generator, each=None):
+        """Random parameters, group by group, each group's blocks in order.
+        ``each``, where given, takes each block's tree as soon as it is
+        drawn (with its group axis of 1) and returns what the stack keeps,
+        e.g. its packed codes, so at most one block is live in f32: a
+        one-group stack only, since a stacked leaf's one FloatSD8 bias spans
+        every group."""
+        def group(g):
+            return {f"b{i}": b.init(g) for i, b in enumerate(self.blocks)}
 
-    def apply(self, p, x: torch.Tensor, policy: Policy) -> torch.Tensor:
+        if each is None:
+            return stack_init(group, self.n_groups)(generator)
+        if self.n_groups != 1:
+            raise ValueError(f"a block-by-block init needs a one-group stack, got {self.n_groups} groups")
+        return {f"b{i}": each(tree_map(lambda t: t.unsqueeze(0), b.init(generator)))
+                for i, b in enumerate(self.blocks)}
+
+    def apply(self, p, x: torch.Tensor, policy: Policy):
+        """x [B, S, d] -> (x, the summed load-balancing loss)."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer in range(self.n_groups):
-            x = self.block.apply(_layer(p, layer)["b0"], x, policy)
-        return x
+            lp = _layer(p, layer)
+            for i, b in enumerate(self.blocks):
+                x, a = b.apply(lp[f"b{i}"], x, policy)
+                aux = aux + a
+        return x, aux
 
     def init_cache(self, batch: int, s_max: int | None, dtype, device):
-        one = {"b0": self.block.init_cache(batch, s_max, dtype, device)}
+        one = {f"b{i}": b.init_cache(batch, s_max, dtype, device) for i, b in enumerate(self.blocks)}
         return tree_map(lambda c: c.unsqueeze(0).repeat((self.n_groups,) + (1,) * c.dim()), one)
 
     def decode(self, p, x: torch.Tensor, caches, policy: Policy):
-        """One step of every layer; the caches are layer-major ([n_groups,
+        """One step of every layer; the caches are group-major ([n_groups,
         B, ...] per leaf), as the reference's scanned stack keeps them."""
         new = []
         for layer in range(self.n_groups):
-            x, c = self.block.decode(_layer(p, layer)["b0"], x, _layer(caches, layer)["b0"], policy)
-            new.append({"b0": c})
+            lp, lc = _layer(p, layer), _layer(caches, layer)
+            c = {}
+            for i, b in enumerate(self.blocks):
+                x, c[f"b{i}"] = b.decode(lp[f"b{i}"], x, lc[f"b{i}"], policy)
+            new.append(c)
         return x, tree_map(lambda *xs: torch.stack(xs), *new)

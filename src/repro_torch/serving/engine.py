@@ -49,8 +49,9 @@ The frontend's features, as the reference's:
     ``cache.*`` spans and instants.
 
 A model whose ``decode_step`` takes no ``lengths`` (the zoo's
-``CausalLM``) advances its lanes in lockstep, one token a step (``chunk``
-is forced to 1), and its layer-major cache cannot be reset per lane, so
+``CausalLM``: the ssm, dense, moe and hybrid families) advances its lanes
+in lockstep, one token a step (``chunk`` is forced to 1), and its
+group-major cache cannot be reset per lane, so
 such an engine serves at most ``lanes`` requests (``run`` refuses a larger
 queue, re-arming a used lane raises) and takes no prefix cache and no
 preemption, as in the reference. An attention model's KV cache holds

@@ -4,10 +4,12 @@ Counterpart of ``repro.serving.state_pool``. A serving engine keeps B
 decode lanes for the whole process; each lane's LSTM (h, c) lives at a fixed
 batch index of one list of per-layer states. Re-arming a lane zeroes exactly
 that lane's slices: ``masked_reset`` runs at the top of the engine's step.
-The zoo's ``CausalLM`` keeps a layer-major cache ([layers, lanes, ...] per
-leaf: the RWKV state, or the dense family's KV cache of ``cache_len``
-positions), which ``masked_reset`` passes through, as the reference's
-does; the engine serves such a model in lockstep, each lane once.
+The zoo's ``CausalLM`` keeps a group-major cache ([groups, lanes, ...] per
+leaf: the RWKV state, an attention layer's KV cache of ``cache_len``
+positions, a Mamba layer's state and convolution window), which
+``masked_reset`` passes through, as the reference's does (the lane-major
+caches of Kimi K2's leading dense layer it zeroes per lane); the engine
+serves such a model in lockstep, each lane once.
 
 Per-lane snapshots (the prefix cache's entries and the engine's preemption
 stash) are kept on the host as FP8: ``to_host_fp8`` casts every leaf with

@@ -124,6 +124,24 @@ class WeightStore:
         n = sum(is_any_packed(x) for x in tree_leaves(packed, is_leaf=is_any_packed))
         return cls(tree=packed, dense_nbytes=tree_nbytes(params), n_packed=n, fmt=fmt)
 
+    @classmethod
+    def pack_streamed(cls, init, min_ndim: int = 2) -> "WeightStore":
+        """The FloatSD8 store of the tree ``init(pack)`` returns, where
+        ``init`` hands ``pack`` each part of the tree as soon as it is drawn
+        (``CausalLM.init(generator, each=pack)``): its f32 is freed once
+        packed, so a model whose f32 tree would not fit is built one block
+        at a time. The same bytes as ``pack(init(None))``."""
+        dense = 0
+
+        def pack(tree):
+            nonlocal dense
+            dense += tree_nbytes(tree)
+            return pack_tree(tree, min_ndim=min_ndim)
+
+        packed = init(pack)
+        n = sum(is_any_packed(x) for x in tree_leaves(packed, is_leaf=is_any_packed))
+        return cls(tree=packed, dense_nbytes=dense, n_packed=n)
+
     @property
     def packed_nbytes(self) -> int:
         return tree_nbytes(self.tree)

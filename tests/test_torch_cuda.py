@@ -58,7 +58,13 @@ counts equal to the snapped dW's. The cost ledger: the cost models' mirrors
 of each launcher's dynamic shared memory and scratch equal to the
 libraries' own, every dispatched call's cuda Cost recorded; the HTTP/SSE
 service on the kernels: tokens equal to the plain path's in-process, the
-ledger's calls equal to the launches.
+ledger's calls equal to the launches. The moe and hybrid families: the
+experts' products (one floatsd_matmul launch an expert) within the matmul
+bound of the plain version, bit for bit on FP8 activations at 64 rows an
+expert (route A); a Mamba mixer and an MoE layer at width 256 within 1e-4
+of the output scale with no activation quantizer (the routing equal); the
+reduced Jamba, DBRX and Kimi K2 prefill within one bf16 step (2^-8) of the
+logit scale, the dense family's bound.
 """
 import numpy as np
 import pytest
@@ -767,6 +773,8 @@ FLASH_SHAPES = [
     (1, 190, 190, 4, 2, 72, True, 50, torch.bfloat16),
     (2, 150, 150, 2, 2, 100, False, None, torch.float32),
     (1, 1024, 1024, 32, 8, 120, True, 4096, torch.float32),
+    # the hybrid's prefill: 32 heads of 128 (the kernel's D_MAX) over 8, no window
+    (2, 1024, 1024, 32, 8, 128, True, None, torch.float32),
 ]
 
 
@@ -807,7 +815,8 @@ def test_flash_attention_kernel_matches_both_plain_versions(dev, b, sq, skv, h, 
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,h,kh,d", [(1, 1024, 32, 8, 120), (2, 300, 4, 2, 64), (1, 500, 8, 1, 128)])
+@pytest.mark.parametrize("b,s,h,kh,d", [(1, 1024, 32, 8, 120), (2, 300, 4, 2, 64), (1, 500, 8, 1, 128),
+                                        (2, 1024, 32, 8, 128)])
 def test_flash_attention_f32_scores_keep_f32_precision(dev, b, s, h, kh, d):
     """The f32 precision control. The chunked plain version rounds p and v
     to bf16 as the kernel does, so against it only the scores differ: the
@@ -1484,3 +1493,121 @@ def test_http_tokens_on_the_kernels_equal_the_plain_path_in_process(dev):
     assert {be for _, be in snap} == {"cuda"}
     assert f'repro_cost_calls_total{{op="floatsd_matmul",backend="cuda"}} {fm_kernel.launches}' in text
     assert snap[("floatsd_matmul", "cuda")] == fm_kernel.launches > 0
+
+
+# The moe and hybrid families: the experts' products on the kernel, Mamba
+# and MoE at a small width, and the reduced models, kernels against the
+# plain versions on the card.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,c", [(8, 8), (16, 24)])  # 64 rows an expert (route A), 384 (route B)
+@pytest.mark.parametrize("eq", ["gecd,edh->gech", "gech,ehd->gecd"])
+def test_expert_products_on_the_kernel_match_their_plain_version(dev, g, c, eq):
+    """One floatsd_matmul launch an expert, each within the matmul bound
+    of the plain version; on FP8 activations at 64 rows (route A) bit for
+    bit."""
+    e, k, n = 6, 256, 384
+    gen = _gen(dev, g * c)
+    codes, bias = floatsd.encode(torch.randn((e, k, n), device=dev, generator=gen) * 0.05)
+    w = kd.PackedTensor(codes, int(bias))
+    for fp8 in (False, True):
+        x = torch.randn((g, e, c, k), device=dev, generator=gen)
+        if fp8:
+            x = quantize_fp8(x)
+        n0 = floatsd_matmul.launches
+        got = kd.packed_einsum(eq, x, w)
+        torch.cuda.synchronize()
+        assert floatsd_matmul.launches == n0 + e and got.shape == (g, e, c, n)
+        want = kd.packed_einsum(eq, x, w, backend="ref")
+        wd = floatsd.decode(codes, bias).double().abs()
+        bound = 1e-5 * torch.einsum(eq, x.double().abs(), wd)
+        assert bool(((got.double() - want.double()).abs() <= bound + 1e-30).all())
+        if fp8 and g * c <= 64:
+            assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_mamba_and_moe_on_the_kernels_match_their_plain_versions(dev):
+    """A Mamba mixer (apply, then 8 decode steps) and an MoE layer at width
+    256 on packed codes, policy fp32: the kernels against backend="ref" on
+    the card within 1e-4 of the output scale (route B's products within
+    1e-5 of |x| @ |W|, carried through the scan); the MoE's routing equal,
+    since the router runs before any kernel."""
+    from repro_torch.nn.mamba import Mamba, MambaCache
+    from repro_torch.nn.moe import MoE, record_routes
+    from repro_torch.nn.transformer import hoist
+    from repro_torch.serving import pack_tree
+
+    pol = get_policy("fp32")
+    d = 256
+    mamba, moe = Mamba(d), MoE(d, 512, 8, 2)
+    gen = _gen(dev, 11)
+    pm = hoist(pack_tree({k: v.unsqueeze(0) for k, v in mamba.init(gen).items()}))
+    pm = {k: (kd.PackedTensor(v.codes[0], v.bias) if kd.is_packed(v) else v[0]) for k, v in pm.items()}
+    pe = hoist(pack_tree({k: v.unsqueeze(0) for k, v in moe.init(gen).items()}))
+    pe = {k: (kd.PackedTensor(v.codes[0], v.bias) if kd.is_packed(v) else v[0]) for k, v in pe.items()}
+    u = torch.randn((2, 128, d), device=dev, generator=gen)
+
+    def close(got, want):
+        scale = max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= 1e-4 * scale
+
+    with torch.no_grad():
+        kd.STATS.reset()
+        got = mamba.apply(pm, u, pol)
+        assert kd.STATS.snapshot() == {("floatsd_matmul", "cuda"): 4}
+        with kd.use_backend("ref"):
+            close(got, mamba.apply(pm, u, pol))
+        caches = []
+        for backend in (None, "ref"):
+            cache = MambaCache(torch.zeros((2, mamba.d_inner, mamba.d_state), device=dev),
+                               torch.zeros((2, mamba.d_conv - 1, mamba.d_inner), device=dev, dtype=torch.bfloat16))
+            outs = []
+            with kd.use_backend(backend):
+                for t in range(8):
+                    o, cache = mamba.decode(pm, u[:, t:t + 1], cache, pol)
+                    outs.append(o)
+            caches.append((torch.cat(outs, 1), cache))
+        close(caches[0][0], caches[1][0])
+        close(caches[0][1].ssm, caches[1][1].ssm)
+        with record_routes() as r_got:
+            got, aux = moe.apply(pe, u, pol)
+        with record_routes() as r_want, kd.use_backend("ref"):
+            want, aux_want = moe.apply(pe, u, pol)
+        for f in ("expert_idx", "slot_e", "slot_c", "keep", "gate"):
+            assert torch.equal(getattr(r_got[0], f), getattr(r_want[0], f)), f
+        assert float(aux) == float(aux_want)
+        close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["jamba_v01_52b", "dbrx_132b", "kimi_k2_1t_a32b"])
+def test_reduced_hybrid_and_moe_models_on_the_kernels_match_their_plain_versions(dev, arch):
+    """The reduced models' prefill on the kernels against backend="ref" on
+    the card with no activation quantizer: within one bf16 step (2^-8) of
+    the logit scale, the dense family's bound (its attention's p rounds to
+    bf16 from scores that differ in their last bits), no token routed
+    differently; every weight site and the head on floatsd_matmul, every
+    attention layer on flash_attention."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import CausalLM
+    from repro_torch.nn.moe import record_routes
+    from repro_torch.serving import WeightStore
+
+    cfg = get_config(arch).reduced()
+    model = CausalLM(cfg)
+    pol = get_policy("fp32")
+    tree = model.hoist(WeightStore.pack(model.init(_gen(dev, 5))).tree)
+    toks = torch.randint(0, cfg.vocab, (2, 96), device=dev, generator=_gen(dev, 6))
+    kd.STATS.reset()
+    with torch.no_grad():
+        with record_routes() as r_got:
+            got = model.prefill(tree, {"tokens": toks}, pol)
+        counts = kd.STATS.snapshot()
+        with record_routes() as r_want, kd.use_backend("ref"):
+            want = model.prefill(tree, {"tokens": toks}, pol)
+    assert set(counts) == {("flash_attention", "cuda"), ("floatsd_matmul", "cuda")}
+    for a, b in zip(r_got, r_want):
+        assert torch.equal(a.expert_idx, b.expert_idx)
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, rtol=0, atol=2.0 ** -8 * scale)

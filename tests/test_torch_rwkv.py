@@ -513,7 +513,7 @@ def test_hoist_decodes_small_leaves_once_and_keeps_weight_sites_packed(port_para
 def test_build_and_cache_contract():
     assert isinstance(build(TCFG), CausalLM)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(ArchConfig(name="moe_x", family="moe", n_layers=2, d_model=64, vocab=128))
+        build(ArchConfig(name="audio_x", family="audio", n_layers=2, d_model=64, vocab=128))
     cache = CausalLM(TCFG).init_cache(5, TPOL, "cpu")
     s = cache["stack"]["b0"]
     assert s.s.shape == (L, 5, H, HD, HD) and s.s.dtype == torch.float32
