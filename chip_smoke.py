@@ -249,6 +249,8 @@ Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import math
 import re
@@ -2186,9 +2188,10 @@ def zoo_counters(reset: bool = False) -> dict:
     return {op: w.launches for op, w in wrappers.items()}
 
 
-def zoo_build(torch, dev, n_layers=None, arch="rwkv6_3b"):
-    """``arch`` (or its first ``n_layers``) from seed 0, packed to FloatSD8;
-    the f32 tree is freed before anything is served."""
+def zoo_build(torch, dev, n_layers=None, arch="rwkv6_3b", **over):
+    """``arch`` (or its first ``n_layers``; ``over`` replaces other config
+    fields) from seed 0, packed to FloatSD8; the f32 tree is freed before
+    anything is served."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2197,7 +2200,8 @@ def zoo_build(torch, dev, n_layers=None, arch="rwkv6_3b"):
 
     cfg = get_config(arch)
     if n_layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        over["n_layers"] = n_layers
+    cfg = dataclasses.replace(cfg, **over)
     model = build(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(SEED))
@@ -2282,7 +2286,7 @@ def zoo_phase(torch, dev, smi):
         model.prefill(tree, {"tokens": toks}, pol)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    groups, wall_prof = profile_prefill(torch, model, tree, toks, pol)
+    groups, wall_prof = profile_prefill(torch, lambda: model.prefill(tree, {"tokens": toks}, pol))
     busy = sum(ms for ms, _ in groups.values())
     out["prefill"] = dict(launches=launches, wall_s=wall, tok_s=ZOO_B * ZOO_S / wall, profile=groups)
     print(f"zoo prefill: B {ZOO_B} x S {ZOO_S}: {wall * 1e3:.1f} ms wall ({wall_first * 1e3:.1f} ms the first, "
@@ -2456,23 +2460,30 @@ FLASH_TOL = {"float32": (6e-3, 2e-2), "bfloat16": (2e-2, 3e-2)}
 # version
 FLASH_AS_PLAIN = ("jamba",)
 FLASH_Q_SCALE = 2.0  # q ~ N(0, 4): scores of std 2 (a peaked attention, as a trained model's)
-# (name, B, S, H, Kh, D, causal, window, dtype): the dense prefill (the
-# window of 4096 inactive at S 1024), the window biting, a ragged S, no
-# causal mask, bf16, and the hybrid's prefill (head size 128, the kernel's
-# D_MAX, no window)
-FLASH_CASES = [("prefill", ZOO_B, ZOO_S, 32, 8, 120, True, 4096, "float32"),
-               ("window", 1, 8192, 32, 8, 120, True, 4096, "float32"),
-               ("ragged", ZOO_B, 1000, 32, 8, 120, True, 4096, "float32"),
-               ("full", ZOO_B, ZOO_S, 32, 8, 120, False, None, "float32"),
-               ("bf16", ZOO_B, ZOO_S, 32, 8, 120, True, 4096, "bfloat16"),
-               ("jamba", ZOO_B, ZOO_S, 32, 8, 128, True, None, "float32")]
+# (name, B, Sq, Skv, H, Kh, D, causal, window, dtype, prefix): the dense
+# prefill (the window of 4096 inactive at S 1024), the window biting, a
+# ragged S, no causal mask, bf16, the hybrid's prefill (head size 128, the
+# kernel's D_MAX, no window); Whisper's encoder (no causal mask, S 1500, 20
+# heads of 64) and cross-attention (64 queries over the 1500 encoder states),
+# and Qwen2-VL's prefill (12 heads of 128 over 2, causal with its 256
+# patches as the prefix)
+FLASH_CASES = [("prefill", ZOO_B, ZOO_S, ZOO_S, 32, 8, 120, True, 4096, "float32", 0),
+               ("window", 1, 8192, 8192, 32, 8, 120, True, 4096, "float32", 0),
+               ("ragged", ZOO_B, 1000, 1000, 32, 8, 120, True, 4096, "float32", 0),
+               ("full", ZOO_B, ZOO_S, ZOO_S, 32, 8, 120, False, None, "float32", 0),
+               ("bf16", ZOO_B, ZOO_S, ZOO_S, 32, 8, 120, True, 4096, "bfloat16", 0),
+               ("jamba", ZOO_B, ZOO_S, ZOO_S, 32, 8, 128, True, None, "float32", 0),
+               ("whisper-enc", ZOO_B, 1500, 1500, 20, 20, 64, False, None, "float32", 0),
+               ("whisper-cross", ZOO_B, 64, 1500, 20, 20, 64, False, None, "float32", 0),
+               ("qwen2-vl", ZOO_B, ZOO_S, ZOO_S, 12, 2, 128, True, None, "float32", 256)]
 
 
-def attend_pairs(sq: int, skv: int, causal: bool, window) -> int:
-    """The (query, key) pairs the masks admit, positions from 0."""
+def attend_pairs(sq: int, skv: int, causal: bool, window, prefix: int = 0) -> int:
+    """The (query, key) pairs the masks admit, positions from 0 (causal:
+    key j <= max(i, prefix - 1))."""
     total = 0
     for i in range(sq):
-        hi = min(skv - 1, i) if causal else skv - 1
+        hi = min(skv - 1, max(i, prefix - 1)) if causal else skv - 1
         lo = max(0, i - window + 1) if window is not None else 0
         total += max(hi - lo + 1, 0)
     return total
@@ -2494,7 +2505,7 @@ def flash_ops(pair_d: float, q, k) -> list:
     return [qk_part, (2.0 * pair_d, "bf16")]
 
 
-def flash_oracle(torch, q, k, v, causal, window, heads_per_call=4):
+def flash_oracle(torch, q, k, v, causal, window, prefix=0, heads_per_call=4):
     """``flash_attention_ref`` (the [BH, S, D] oracle, f32 scores and PV) on
     the model layout, K and V expanded to the query heads, a few heads at a
     time (the scores of all 32 heads at S 8192 would take 8.6 GB)."""
@@ -2507,7 +2518,7 @@ def flash_oracle(torch, q, k, v, causal, window, heads_per_call=4):
         hs = range(h0, min(h, h0 + heads_per_call))
         kv = [t[:, :, [j // g for j in hs]].permute(0, 2, 1, 3).reshape(-1, skv, d) for t in (k, v)]
         o = flash_attention_ref(q[:, :, h0:h0 + len(hs)].permute(0, 2, 1, 3).reshape(-1, sq, d), *kv,
-                                causal, window)
+                                causal, window, prefix)
         out[:, :, h0:h0 + len(hs)] = o.reshape(b, len(hs), sq, d).permute(0, 2, 1, 3)
     return out
 
@@ -2516,8 +2527,10 @@ def flash_phase(torch, dev, flush):
     """Phase 3, continued: the flash_attention kernel against its plain
     versions (the oracle and the model's chunked online softmax) at the
     dense prefill's shape, where the window bites, at a ragged S, without
-    the causal mask and on bf16; two launches bit-identical; the oracle
-    without the window, at the window's shape, rejected."""
+    the causal mask, on bf16, and at the hybrid's, Whisper's (encoder,
+    cross-attention) and Qwen2-VL's (the causal prefix) prefill shapes; two
+    launches bit-identical; the oracle without the window, at the window's
+    shape, rejected."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import _mask, flash_attention_gqa
     from repro_torch.kernels.floatsd_matmul.ref import no_tf32
@@ -2527,14 +2540,15 @@ def flash_phase(torch, dev, flush):
     rows = {}
     print(f"kernels: flash_attention vs the oracle and the chunked plain version (|err| <= atol + rtol |want|: "
           f"f32 {FLASH_TOL['float32']}, bf16 {FLASH_TOL['bfloat16']}; q ~ N(0, {FLASH_Q_SCALE ** 2:g}))")
-    for name, b, s, h, kh, d, causal, window, dt in FLASH_CASES:
+    for name, b, s, skv, h, kh, d, causal, window, dt, prefix in FLASH_CASES:
         dt = getattr(torch, dt)
         q = (torch.randn((b, s, h, d), device=dev, generator=g) * FLASH_Q_SCALE).to(dt)
-        k, v = (torch.randn((b, s, kh, d), device=dev, generator=g).to(dt) for _ in range(2))
-        o = flash_attention(q, k, v, causal=causal, window=window)
-        o2 = flash_attention(q, k, v, causal=causal, window=window)
-        oracle = flash_oracle(torch, q, k, v, causal, window)
-        plain = flash_attention_gqa(q, k, v, causal=causal, window=window)
+        k, v = (torch.randn((b, skv, kh, d), device=dev, generator=g).to(dt) for _ in range(2))
+        kw = dict(causal=causal, window=window, prefix=prefix)
+        o = flash_attention(q, k, v, **kw)
+        o2 = flash_attention(q, k, v, **kw)
+        oracle = flash_oracle(torch, q, k, v, causal, window, prefix)
+        plain = flash_attention_gqa(q, k, v, **kw)
         torch.cuda.synchronize()
         check(torch.equal(o, o2), f"flash_attention {name}: two launches differ")
         atol, rtol = FLASH_TOL[str(dt).split(".")[-1]]
@@ -2564,13 +2578,17 @@ def flash_phase(torch, dev, flush):
             check(caught > 0.01, f"flash_attention: the bound does not reject attention without the window "
                                  f"({caught:.2%} beyond)")
             del nowin
-        t = timed_ms(torch, lambda: flash_attention(q, k, v, causal=causal, window=window), 10, flush)
+        t = timed_ms(torch, lambda: flash_attention(q, k, v, **kw), 10, flush)
         with no_tf32():
-            t_plain = timed_ms(torch, lambda: flash_attention_gqa(q, k, v, causal=causal, window=window), 3, flush)
+            t_plain = timed_ms(torch, lambda: flash_attention_gqa(q, k, v, **kw), 3, flush)
             # the library yardstick: SDPA on the heads-major layout; where the
-            # window bites, its band as a boolean mask
+            # window bites or a prefix widens the causal mask, the mask as a
+            # boolean attn_mask
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            if window is None or window >= s:
+            if prefix:
+                pos = torch.arange(s, device=dev)
+                lib_kw, lib_call = dict(attn_mask=_mask(pos, pos, causal, None, prefix)), f"attn_mask=prefix {prefix}"
+            elif window is None or window >= s:
                 lib_kw, lib_call = dict(is_causal=causal), f"is_causal={causal}"
             else:
                 pos = torch.arange(s, device=dev)
@@ -2582,14 +2600,14 @@ def flash_phase(torch, dev, flush):
                                    f"bound of the oracle: not the same function")
             t_lib = timed_ms(torch, lambda: sdpa(qt, kt, vt, enable_gqa=True, **lib_kw), 10, flush)
             del qt, kt, vt, lib, lib_kw
-        pairs = b * h * attend_pairs(s, s, causal, window)
+        pairs = b * h * attend_pairs(s, skv, causal, window, prefix)
         bd = bound(q.element_size() * (2 * q.numel() + k.numel() + v.numel()), flash_ops(pairs * d, q, k))
         rows[name] = costed(dict(ms=t, plain_ms=t_plain, library_ms=t_lib, err=max(v[0] for v in errs.values()), **bd),
-                            "flash_attention", f"{name} q [{b},{s},{h},{d}] {str(dt)[6:]}", b, s, s, h, kh, d,
+                            "flash_attention", f"{name} q [{b},{s},{h},{d}] {str(dt)[6:]}", b, s, skv, h, kh, d,
                             peak="bf16" if dt == torch.bfloat16 else "fp32", causal=causal, window=window,
-                            elem_bytes=q.element_size())
-        print(f"  {name:8s} q [{b},{s},{h},{d}], k, v [{b},{s},{kh},{d}] {str(dt)[6:]}, causal {causal}, window "
-              f"{window}: vs oracle max_abs_err {errs['oracle'][0]:.3e} ({errs['oracle'][1]} of {o.numel()} not "
+                            elem_bytes=q.element_size(), prefix=prefix)
+        print(f"  {name:8s} q [{b},{s},{h},{d}], k, v [{b},{skv},{kh},{d}] {str(dt)[6:]}, causal {causal}, window "
+              f"{window}, prefix {prefix}: vs oracle max_abs_err {errs['oracle'][0]:.3e} ({errs['oracle'][1]} of {o.numel()} not "
               f"bit-identical), vs plain {errs['plain'][0]:.3e} ({errs['plain'][1]} not bit-identical); |o| max "
               f"{float(oracle.float().abs().max()):.3f}; outputs beyond the bound of the oracle: the kernel "
               f"{errs['oracle'][2]}, the plain version {plain_beyond}; two launches bit-identical"
@@ -2604,16 +2622,16 @@ def flash_phase(torch, dev, flush):
     return rows
 
 
-def profile_prefill(torch, model, tree, toks, policy):
-    """One prefill under torch.profiler: device time (ms) and launches by
-    kernel group, and the wall time (ms) of the same call."""
+def profile_prefill(torch, run):
+    """One prefill (``run()``) under torch.profiler: device time (ms) and
+    launches by kernel group, and the wall time (ms) of the same call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.prefill(tree, {"tokens": toks}, policy)
+        run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     names = [("flash_fwd_kernel", "flash_attention"), ("flash_split_kv", "flash_attention"),
@@ -2630,27 +2648,35 @@ def profile_prefill(torch, model, tree, toks, policy):
     return {grp: v for grp, v in groups.items() if v[1]}, wall
 
 
-def dense_phase(torch, dev, smi):
-    """Phase 14: full-width h2o_danube3_4b, packed, prefilled, decoded and
-    served."""
+def dense_phase(torch, dev, smi, arch=DENSE_ARCH, what="dense", resident=DENSE_BYTES, leaves=10,
+                kv_want=DENSE_KV_BYTES):
+    """Phase 14 (and 23, for ``VLM_ARCH``): a dense-block model at full
+    width, packed, prefilled (a vlm over its stub patches, the attention's
+    causal prefix), decoded and served."""
     import numpy as np
 
     from repro_torch.core.policy import get_policy
     from repro_torch.kernels import dispatch as kd
+    from repro_torch.kernels.flash_attention import cost as fa_cost
     from repro_torch.serving import synthetic_prompts
 
     held = torch.cuda.memory_allocated()
-    cfg, model, store, t_build = zoo_build(torch, dev, arch=DENSE_ARCH)
+    cfg, model, store, t_build = zoo_build(torch, dev, arch=arch)
     L = cfg.n_layers
-    print(f"dense: {cfg.name} ({L} layers, d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.hd} over "
-          f"{cfg.kv_heads} KV heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, window {cfg.window}) from seed {SEED}: "
-          f"{store.dense_nbytes} B f32 -> {store.packed_nbytes} B packed FloatSD8 ({store.n_packed} leaves) in "
-          f"{t_build:.1f} s; {held} B held on the card before the build (the RWKV trees freed)", flush=True)
-    check(store.packed_nbytes == DENSE_BYTES and store.n_packed == 10,
-          f"dense resident bytes {store.packed_nbytes} != {DENSE_BYTES} ({store.n_packed} leaves packed)")
+    print(f"{what}: {cfg.name} ({L} layers, d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.hd} over "
+          f"{cfg.kv_heads} KV heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, window {cfg.window}"
+          + (f", M-RoPE sections {cfg.mrope_sections}, {cfg.n_patches} stub patches" if cfg.n_patches else "")
+          + f") from seed {SEED}: {store.dense_nbytes} B f32 -> {store.packed_nbytes} B packed FloatSD8 "
+          f"({store.n_packed} leaves) in {t_build:.1f} s; {held} B held on the card before the build", flush=True)
+    check(store.packed_nbytes == resident and store.n_packed == leaves,
+          f"{what} resident bytes {store.packed_nbytes} != {resident} ({store.n_packed} leaves packed)")
     pol = get_policy("floatsd8_table6").replace(weight_quant="none")
     tree = model.hoist(store.tree)
     toks = torch.as_tensor(np.random.default_rng(SEED).integers(0, cfg.vocab, (ZOO_B, ZOO_S)), device=dev)
+    batch = {"tokens": toks}
+    if cfg.n_patches:
+        g = torch.Generator(device=dev).manual_seed(SEED + 9)
+        batch["patch_embeds"] = torch.randn((ZOO_B, cfg.n_patches, cfg.d_model), device=dev, generator=g)
     n_sites = DENSE_SITES * L + 1
     out = {}
 
@@ -2658,29 +2684,38 @@ def dense_phase(torch, dev, smi):
     zoo_counters(reset=True)
     with torch.no_grad():
         t0 = time.perf_counter()
-        logits = model.prefill(tree, {"tokens": toks}, pol)
+        logits = model.prefill(tree, batch, pol)
         torch.cuda.synchronize()
         wall_first = time.perf_counter() - t0
     launches, stats = zoo_counters(), kd.STATS.snapshot()
     want = {"floatsd_matmul": n_sites, "qsigmoid": 0, "rwkv_wkv": 0, "flash_attention": L}
-    check(launches == want, f"dense prefill launches {launches} != {want}")
-    check(stats == {(op, "cuda"): n for op, n in want.items() if n}, f"dense prefill dispatch records {stats}")
+    check(launches == want, f"{what} prefill launches {launches} != {want}")
+    check(stats == {(op, "cuda"): n for op, n in want.items() if n}, f"{what} prefill dispatch records {stats}")
+    # the attention's calls carried the patches as the causal prefix
+    flash_cost = fa_cost.flash_attention_cost(ZOO_B, ZOO_S, ZOO_S, cfg.n_heads, cfg.kv_heads, cfg.hd, backend="cuda",
+                                              window=cfg.window, prefix=cfg.n_patches)
+    check(kd.STATS.last["flash_attention"].cost == flash_cost, f"{what} prefill: the attention's mask is not "
+                                                               f"causal with the prefix {cfg.n_patches}")
     check(tuple(logits.shape) == (ZOO_B, ZOO_S, cfg.vocab_padded()) and bool(torch.isfinite(logits).all()),
-          f"dense prefill logits {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+          f"{what} prefill logits {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
     with torch.no_grad():
         t0 = time.perf_counter()
-        model.prefill(tree, {"tokens": toks}, pol)
+        model.prefill(tree, batch, pol)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    groups, wall_prof = profile_prefill(torch, model, tree, toks, pol)
+    groups, wall_prof = profile_prefill(torch, lambda: model.prefill(tree, batch, pol))
     busy = sum(ms for ms, _ in groups.values())
     out["prefill"] = dict(launches=launches, wall_s=wall, tok_s=ZOO_B * ZOO_S / wall, profile=groups)
-    print(f"dense prefill: B {ZOO_B} x S {ZOO_S}: {wall * 1e3:.1f} ms wall ({wall_first * 1e3:.1f} ms the first), "
-          f"{ZOO_B * ZOO_S / wall:.0f} tok/s ({smi}); launches {launches} (per layer {DENSE_SITES} weight sites, "
-          f"1 attention; + the head); dispatch {dict((f'{o}/{b}', n) for (o, b), n in stats.items())}; logits "
-          f"finite, |max| {float(logits.abs().max()):.3f}. Profiled prefill: {wall_prof:.1f} ms wall, device busy "
-          f"{busy:.1f} ms: " + ", ".join(f"{grp} {ms:.1f} ms ({n} kernels)" for grp, (ms, n) in groups.items()),
-          flush=True)
+    print(f"{what} prefill: B {ZOO_B} x S {ZOO_S}"
+          + (f" ({cfg.n_patches} patch embeddings first, the attention's causal prefix)" if cfg.n_patches else "")
+          + f": {wall * 1e3:.1f} ms wall ({wall_first * 1e3:.1f} ms the first), {ZOO_B * ZOO_S / wall:.0f} tok/s "
+          f"({smi}); launches {launches} (per layer {DENSE_SITES} weight sites, 1 attention; + the head); dispatch "
+          f"{dict((f'{o}/{b}', n) for (o, b), n in stats.items())}; logits finite, |max| "
+          f"{float(logits.abs().max()):.3f}. Profiled prefill: {wall_prof:.1f} ms wall, device busy {busy:.1f} ms: "
+          + ", ".join(f"{grp} {ms:.1f} ms ({n} kernels)" for grp, (ms, n) in groups.items()), flush=True)
+    if cfg.n_patches:  # decode continues a text prompt: the text-only prefill is its reference
+        with torch.no_grad():
+            logits = model.prefill(tree, {"tokens": toks}, pol)
 
     kd.STATS.reset()
     zoo_counters(reset=True)
@@ -2692,30 +2727,30 @@ def dense_phase(torch, dev, smi):
         del cache
     want = {"floatsd_matmul": n_sites * ZOO_DECODE, "qsigmoid": 0, "rwkv_wkv": 0, "flash_attention": 0}
     check(launches == want and sum(n for (_, b), n in stats.items() if b == "ref") == 0,
-          f"dense decode launches {launches} != {want}; dispatch {stats}")
-    check(bool(torch.isfinite(dec).all()), "dense decode: nonfinite logits")
+          f"{what} decode launches {launches} != {want}; dispatch {stats}")
+    check(bool(torch.isfinite(dec).all()), f"{what} decode: nonfinite logits")
     served = positions_gap(torch, dec, logits[0, :ZOO_DECODE], DENSE_TOL)
     fp32 = get_policy("fp32")
     with torch.no_grad():
         ref32 = model.prefill(tree, {"tokens": toks[:1, :ZOO_DECODE]}, fp32)[0]
     dec32, _ = zoo_decode(torch, model, tree, toks, fp32)
     plain = positions_gap(torch, dec32, ref32, DENSE_TOL)
-    check(plain["max"] <= DENSE_TOL, f"dense decode vs prefill, no activation quantizer: max err {plain['max']:.3e} "
-                                     f"of the scale {plain['scale']:.3f} (bound {DENSE_TOL})")
+    check(plain["max"] <= DENSE_TOL, f"{what} decode vs prefill, no activation quantizer: max err "
+                                     f"{plain['max']:.3e} of the scale {plain['scale']:.3f} (bound {DENSE_TOL})")
     late, _ = zoo_decode(torch, model, tree, toks, fp32, late=1)
     control = positions_gap(torch, late, ref32, DENSE_TOL)
-    check(control["max"] > DENSE_TOL, f"dense decode: the bound {DENSE_TOL} does not reject a cache one position "
+    check(control["max"] > DENSE_TOL, f"{what} decode: the bound {DENSE_TOL} does not reject a cache one position "
                                       f"late (max err {control['max']:.3e} of the scale)")
     step = statistics.median(times[1:])
     out["decode"] = dict(launches=launches, step_ms=step * 1e3, tok_s=1 / step, aten_ops=n_ops, served=served,
                          plain=plain, late_control=control)
-    print(f"dense decode: {ZOO_DECODE} steps of sequence 0 (B 1): median step {step * 1e3:.2f} ms, {1 / step:.1f} "
-          f"tok/s ({smi}), {n_ops} ATen operations a step; launches {launches}. Against the prefill's logits at "
-          f"positions 0-{ZOO_DECODE - 1}: with no activation quantizer (policy fp32, the same codes) max err "
-          f"{plain['max']:.3e} of the scale {plain['scale']:.3f} (bound {DENSE_TOL}; position {ZOO_DECODE - 1}: "
-          f"{plain['last']:.3e}), argmax equal at {plain['argmax']} of {ZOO_DECODE}; negative control, the cache one "
-          f"position late: max err {control['max']:.3e}, beyond the bound from position {control['first']}; under "
-          f"floatsd8_table6 "
+    print(f"{what} decode: {ZOO_DECODE} steps of sequence 0 (B 1): median step {step * 1e3:.2f} ms, {1 / step:.1f} "
+          f"tok/s ({smi}), {n_ops} ATen operations a step; launches {launches}. Against the "
+          + ("text-only " if cfg.n_patches else "") + f"prefill's logits at positions 0-{ZOO_DECODE - 1}: with no "
+          f"activation quantizer (policy fp32, the same codes) max err {plain['max']:.3e} of the scale "
+          f"{plain['scale']:.3f} (bound {DENSE_TOL}; position {ZOO_DECODE - 1}: {plain['last']:.3e}), argmax equal "
+          f"at {plain['argmax']} of {ZOO_DECODE}; negative control, the cache one position late: max err "
+          f"{control['max']:.3e}, beyond the bound from position {control['first']}; under floatsd8_table6 "
           f"(reported) max err {served['max']:.3e} of the scale {served['scale']:.3f}, within {DENSE_TOL} up to "
           f"position {served['first'] - 1}, argmax equal at {served['argmax']} of {ZOO_DECODE}", flush=True)
     del logits, ref32, dec, dec32, late
@@ -2729,17 +2764,17 @@ def dense_phase(torch, dev, smi):
     m = eng.metrics
     kv = eng.pool.caches["stack"]["b0"]
     kv_bytes = kv.k.numel() * kv.k.element_size() + kv.v.numel() * kv.v.element_size()
-    check(eng.chunk == 1 and eng.store.packed_nbytes == DENSE_BYTES and kv_bytes == DENSE_KV_BYTES,
-          f"dense engine: chunk {eng.chunk}, store {eng.store.packed_nbytes}, KV cache {kv_bytes} B")
+    check(eng.chunk == 1 and eng.store.packed_nbytes == resident and kv_bytes == kv_want,
+          f"{what} engine: chunk {eng.chunk}, store {eng.store.packed_nbytes}, KV cache {kv_bytes} B")
     check(all(r.status == "done" and len(r.out) == ZOO_MAX_NEW for r in reqs) and m.numeric_errors == 0,
-          f"dense engine: {[r.status for r in reqs]}, {m.numeric_errors} nonfinite")
+          f"{what} engine: {[r.status for r in reqs]}, {m.numeric_errors} nonfinite")
     want = {"floatsd_matmul": n_sites * m.steps, "qsigmoid": 0, "rwkv_wkv": 0, "flash_attention": 0}
     check(launches == want and sum(n for (_, b), n in stats.items() if b == "ref") == 0,
-          f"dense engine launches {launches} != {want}; dispatch {stats}")
+          f"{what} engine launches {launches} != {want}; dispatch {stats}")
     step = statistics.median(times)
     out["engine"] = dict(launches=launches, step_ms=step * 1e3, gen_tok_s=m.report()["gen_tok_per_s"],
                          lane_tok_s=ZOO_LANES / step)
-    print(f"dense engine: {m.format()}; KV cache {kv_bytes} B ({DENSE_CACHE_LEN} positions); median step "
+    print(f"{what} engine: {m.format()}; KV cache {kv_bytes} B ({DENSE_CACHE_LEN} positions); median step "
           f"{step * 1e3:.2f} ms over {len(times)} steps at {ZOO_LANES} lanes = {ZOO_LANES / step:.1f} tok/s ({smi}); "
           f"launches {launches}", flush=True)
     out["launches"] = {op: sum(out[p]["launches"][op] for p in ("prefill", "decode", "engine")) for op in want}
@@ -2748,9 +2783,11 @@ def dense_phase(torch, dev, smi):
     return out
 
 
-def dense_x_phase(torch, dev, smi):
-    """Phase 15: the dense path at full width and DENSE_X_LAYERS layers on
-    the kernels against backend="ref" (the plain versions) on the card."""
+def dense_x_phase(torch, dev, smi, arch=DENSE_ARCH, what="dense-x"):
+    """Phase 15 (and 24, for ``VLM_ARCH``): the dense path at full width and
+    DENSE_X_LAYERS layers on the kernels against backend="ref" (the plain
+    versions) on the card: the prefill's logits (a vlm's over its stub
+    patches) and the engine's greedy tokens."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -2758,17 +2795,21 @@ def dense_x_phase(torch, dev, smi):
     from repro_torch.kernels import dispatch as kd
     from repro_torch.serving import synthetic_prompts
 
-    cfg, model, store, _ = zoo_build(torch, dev, DENSE_X_LAYERS, arch=DENSE_ARCH)
+    cfg, model, store, _ = zoo_build(torch, dev, DENSE_X_LAYERS, arch=arch)
     tree = model.hoist(store.tree)
     toks = torch.as_tensor(np.random.default_rng(SEED).integers(0, cfg.vocab, (ZOO_B, ZOO_S)), device=dev)
+    batch = {"tokens": toks}
+    if cfg.n_patches:
+        g = torch.Generator(device=dev).manual_seed(SEED + 11)
+        batch["patch_embeds"] = torch.randn((ZOO_B, cfg.n_patches, cfg.d_model), device=dev, generator=g)
     gaps = {}
     for name in ("fp32", "floatsd8_table6"):
         pol = get_policy(name).replace(weight_quant="none")
         with torch.no_grad():
-            got = model.prefill(tree, {"tokens": toks}, pol)
+            got = model.prefill(tree, batch, pol)
             t0 = time.perf_counter()
             with kd.use_backend("ref"):
-                want = model.prefill(tree, {"tokens": toks}, pol)
+                want = model.prefill(tree, batch, pol)
             torch.cuda.synchronize()
             t_ref = time.perf_counter() - t0
         gaps[name] = positions_gap(torch, got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1]),
@@ -2776,23 +2817,24 @@ def dense_x_phase(torch, dev, smi):
         gaps[name]["bit_equal"] = float((got == want).float().mean())
         del got, want
     g32, g8 = gaps["fp32"], gaps["floatsd8_table6"]
-    check(g32["max"] <= DENSE_X_TOL, f"dense-x prefill logits, no activation quantizer: max err {g32['max']:.3e} "
+    check(g32["max"] <= DENSE_X_TOL, f"{what} prefill logits, no activation quantizer: max err {g32['max']:.3e} "
                                      f"of the scale {g32['scale']:.3f} (bound {DENSE_X_TOL})")
     prompts = synthetic_prompts(ZOO_LANES, cfg.vocab, np.random.default_rng(SEED))
     pol8 = get_policy("floatsd8_table6")
     _, reqs, _ = zoo_serve(torch, model, store.tree, pol8, prompts, cache_len=DENSE_CACHE_LEN)
     _, refs, ref_times = zoo_serve(torch, model, store.tree, pol8, prompts, backend="ref", cache_len=DENSE_CACHE_LEN)
-    decisive, agree = decisive_tokens(reqs, refs, "dense-x")
-    print(f"dense-x ({DENSE_X_LAYERS} of {get_config(DENSE_ARCH).n_layers} layers at full width, kernels vs "
-          f"backend='ref' on the card): prefill logits [{ZOO_B},{ZOO_S}] with no activation quantizer (policy "
-          f"fp32, the same codes) max err {g32['max']:.3e} of the scale {g32['scale']:.3f} (bound {DENSE_X_TOL}), "
-          f"{g32['bit_equal']:.2%} bit-equal; under floatsd8_table6 (reported) max err {g8['max']:.3e} of the "
-          f"scale {g8['scale']:.3f}, {g8['bit_equal']:.2%} bit-equal, every position within {DENSE_X_TOL} up to "
-          f"{g8['first']} of {ZOO_B * ZOO_S} (flattened), argmax equal at {g8['argmax']}; plain prefill "
-          f"{t_ref:.2f} s; engine ({ZOO_LANES} lanes, {ZOO_MAX_NEW} new tokens, floatsd8_table6): {decisive} of "
-          f"{ZOO_LANES * ZOO_MAX_NEW} tokens margin-decisive (floor {MARGIN_FLOOR}) and equal, {agree} of "
-          f"{ZOO_LANES} streams equal in full; plain decode step {statistics.median(ref_times) * 1e3:.1f} ms",
-          flush=True)
+    decisive, agree = decisive_tokens(reqs, refs, what)
+    print(f"{what} ({DENSE_X_LAYERS} of {get_config(arch).n_layers} layers at full width, kernels vs "
+          f"backend='ref' on the card): prefill logits [{ZOO_B},{ZOO_S}]"
+          + (f" over {cfg.n_patches} patches" if cfg.n_patches else "")
+          + f" with no activation quantizer (policy fp32, the same codes) max err {g32['max']:.3e} of the scale "
+          f"{g32['scale']:.3f} (bound {DENSE_X_TOL}), {g32['bit_equal']:.2%} bit-equal; under floatsd8_table6 "
+          f"(reported) max err {g8['max']:.3e} of the scale {g8['scale']:.3f}, {g8['bit_equal']:.2%} bit-equal, "
+          f"every position within {DENSE_X_TOL} up to {g8['first']} of {ZOO_B * ZOO_S} (flattened), argmax equal "
+          f"at {g8['argmax']}; plain prefill {t_ref:.2f} s; engine ({ZOO_LANES} lanes, {ZOO_MAX_NEW} new tokens, "
+          f"floatsd8_table6): {decisive} of {ZOO_LANES * ZOO_MAX_NEW} tokens margin-decisive (floor {MARGIN_FLOOR}) "
+          f"and equal, {agree} of {ZOO_LANES} streams equal in full; plain decode step "
+          f"{statistics.median(ref_times) * 1e3:.1f} ms ({smi})", flush=True)
     del store, tree
     torch.cuda.empty_cache()
     return gaps
@@ -3438,7 +3480,7 @@ def hybrid_phase(torch, dev, smi, cfg=None):
         model.prefill(tree, {"tokens": toks}, pol)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    groups, wall_prof = profile_prefill(torch, model, tree, toks, pol)
+    groups, wall_prof = profile_prefill(torch, lambda: model.prefill(tree, {"tokens": toks}, pol))
     busy = sum(ms for ms, _ in groups.values())
     # the selective scan alone (plain torch ops), at one Mamba layer's prefill
     # inputs, CUDA events: its share of the "other torch ops"
@@ -3677,6 +3719,362 @@ def moe_phase(torch, dev, smi):
     return out
 
 
+# the audio family (phases 21-22): whisper_large_v3 at its published width
+# (32 encoder + 32 decoder layers, d_model 1280, 20 heads of 64, d_ff 5120
+# GELU, LayerNorm, qkv bias, vocab 51866 padded to 51968, tied; 1500 stub
+# frames: the conv frontend is a stub in the reference too), served in
+# FloatSD8 through the model's own entry points (the engine feeds no encoder
+# input)
+AUDIO_ARCH = "whisper_large_v3"
+AUDIO_CODE_BYTES = 1_542_466_560  # the FloatSD8 codes, from the shapes
+AUDIO_BYTES = AUDIO_CODE_BYTES + 38 * 4 + 4 * 1280 * 4  # + a 4-byte bias a packed leaf + the f32 ln_enc, ln_dec
+AUDIO_LEAVES = 38
+AUDIO_ENC_SITES, AUDIO_DEC_SITES = 6, 10  # weight sites a layer: q, k, v, o, wi, wo; the decoder's + cross q, k, v, o
+AUDIO_DEC = 64  # the teacher-forced decoder tokens, and sequence 0's through decode_step
+AUDIO_NEW = 16  # the greedy transcription batch's new tokens, at ZOO_LANES lanes
+AUDIO_CROSS_BYTES = 1_966_080_000  # 32 layers x 8 lanes x 1500 frames x 1280 x (K, V) x 2 B, bf16
+AUDIO_START = 50258  # Whisper's start-of-transcript token
+# decode_seq against prefill_cross + decode_step through all 64 layers with no
+# activation quantizer: the reference's own gap at the reduced config is
+# 1.67e-3 of the scale (its bf16 cross and self caches against decode_seq's
+# f32 K and V), the dense family's bound holds it
+AUDIO_TOL = DENSE_TOL
+AUDIO_X_LAYERS = 2  # encoder and decoder layers of the kernel-vs-plain cross-check
+# the vlm family (phases 23-24): qwen2_vl_2b at its published width (28
+# layers, d_model 1536, 12 heads of 128 over 2 KV heads, d_ff 8960 SwiGLU,
+# rmsnorm, qkv bias, M-RoPE sections (16, 24, 24), vocab 151936 padded to
+# 152064, tied; 256 stub patch embeddings), served in FloatSD8
+VLM_ARCH = "qwen2_vl_2b"
+VLM_CODE_BYTES = 1_546_268_672
+VLM_BYTES = VLM_CODE_BYTES + 14 * 4 + 1536 * 4  # + a 4-byte bias a packed leaf + the f32 final norm
+VLM_LEAVES = 14
+VLM_KV_BYTES = 469_762_048  # 28 layers x 2 x 8 lanes x 2048 x 2 KV heads x 128 x 2 B
+
+
+def whisper_greedy(torch, model, tree, frames, policy, n_new, backend=None, cache_len=DENSE_CACHE_LEN,
+                   cache=None):
+    """A greedy transcription batch through Whisper's entry points:
+    prefill_cross on ``frames`` [B, 1500, d] (unless ``cache`` is one
+    already filled), then ``n_new`` decode steps from AUDIO_START. Returns
+    (requests with .rid, .out, .margins, the cache, prefill_cross's wall
+    time, each step's wall time)."""
+    import types
+
+    from repro_torch.kernels import dispatch as kd
+
+    b, vocab = frames.shape[0], model.cfg.vocab
+    reqs = [types.SimpleNamespace(rid=i, out=[], margins=[]) for i in range(b)]
+    times = []
+    with torch.no_grad(), kd.use_backend(backend):
+        t0 = time.perf_counter()
+        if cache is None:
+            cache = model.prefill_cross(tree, frames, model.init_cache(b, policy, frames.device,
+                                                                       cache_len=cache_len), policy)
+        torch.cuda.synchronize()
+        t_cross = time.perf_counter() - t0
+        tok = torch.full((b, 1), AUDIO_START, dtype=torch.int32, device=frames.device)
+        for _ in range(n_new):
+            t0 = time.perf_counter()
+            lg, cache = model.decode_step(tree, tok, cache, policy)
+            last = lg[:, -1, :vocab]
+            top2 = torch.topk(last, 2, dim=-1).values
+            tok = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+            nxt, margin = tok[:, 0].tolist(), (top2[:, 0] - top2[:, 1]).tolist()  # a device-to-host copy: synchronised
+            times.append(time.perf_counter() - t0)
+            for r, t, m in zip(reqs, nxt, margin):
+                r.out.append(t)
+                r.margins.append(m)
+    return reqs, cache, t_cross, times
+
+
+def audio_phase(torch, dev, smi):
+    """Phase 21: full-width whisper_large_v3, packed, its encoder and
+    teacher-forced decoder run, its incremental decode held against them,
+    and a greedy transcription batch."""
+    import numpy as np
+
+    from repro_torch._tree import tree_leaves
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import dispatch as kd
+
+    cfg, model, store, t_build = zoo_build(torch, dev, arch=AUDIO_ARCH)
+    L, LE = cfg.n_layers, cfg.enc_layers
+    codes = sum(x.codes.numel() for x in tree_leaves(store.tree, is_leaf=kd.is_packed) if kd.is_packed(x))
+    print(f"audio: {cfg.name} ({LE} encoder + {L} decoder layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.hd}, d_ff {cfg.d_ff} {cfg.ffn_kind}, vocab {cfg.vocab} padded to {cfg.vocab_padded()}, "
+          f"{cfg.enc_seq} stub frames) from seed {SEED}: {store.dense_nbytes} B f32 -> {store.packed_nbytes} B packed "
+          f"FloatSD8 ({codes} B of codes, {store.n_packed} leaves) in {t_build:.1f} s", flush=True)
+    check(store.packed_nbytes == AUDIO_BYTES and codes == AUDIO_CODE_BYTES and store.n_packed == AUDIO_LEAVES,
+          f"audio resident bytes {store.packed_nbytes} != {AUDIO_BYTES} (codes {codes}, {store.n_packed} leaves)")
+    pol = get_policy("floatsd8_table6").replace(weight_quant="none")
+    fp32 = get_policy("fp32")
+    tree = model.hoist(store.tree)
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    frames = torch.randn((ZOO_B, cfg.enc_seq, cfg.d_model), device=dev, generator=g)
+    toks = torch.as_tensor(np.random.default_rng(SEED).integers(0, cfg.vocab, (ZOO_B, AUDIO_DEC)), device=dev)
+    enc_mm, dec_mm = AUDIO_ENC_SITES * LE, AUDIO_DEC_SITES * L + 1
+    step_mm = (AUDIO_DEC_SITES - 2) * L + 1  # a decode step: the cross K and V are cached
+    cross_mm = enc_mm + 2 * L  # prefill_cross: the encoder, then each layer's cross K and V
+    out = {}
+
+    def prefill(policy, b=ZOO_B):
+        return model.decode_seq(tree, toks[:b], model.encode(tree, frames[:b], policy), policy)
+
+    kd.STATS.reset()
+    zoo_counters(reset=True)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits = prefill(pol)
+        torch.cuda.synchronize()
+        wall_first = time.perf_counter() - t0
+    launches, stats = zoo_counters(), kd.STATS.snapshot()
+    want = {"floatsd_matmul": enc_mm + dec_mm, "qsigmoid": 0, "rwkv_wkv": 0, "flash_attention": LE + 2 * L}
+    check(launches == want, f"audio encode + decode_seq launches {launches} != {want}")
+    check(stats == {(op, "cuda"): n for op, n in want.items() if n}, f"audio dispatch records {stats}")
+    check(tuple(logits.shape) == (ZOO_B, AUDIO_DEC, cfg.vocab_padded()) and bool(torch.isfinite(logits).all()),
+          f"audio logits {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        prefill(pol)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    groups, wall_prof = profile_prefill(torch, lambda: prefill(pol))
+    busy = sum(ms for ms, _ in groups.values())
+    out["prefill"] = dict(launches=launches, wall_s=wall, profile=groups)
+    print(f"audio encode + decode_seq: B {ZOO_B} x {cfg.enc_seq} frames, {AUDIO_DEC} tokens: {wall * 1e3:.1f} ms wall "
+          f"({wall_first * 1e3:.1f} ms the first; {ZOO_B * cfg.enc_seq / wall:.0f} frames/s; {smi}); launches "
+          f"{launches} ({LE} x {AUDIO_ENC_SITES} encoder and {L} x {AUDIO_DEC_SITES} decoder weight sites + the head; "
+          f"{LE} encoder, {L} causal and {L} cross attentions); dispatch "
+          f"{dict((f'{o}/{b}', n) for (o, b), n in stats.items())}; logits finite, |max| "
+          f"{float(logits.abs().max()):.3f}. Profiled: {wall_prof:.1f} ms wall, device busy {busy:.1f} ms: "
+          + ", ".join(f"{grp} {ms:.1f} ms ({n} kernels)" for grp, (ms, n) in groups.items()), flush=True)
+
+    def decode(policy):
+        """Sequence 0's AUDIO_DEC tokens through prefill_cross and
+        decode_step: (logits [AUDIO_DEC, vocab], each step's wall time)."""
+        rows, times = [], []
+        with torch.no_grad():
+            cache = model.prefill_cross(tree, frames[:1], model.init_cache(1, policy, dev, cache_len=AUDIO_DEC),
+                                        policy)
+            for t in range(AUDIO_DEC):
+                t0 = time.perf_counter()
+                lg, cache = model.decode_step(tree, toks[:1, t:t + 1], cache, policy)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                rows.append(lg[0, 0])
+        return torch.stack(rows), times
+
+    kd.STATS.reset()
+    zoo_counters(reset=True)
+    dec, times = decode(pol)
+    launches, stats = zoo_counters(), kd.STATS.snapshot()
+    with torch.no_grad():  # one more step, after the counters are read: its host work
+        cache = model.init_cache(1, pol, dev, cache_len=AUDIO_DEC)
+        n_ops = torch_ops(torch, lambda: model.decode_step(tree, toks[:1, :1], cache, pol))
+        del cache
+    want = {"floatsd_matmul": cross_mm + step_mm * AUDIO_DEC, "qsigmoid": 0, "rwkv_wkv": 0, "flash_attention": LE}
+    check(launches == want and sum(n for (_, b), n in stats.items() if b == "ref") == 0,
+          f"audio decode launches {launches} != {want}; dispatch {stats}")
+    check(bool(torch.isfinite(dec).all()), "audio decode: nonfinite logits")
+    served = positions_gap(torch, dec, logits[0], AUDIO_TOL)
+    with torch.no_grad():
+        ref32 = prefill(fp32, b=1)[0]
+    dec32, _ = decode(fp32)
+    plain = positions_gap(torch, dec32, ref32, AUDIO_TOL)
+    check(plain["max"] <= AUDIO_TOL, f"audio decode vs decode_seq, no activation quantizer: max err "
+                                     f"{plain['max']:.3e} of the scale {plain['scale']:.3f} (bound {AUDIO_TOL})")
+    step = statistics.median(times[1:])
+    out["decode"] = dict(launches=launches, step_ms=step * 1e3, aten_ops=n_ops, served=served, plain=plain)
+    print(f"audio decode: prefill_cross of sequence 0, then its {AUDIO_DEC} tokens through decode_step (B 1): median "
+          f"step {step * 1e3:.2f} ms, {1 / step:.1f} tok/s ({smi}), {n_ops} ATen operations a step; launches "
+          f"{launches}. Against decode_seq's logits: with no activation quantizer (policy fp32, the same codes) max "
+          f"err {plain['max']:.3e} of the scale {plain['scale']:.3f} (bound {AUDIO_TOL}; position {AUDIO_DEC - 1}: "
+          f"{plain['last']:.3e}), argmax equal at {plain['argmax']} of {AUDIO_DEC}; under floatsd8_table6 (reported) "
+          f"max err {served['max']:.3e} of the scale {served['scale']:.3f}, within {AUDIO_TOL} up to position "
+          f"{served['first'] - 1}, argmax equal at {served['argmax']} of {AUDIO_DEC}", flush=True)
+    del logits, ref32, dec, dec32
+
+    frames8 = torch.randn((ZOO_LANES, cfg.enc_seq, cfg.d_model), device=dev, generator=g)
+    kd.STATS.reset()
+    zoo_counters(reset=True)
+    reqs, cache, t_cross, times = whisper_greedy(torch, model, tree, frames8, pol, AUDIO_NEW)
+    launches, stats = zoo_counters(), kd.STATS.snapshot()
+    cross_bytes = sum(cache[k].numel() * cache[k].element_size() for k in ("cross_k", "cross_v"))
+    self_bytes = sum(t.numel() * t.element_size() for t in cache["self"][:2])
+    check(cross_bytes == AUDIO_CROSS_BYTES, f"audio cross-KV cache {cross_bytes} B != {AUDIO_CROSS_BYTES}")
+    want = {"floatsd_matmul": cross_mm + step_mm * AUDIO_NEW, "qsigmoid": 0, "rwkv_wkv": 0, "flash_attention": LE}
+    check(launches == want and sum(n for (_, b), n in stats.items() if b == "ref") == 0,
+          f"audio greedy batch launches {launches} != {want}; dispatch {stats}")
+    check(all(len(r.out) == AUDIO_NEW and all(0 <= t < cfg.vocab for t in r.out) for r in reqs),
+          "audio greedy batch: tokens outside the vocab")
+    step = statistics.median(times)
+    out["greedy"] = dict(launches=launches, step_ms=step * 1e3, tok_s=ZOO_LANES / step, cross_s=t_cross,
+                         cross_bytes=cross_bytes)
+    print(f"audio greedy batch: {ZOO_LANES} lanes, each its own {cfg.enc_seq} seeded frames, from token "
+          f"{AUDIO_START}, {AUDIO_NEW} new tokens: prefill_cross {t_cross * 1e3:.1f} ms, cross-KV cache {cross_bytes} "
+          f"B, self cache {self_bytes} B ({DENSE_CACHE_LEN} positions); median step {step * 1e3:.2f} ms = "
+          f"{ZOO_LANES / step:.1f} tok/s ({smi}); launches {launches}; lane 0's tokens {reqs[0].out}", flush=True)
+    out["launches"] = {op: sum(out[p]["launches"][op] for p in ("prefill", "decode", "greedy")) for op in want}
+    del store, tree, cache, frames, frames8
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def fp8_inputs(torch, calls: list):
+    """Record, in call order, every activation the weight sites quantize to
+    FP8 (``nn.linear.act_quant``'s input, before rounding)."""
+    from repro_torch.nn import linear
+
+    act_quant = linear.act_quant
+
+    def recorded(x, fwd, bwd):
+        if fwd in (torch.float8_e5m2, torch.float8_e4m3fn):
+            calls.append((x.detach().clone(), fwd))
+        return act_quant(x, fwd, bwd)
+
+    linear.act_quant = recorded
+    try:
+        yield calls
+    finally:
+        linear.act_quant = act_quant
+
+
+def fp8_flips(torch, got: list, want: list) -> list:
+    """Two runs' recorded FP8 inputs (``fp8_inputs``: the kernels', the
+    plain path's), batch-major. For each lane: its first site whose FP8
+    values differ (None if none), how many differ there, the inputs' largest
+    |a - b| there over the lane's largest |b| ("err"), the same over
+    FLASH_TOL's f32 atol + rtol |b| ("bound"), and how many FP8 values of
+    the lane differ over every site ("total")."""
+    from repro_torch.core.fp8 import cast_fp8
+
+    check(len(got) == len(want) and all(a.shape == b.shape for (a, _), (b, _) in zip(got, want)),
+          f"fp8 flips: the two runs quantized different activations ({len(got)} vs {len(want)} sites)")
+    atol, rtol = FLASH_TOL["float32"]
+    lanes = [dict(site=None, n=0, err=0.0, bound=0.0, total=0) for _ in range(got[0][0].shape[0])]
+    for i, ((a, dt), (b, _)) in enumerate(zip(got, want)):
+        differ = (cast_fp8(a, dt).float() != cast_fp8(b, dt).float()).flatten(1).sum(1).tolist()
+        for lane, (d, n) in enumerate(zip(lanes, differ)):
+            d["total"] += n
+            if n and d["site"] is None:
+                diff = (a[lane] - b[lane]).abs()
+                d.update(site=i, n=n, err=float(diff.max() / b[lane].abs().max()),
+                         bound=float((diff / (atol + rtol * b[lane].abs())).max()))
+    return lanes
+
+
+def audio_x_phase(torch, dev, smi):
+    """Phase 22: the audio path at full width and AUDIO_X_LAYERS encoder
+    and decoder layers on the kernels against backend="ref" (the plain
+    versions) on the card: B 1 over all 1500 frames, then a greedy batch:
+    with no activation quantizer end to end; under the served policy, where
+    each lane's encoder FP8 codes first differ and why, and the decode
+    steps from one cross cache."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import dispatch as kd
+
+    cfg, model, store, _ = zoo_build(torch, dev, AUDIO_X_LAYERS, arch=AUDIO_ARCH, enc_layers=AUDIO_X_LAYERS)
+    tree = model.hoist(store.tree)
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    frames = torch.randn((1, cfg.enc_seq, cfg.d_model), device=dev, generator=g)
+    toks = torch.as_tensor(np.random.default_rng(SEED).integers(0, cfg.vocab, (1, AUDIO_DEC)), device=dev)
+    gaps = {}
+    for name in ("fp32", "floatsd8_table6"):
+        pol = get_policy(name).replace(weight_quant="none")
+        with torch.no_grad():
+            enc = model.encode(tree, frames, pol)
+            got = model.decode_seq(tree, toks, enc, pol)
+            t0 = time.perf_counter()
+            with kd.use_backend("ref"):
+                enc_ref = model.encode(tree, frames, pol)
+                want = model.decode_seq(tree, toks, enc_ref, pol)
+            torch.cuda.synchronize()
+            t_ref = time.perf_counter() - t0
+        gaps[name] = positions_gap(torch, got[0], want[0], DENSE_X_TOL)
+        gaps[name]["enc"] = positions_gap(torch, enc[0], enc_ref[0], DENSE_X_TOL)["max"]
+        gaps[name]["bit_equal"] = float((got == want).float().mean())
+        del got, want, enc, enc_ref
+    g32, g8 = gaps["fp32"], gaps["floatsd8_table6"]
+    check(g32["max"] <= DENSE_X_TOL, f"audio-x decode_seq logits, no activation quantizer: max err {g32['max']:.3e} "
+                                     f"of the scale {g32['scale']:.3f} (bound {DENSE_X_TOL})")
+    # the greedy batch's tokens held with no activation quantizer
+    frames8 = torch.randn((ZOO_LANES, cfg.enc_seq, cfg.d_model), device=dev, generator=g)
+    fp32 = get_policy("fp32")
+    reqs, *_ = whisper_greedy(torch, model, tree, frames8, fp32, AUDIO_NEW)
+    refs, _, _, ref_times = whisper_greedy(torch, model, tree, frames8, fp32, AUDIO_NEW, backend="ref")
+    decisive, agree = decisive_tokens(reqs, refs, "audio-x")
+    # under the served policy: prefill_cross on the kernels, on the plain
+    # path, and on the kernels with the flash on its plain version (route B
+    # alone), every FP8 input recorded. Each lane's first FP8 difference is
+    # at encoder layer 0's attention output, the first site downstream of a
+    # product that is not bit-exact (its q, k, v inputs are equal), within the
+    # flash kernel's bound, and the flash kernel, not route B, makes most of
+    # them. Then the decode steps from one cross cache, token for token
+    pol8 = get_policy("floatsd8_table6").replace(weight_quant="none")
+    init = model.init_cache(ZOO_LANES, pol8, dev, cache_len=DENSE_CACHE_LEN)
+    sites = [f"encoder layer {i // 6} {w}" for i in range(6 * cfg.enc_layers)
+             for w in [("wq", "wk", "wv", "wo", "ffn wi", "ffn wo")[i % 6]]]
+    sites += [f"decoder layer {i} cross {w}" for i in range(cfg.n_layers) for w in ("wk", "wv")]
+    flash = kd.flash_attention
+    with torch.no_grad():
+        with fp8_inputs(torch, []) as want, kd.use_backend("ref"):
+            model.prefill_cross(tree, frames8, init, pol8)
+        with fp8_inputs(torch, []) as got:
+            cache = model.prefill_cross(tree, frames8, init, pol8)
+        check(len(got) == len(sites), f"audio-x: {len(got)} FP8 sites in prefill_cross, {len(sites)} expected")
+        flips = fp8_flips(torch, got, want)
+        del got
+        kd.flash_attention = functools.partial(flash, backend="ref")
+        try:
+            with fp8_inputs(torch, []) as got:
+                model.prefill_cross(tree, frames8, init, pol8)
+        finally:
+            kd.flash_attention = flash
+        flips_b = fp8_flips(torch, got, want)
+        del got, want
+    wo = sites.index("encoder layer 0 wo")
+
+    def name(i):
+        return "none" if i is None else sites[i]
+
+    for lane, (d, e) in enumerate(zip(flips, flips_b)):
+        check(d["site"] == wo and d["bound"] <= 1.0,
+              f"audio-x served prefill_cross, lane {lane}: first FP8 difference at "
+              f"{name(d['site'])}, {d['bound']:.3f} of the flash bound")
+        check(e["n"] < d["n"] if e["site"] == wo else e["site"] is None or e["site"] > wo,
+              f"audio-x served prefill_cross, lane {lane}: route B alone flips {e['n']} FP8 values at "
+              f"{name(e['site'])}, the flash kernel {d['n']} at {sites[wo]}")
+    reqs8, *_ = whisper_greedy(torch, model, tree, frames8, pol8, AUDIO_NEW, cache=cache)
+    refs8, *_ = whisper_greedy(torch, model, tree, frames8, pol8, AUDIO_NEW, backend="ref", cache=cache)
+    decisive8, agree8 = decisive_tokens(reqs8, refs8, "audio-x served decode")
+    firsts = "; ".join(f"{d['n']} ({d['err']:.2e} of the scale, {d['bound']:.3f} of the bound) vs {e['n']} "
+                       f"({e['err']:.2e})" for d, e in zip(flips, flips_b))
+    print(f"audio-x ({AUDIO_X_LAYERS} of {get_config(AUDIO_ARCH).enc_layers} encoder and {AUDIO_X_LAYERS} of "
+          f"{get_config(AUDIO_ARCH).n_layers} decoder layers at full width, kernels vs backend='ref' on the card, "
+          f"{smi}): B 1 x {cfg.enc_seq} frames, {AUDIO_DEC} tokens, with no activation quantizer (policy fp32, the "
+          f"same codes): encoder states max err {g32['enc']:.3e} of their scale, logits max err {g32['max']:.3e} of "
+          f"the scale {g32['scale']:.3f} (bound {DENSE_X_TOL}), {g32['bit_equal']:.2%} bit-equal; under "
+          f"floatsd8_table6 (reported) encoder {g8['enc']:.3e}, logits max err {g8['max']:.3e} of the scale "
+          f"{g8['scale']:.3f}, within {DENSE_X_TOL} up to position {g8['first'] - 1}, argmax equal at {g8['argmax']} "
+          f"of {AUDIO_DEC}; plain encode + decode_seq {t_ref:.2f} s; greedy batch ({ZOO_LANES} lanes, {AUDIO_NEW} "
+          f"new, policy fp32): {decisive} of {ZOO_LANES * AUDIO_NEW} tokens margin-decisive (floor {MARGIN_FLOOR}) "
+          f"and equal, {agree} of {ZOO_LANES} streams equal in full; under floatsd8_table6, prefill_cross: "
+          f"{sum(d['total'] for d in flips)} FP8 values of the kernels differ from the plain path's over its "
+          f"{len(sites)} sites ({sum(d['total'] for d in flips_b)} with the flash on its plain version), each "
+          f"lane's first at {sites[wo]} (of {frames8.shape[1] * cfg.d_model} a lane; the flash kernel vs route B alone): "
+          f"{firsts}; decode from the kernels' cross cache: {decisive8} of {ZOO_LANES * AUDIO_NEW} tokens "
+          f"margin-decisive and equal, "
+          f"{agree8} of {ZOO_LANES} streams equal in full; plain decode step "
+          f"{statistics.median(ref_times) * 1e3:.1f} ms", flush=True)
+    del store, tree, frames, frames8, cache, init
+    torch.cuda.empty_cache()
+    return gaps
+
+
 def ledger_host_cost(torch, dev, step_ms: float) -> float:
     """The dispatch ledger's bookkeeping of one decode-shape floatsd_matmul
     call (its Decision lookup, the record and the touched bytes), timed
@@ -3859,6 +4257,23 @@ def main() -> int:
     moe = moe_phase(torch, dev, smi)
     print(f"moe: phase 20 in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # 21-22. the audio family: whisper_large_v3 at full width through its own
+    # entry points, then its kernel-vs-plain cross-check
+    t0 = time.perf_counter()
+    audio = audio_phase(torch, dev, smi)
+    print(f"audio: phase 21 in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    audio_x_phase(torch, dev, smi)
+    print(f"audio-x: phase 22 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 23-24. the vlm family: qwen2_vl_2b at full width, then its kernel-vs-plain cross-check
+    t0 = time.perf_counter()
+    vlm = dense_phase(torch, dev, smi, VLM_ARCH, "vlm", VLM_BYTES, VLM_LEAVES, VLM_KV_BYTES)
+    print(f"vlm: phase 23 in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    dense_x_phase(torch, dev, smi, VLM_ARCH, "vlm-x")
+    print(f"vlm-x: phase 24 in {time.perf_counter() - t0:.1f} s", flush=True)
+
     # result lines: each kernel's time per decode step (serving), per train
     # step, or per entry-point pass, from the kernel phase's per-launch times
     # and the launch counts of each path
@@ -3906,7 +4321,8 @@ def main() -> int:
     paths = {"serve": launches, "train": tr_launches, "tasks": tasks["launches"], "serve4": s4["launches"],
              "entry": ent["launches"], "runtime": rt["launches"], "zoo": zoo["launches"],
              "dense": dense["launches"], "frontend": front["launches"], "http": http["launches"],
-             "hybrid": hybrid["launches"], "moe": moe["launches"]}
+             "hybrid": hybrid["launches"], "moe": moe["launches"], "audio": audio["launches"],
+             "vlm": vlm["launches"]}
     # the zoo prefill's share of the kernels it shares with the LSTM paths
     zoo_prefill = {
         "floatsd_matmul": ([(6 * ZL, zmm[("dd", ZOO_B * ZOO_S)]), (ZL, zmm[("cmix-k", ZOO_B * ZOO_S)]),
@@ -3956,7 +4372,8 @@ def main() -> int:
                          (DL, dmm[("ffn-wo", m)]), (1, dmm[("head", m)])]
                 rec[key] = {**composite(parts), "per": f"{what}: {DENSE_SITES * DL + 1} sites at M = {m}"}
         for key, path in (("zoo_prefill_profiled", zoo), ("dense_prefill_profiled", dense),
-                          ("hybrid_prefill_profiled", hybrid)):
+                          ("hybrid_prefill_profiled", hybrid), ("audio_prefill_profiled", audio),
+                          ("vlm_prefill_profiled", vlm)):
             ms, n = path["prefill"]["profile"].get(name, (0.0, 0))
             if n:
                 rec[key] = {"device_ms": ms, "kernels": n}

@@ -1,11 +1,11 @@
 """Architecture config schema and lookup.
 
-Counterpart of ``repro.configs.base`` for the families the port builds:
+Counterpart of ``repro.configs.base`` for every family of the reference:
 the paper's LSTM (``lstm``), the model zoo's RWKV-6 family (``ssm``), its
-dense decoders (``dense``), its mixtures of experts (``moe``) and the
-Mamba/attention hybrid (``hybrid``). The fields are the reference's that
-those families read; the audio and vision fields come with their families
-(``ROADMAP.md`` Queue 1 item 8)."""
+dense decoders (``dense``), its mixtures of experts (``moe``), the
+Mamba/attention hybrid (``hybrid``), Whisper's encoder-decoder (``audio``)
+and Qwen2-VL's M-RoPE decoder with stub patch embeddings (``vlm``). The
+fields are the reference's that those families read."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,7 +17,7 @@ __all__ = ["ArchConfig", "get_config"]
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # lstm | ssm | dense | moe | hybrid (audio | vlm: not ported yet)
+    family: str  # lstm | ssm | dense | moe | hybrid | audio | vlm
     n_layers: int
     d_model: int
     vocab: int
@@ -43,6 +43,12 @@ class ArchConfig:
     attn_every: int = 0  # one attention sub-layer per this many (0: every layer attends)
     mamba_state: int = 16
     rwkv_head_dim: int = 64
+    # --- enc-dec (whisper) ---
+    enc_layers: int = 0
+    enc_seq: int = 0  # stub frontend sequence length (1500 audio frames)
+    # --- vlm ---
+    n_patches: int = 0  # stub patch embeddings in the first positions of the sequence
+    mrope_sections: tuple = (16, 24, 24)  # M-RoPE's (t, h, w) shares of the D/2 frequencies
     source: str = ""
     notes: str = ""
 
@@ -59,7 +65,9 @@ class ArchConfig:
         count that divides them, head_dim 32, a window of 64 where there is
         one, RWKV head_dim 32; max(2, 2 moe_every, attn_every) layers (2 for
         every family but the hybrid's one period of 8), at most 4 experts,
-        top-2, one leading dense layer of width 256."""
+        top-2, one leading dense layer of width 256; 2 encoder layers over
+        16 stub frames, 16 stub patches and M-RoPE sections (8, 4, 4) where
+        the full config has them."""
         heads = min(self.n_heads, 4)
         kvh = max(1, min(self.kv_heads, heads))
         while heads % kvh:
@@ -70,7 +78,10 @@ class ArchConfig:
             n_experts=min(self.n_experts, 4), top_k=min(self.top_k, 2),
             first_k_dense=min(self.first_k_dense, 1),
             first_dense_ff=256 if self.first_dense_ff else 0,
-            window=64 if self.window else None, rwkv_head_dim=32)
+            window=64 if self.window else None, rwkv_head_dim=32,
+            enc_layers=2 if self.enc_layers else 0, enc_seq=16 if self.enc_seq else 0,
+            n_patches=16 if self.n_patches else 0,
+            mrope_sections=(8, 4, 4) if self.rope == "mrope" else self.mrope_sections)
 
 
 def get_config(name: str) -> ArchConfig:

@@ -709,24 +709,27 @@ def rwkv_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
-                    window: int | None = None, backend: str | None = None) -> torch.Tensor:
-    """Self-attention over contiguous positions from 0 in the model layout:
-    q [B, Sq, H, D], k, v [B, Skv, Kh, D] (query head h reads KV head h //
-    (H / Kh)), causal and an optional sliding window -> [B, Sq, H, D] in
-    q's dtype. The kernel walks KV tiles of its own size with the running
-    softmax state on chip; the plain version is the model's chunked online
-    softmax (1024 query rows against 512 keys at a time, the reference
-    model's split), the same function: both round p and v to bf16 before
-    their product."""
+                    window: int | None = None, prefix: int = 0, backend: str | None = None) -> torch.Tensor:
+    """Attention over contiguous positions from 0 in the model layout: q
+    [B, Sq, H, D], k, v [B, Skv, Kh, D] (query head h reads KV head h // (H
+    / Kh)), causal (row i admits the keys j <= max(i, prefix - 1): a
+    ``prefix`` of positions that see one another whole, Qwen2-VL's patches)
+    or full (an encoder's, a cross-attention's, any Sq and Skv), with an
+    optional sliding window -> [B, Sq, H, D] in q's dtype. The kernel walks
+    KV tiles of its own size with the running softmax state on chip; the
+    plain version is the model's chunked online softmax (1024 query rows
+    against 512 keys at a time, the reference model's split), the same
+    function: both round p and v to bf16 before their product."""
     be, why = _resolve(q, backend)
     if be == "ref":
-        o = flash_attention_gqa(q, k, v, causal=causal, window=window)
+        o = flash_attention_gqa(q, k, v, causal=causal, window=window, prefix=prefix)
     else:
-        o = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+        o = fa_ops.flash_attention(q, k, v, causal=causal, window=window, prefix=prefix)
     b, sq, h, d = q.shape
-    shape = (b, sq, k.shape[1], h, k.shape[2], d, causal, window, q.element_size())
+    shape = (b, sq, k.shape[1], h, k.shape[2], d, causal, window, q.element_size(), prefix)
     _record("flash_attention", be, why, shape, lambda: fa_cost.flash_attention_cost(
-        *shape[:6], backend=be, causal=causal, window=window, elem_bytes=shape[8]), _nbytes(q, k, v, o))
+        *shape[:6], backend=be, causal=causal, window=window, elem_bytes=shape[8], prefix=prefix),
+        _nbytes(q, k, v, o))
     return o
 
 

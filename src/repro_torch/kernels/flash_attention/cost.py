@@ -5,8 +5,8 @@ The port's layout: q [B, Sq, H, D], k, v [B, Skv, Kh, D] (grouped-query:
 query head h reads KV head h // (H / Kh), K and V never expanded) -> o [B,
 Sq, H, D] in q's dtype.
 
-  * **ref**: ``attend_pairs`` counts the (query, key) pairs the masks admit,
-    the algorithm's minimum; q, k and v read once (k and v at their Kh
+  * **ref**: ``attend_pairs`` counts the (query, key) pairs the masks admit
+    (causal: ``k <= max(q, prefix - 1)``), the algorithm's minimum; q, k and v read once (k and v at their Kh
     heads), o written once.
   * **cuda** (``flash_attention.cu``, two device kernels a call): the
     pre-pass reads k and v once and writes their bf16 pieces
@@ -55,28 +55,29 @@ def fwd_smem(d: int, elem_bytes: int = 4) -> int:
     return 2 * (p * BM + STAGES * (p + 1) * BN) * padded_d(d)
 
 
-def attend_pairs(sq: int, skv: int, causal: bool, window: int | None) -> int:
+def attend_pairs(sq: int, skv: int, causal: bool, window: int | None, prefix: int = 0) -> int:
     """Exact count of (q, k) pairs the masks admit, positions from 0:
-    ``k <= q`` when causal, ``q - k < window``."""
+    ``k <= max(q, prefix - 1)`` when causal, ``q - k < window``."""
     total = 0
     for q in range(sq):
-        hi = min(skv - 1, q) if causal else skv - 1
+        hi = min(skv - 1, max(q, prefix - 1)) if causal else skv - 1
         lo = max(0, q - window + 1) if window is not None else 0
         total += max(hi - lo + 1, 0)
     return total
 
 
-def visited_pairs(sq: int, skv: int, causal: bool, window: int | None) -> tuple[int, int]:
+def visited_pairs(sq: int, skv: int, causal: bool, window: int | None, prefix: int = 0) -> tuple[int, int]:
     """(pairs the forward's warpgroups compute, keys its blocks load) for one
     (batch, head), by the kernel's tile rule."""
     skv8 = -(-skv // 8) * 8
+    cap = prefix - 1
     pairs = keys = 0
     for q0 in range(0, sq, BM):
         q_last = min(q0 + BM, sq) - 1
         kb, ke = 0, skv
         if not (window is not None and q_last >= skv - 1 + window):
             if causal:
-                ke = min(skv, q_last + 1)
+                ke = min(skv, max(q_last, cap) + 1)
             if window is not None and q0 - window + 1 > 0:
                 kb = (q0 - window + 1) // BN * BN
         tiles = -(-(ke - kb) // BN) if ke > kb else 0
@@ -90,22 +91,24 @@ def visited_pairs(sq: int, skv: int, causal: bool, window: int | None) -> tuple[
             for t in range(tiles):
                 k0 = kb + t * BN
                 k_hi = min(k0 + BN, skv) - 1
-                if group_all or not ((causal and k0 > gr1) or (window is not None and gr0 - k_hi >= window)):
+                if group_all or not ((causal and k0 > max(gr1, cap)) or
+                                     (window is not None and gr0 - k_hi >= window)):
                     pairs += 64 * BN
     return pairs, keys
 
 
 def flash_attention_cost(b: int, sq: int, skv: int, h: int, kh: int, d: int, *, backend: str,
-                         causal: bool = True, window: int | None = None, elem_bytes: int = 4) -> Cost:
+                         causal: bool = True, window: int | None = None, elem_bytes: int = 4,
+                         prefix: int = 0) -> Cost:
     bh = b * h
-    pairs = attend_pairs(sq, skv, causal, window)
+    pairs = attend_pairs(sq, skv, causal, window, prefix)
     write = bh * sq * d * elem_bytes
     if backend == "ref":
         macs = 2 * bh * pairs * d  # QK^T + PV
         return Cost(flops=2 * macs + bh * (SOFTMAX_FLOPS_PER_PAIR * pairs + 2 * sq * d), macs=macs,
                     hbm_read_bytes=(bh * sq + 2 * b * kh * skv) * d * elem_bytes, hbm_write_bytes=write)
     dp, p = padded_d(d), _pieces(elem_bytes)
-    visited, keys = visited_pairs(sq, skv, causal, window)
+    visited, keys = visited_pairs(sq, skv, causal, window, prefix)
     scratch = scratch_bytes(b, skv, kh, d, elem_bytes)
     macs = 2 * bh * visited * dp
     flops = 2 * macs + bh * (SOFTMAX_FLOPS_PER_PAIR * visited + 2 * sq * d)

@@ -3,10 +3,12 @@
 // on the tensor cores by warpgroup matrix products (wgmma).
 //
 //     o_i = sum_j softmax_j(q_i . k_j * D^-1/2 | mask) v_j,
-//     mask: j <= i (causal), i - j < window (sliding window)
+//     mask: j <= max(i, prefix - 1) (causal), i - j < window (sliding window)
 //
 // over contiguous positions from 0 (query i is position i, key j is
-// position j).
+// position j). The causal prefix P (0 but for Qwen2-VL's prefill over its P
+// patch embeddings, which see one another whole, as the reference's mask on
+// its M-RoPE t ids admits them) is 0 wherever a window is set.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py:27
 // (flash_fwd_kernel, launched by flash_attention_pallas at :97), whose grid
@@ -242,7 +244,7 @@ template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const T* __restrict__ q, const uint16_t* __restrict__ kv, T* __restrict__ o, int Sq, int Skv,
                  int Skv8, int H, int G, int Kh, int D, long long q_sb, long long q_ss, long long q_sh, float scale,
-                 int causal, long long window) {
+                 int causal, long long window, int prefix) {
   constexpr int P = pieces<T>();
   constexpr int KS = DP / 16;   // k16 steps of QK^T
   constexpr int NS = kBN / 8;   // n8 blocks of a score tile
@@ -259,11 +261,12 @@ flash_fwd_kernel(const T* __restrict__ q, const uint16_t* __restrict__ kv, T* __
   const bool has_window = window > 0;
   const int win = has_window ? (int)min(window, (long long)INT_MAX) : 0;  // no window reaches past 2^31 keys
   const uint16_t* kvb = kv + (size_t)(b * Kh + hk) * (P + 1) * Skv8 * DP;
+  const int cap = prefix - 1;  // a causal row i admits the keys j <= max(i, cap)
 
   // the keys any row of the block admits, unless a row admits none
   int k_begin = 0, k_end = Skv;
   if (!(has_window && q_last >= Skv - 1 + window)) {
-    if (causal) k_end = min(Skv, q_last + 1);
+    if (causal) k_end = min(Skv, max(q_last, cap) + 1);
     if (has_window && q0 - window + 1 > 0) k_begin = (int)((q0 - window + 1) / kBN * kBN);
   }
   const int n_tiles = (k_end - k_begin + kBN - 1) / kBN;
@@ -314,7 +317,8 @@ flash_fwd_kernel(const T* __restrict__ q, const uint16_t* __restrict__ kv, T* __
   // window admit none of them (unless a row of it admits no key at all)
   auto skip = [&](int k0) {
     const int k_hi = min(k0 + kBN, Skv) - 1;  // the tile's last key
-    return !has_rows || (!group_all && ((causal && k0 > gr1) || (has_window && (long long)gr0 - k_hi >= window)));
+    return !has_rows || (!group_all && ((causal && k0 > max(gr1, cap)) ||
+                                        (has_window && (long long)gr0 - k_hi >= window)));
   };
   // the score tile [64 x 64] of the warpgroup from a stage, this thread's
   // part as NS n8 blocks (issued; committed, not waited for). f32: the five
@@ -346,7 +350,7 @@ flash_fwd_kernel(const T* __restrict__ q, const uint16_t* __restrict__ kv, T* __
   float al0, al1;  // exp(old max - new max) of the thread's two rows
   auto softmax_max = [&](float (&s)[NS][4], int k0) {
     // element e of n8 block nt: row (e < 2 ? row0 : row1), key k0 + 8 nt + 2 tq + (e & 1)
-    const bool masked = k0 + kBN > Skv || (causal && k0 + kBN - 1 > gr0) ||
+    const bool masked = k0 + kBN > Skv || (causal && k0 + kBN - 1 > max(gr0, cap)) ||
                         (has_window && (long long)gr1 - k0 >= window);
 #pragma unroll
     for (int nt = 0; nt < NS; ++nt) {
@@ -357,7 +361,7 @@ flash_fwd_kernel(const T* __restrict__ q, const uint16_t* __restrict__ kv, T* __
           const int row = e < 2 ? row0 : row1, key = k0 + 8 * nt + 2 * tq + (e & 1);
           if (key >= Skv)
             s[nt][e] = -INFINITY;
-          else if ((causal && key > row) || (has_window && row - key >= win))
+          else if ((causal && key > max(row, cap)) || (has_window && row - key >= win))
             s[nt][e] = kNegInf;
         }
       }
@@ -464,7 +468,7 @@ template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* scratch, int B, int Sq, int Skv,
                    int H, int Kh, int D, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
                    long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh, float scale,
-                   int causal, long long window, cudaStream_t stream) {
+                   int causal, long long window, int prefix, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<T, DP>();
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
@@ -479,7 +483,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* s
   if (e != cudaSuccess) return e;
   flash_fwd_kernel<T, DP><<<dim3((Sq + kBM - 1) / kBM, B * H), kThreads, bytes, stream>>>(
       static_cast<const T*>(q), kv, static_cast<T*>(o), Sq, Skv, skv8, H, H / Kh, Kh, D, q_sb, q_ss, q_sh, scale,
-      causal, window);
+      causal, window, prefix);
   return cudaGetLastError();
 }
 
@@ -496,24 +500,25 @@ extern "C" long long flash_attention_scratch_bytes(int B, int Skv, int Kh, int D
 // head strides (elements; the last axis contiguous), o contiguous [B, Sq, H,
 // D], scratch of flash_attention_scratch_bytes (16-byte aligned); dtype 0:
 // all f32, 1: all bf16. 1 <= D <= 128, Kh divides H, B * H <= 65535, Skv >=
-// 1; window <= 0: none. Launches the pre-pass and the forward kernel on
-// `stream`; returns the first launch error (cudaError_t).
+// 1; window <= 0: none; prefix >= 0, and 0 under a window. Launches the
+// pre-pass and the forward kernel on `stream`; returns the first launch
+// error (cudaError_t).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o, void* scratch, int B,
                                       int Sq, int Skv, int H, int Kh, int D, long long q_sb, long long q_ss,
                                       long long q_sh, long long k_sb, long long k_ss, long long k_sh,
                                       long long v_sb, long long v_ss, long long v_sh, float scale, int causal,
-                                      long long window, int dtype, void* stream) {
+                                      long long window, int prefix, int dtype, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   const bool wide = padded_d(D) == 128;
   cudaError_t e;
   if (dtype == 1)
     e = (wide ? launch<__nv_bfloat16, 128> : launch<__nv_bfloat16, 64>)(
         q, k, v, o, scratch, B, Sq, Skv, H, Kh, D, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
-        causal, window, st);
+        causal, window, prefix, st);
   else
     e = (wide ? launch<float, 128> : launch<float, 64>)(q, k, v, o, scratch, B, Sq, Skv, H, Kh, D, q_sb, q_ss,
                                                         q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal,
-                                                        window, st);
+                                                        window, prefix, st);
   return static_cast<int>(e);
 }
 

@@ -13,7 +13,7 @@ import ctypes
 import torch
 
 from .. import _build
-from .ref import flash_attention_gqa, softmax_scale
+from .ref import check_prefix, flash_attention_gqa, softmax_scale
 
 __all__ = ["flash_attention", "D_MAX"]
 
@@ -28,19 +28,21 @@ def _library():
         lib.flash_attention_scratch_bytes.argtypes = [i, i, i, i, i]
         lib.flash_attention_scratch_bytes.restype = ll
         lib.flash_attention_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ll, ll, ll, ll, ll, ll, ll, ll, ll,
-                                               ctypes.c_float, i, ll, i, p]
+                                               ctypes.c_float, i, ll, i, i, p]
         lib.flash_attention_launch.restype = i
     return lib
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
-                    window: int | None = None) -> torch.Tensor:
+                    window: int | None = None, prefix: int = 0) -> torch.Tensor:
     """Attention over contiguous positions from 0 in the model layout: q
     [B, Sq, H, D], k, v [B, Skv, Kh, D] (query head h reads KV head h // (H
     / Kh)), f32 or bf16, each read in place (last axis contiguous) ->
-    contiguous [B, Sq, H, D] in q's dtype."""
+    contiguous [B, Sq, H, D] in q's dtype. A causal row i admits the keys j
+    <= max(i, prefix - 1)."""
+    check_prefix(prefix, window)
     if q.device.type == "cpu":
-        return flash_attention_gqa(q, k, v, causal=causal, window=window)
+        return flash_attention_gqa(q, k, v, causal=causal, window=window, prefix=prefix)
     ts = (q, k, v)
     if any(t.device != q.device for t in ts) or q.device.type != "cuda":
         raise ValueError(f"flash_attention: needs every tensor on one card, got {[str(t.device) for t in ts]}")
@@ -73,7 +75,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
         err = lib.flash_attention_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), scratch.data_ptr(),
                                          b, sq, skv, h, kh, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                          softmax_scale(d), int(causal), -1 if window is None else int(window),
-                                         dtype, stream)
+                                         int(prefix), dtype, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
     flash_attention.launches += 1

@@ -1,8 +1,8 @@
 """Plain PyTorch versions of the flash-attention forward kernel.
 
 Two functions of the same attention (scores ``q . k^T * D^-1/2`` in f32,
-causal ``j <= i`` and sliding-window ``i - j < window`` masks at -1e30,
-softmax, times v):
+causal ``j <= max(i, prefix - 1)`` and sliding-window ``i - j < window``
+masks at -1e30, softmax, times v):
 
   * ``flash_attention_ref``: the oracle, a port of
     ``repro.kernels.flash_attention.ref.flash_attention_ref``. It
@@ -17,7 +17,7 @@ softmax, times v):
     and numerator in f32, p and v rounded to bf16 before their product
     (exact in f32), f32 sums, and ``acc / max(l, 1e-30)``.
     ``flash_attention_gqa`` runs it on the model layout (q [B, Sq, H,
-    D], k, v [B, Skv, Kh, D], positions from 0): what
+    D], k, v [B, Skv, Kh, D], positions from 0, a causal ``prefix``): what
     ``dispatch.flash_attention`` computes for a CPU tensor or
     ``backend="ref"``, so on the CPU the model computes what the JAX model
     computes.
@@ -33,6 +33,13 @@ them; the CPU tests hold them against f64 and the JAX oracle):
   * ``flash_attention_pieces``: ``flash_attention_ref`` on those scores,
     with p and v rounded to bf16 before their product, as the kernel.
 
+The causal ``prefix`` P (0 but for Qwen2-VL's patch prefill): the first P
+positions see one another whole, and every later position sees them, as the
+reference's position mask does (``repro.nn.attention``: key t <= query t)
+on its M-RoPE t ids: 0 for the P patches, i - P + side for text position
+i, side = floor(sqrt(P)) >= 1 (``repro.models.lm._positions``). Zero
+wherever a window is set (no config has both).
+
 Every product here is f32 with TF32 off.
 """
 from __future__ import annotations
@@ -41,7 +48,7 @@ import torch
 
 from ..floatsd_matmul.ref import no_tf32
 
-__all__ = ["NEG_INF", "softmax_scale", "flash_attention_ref", "flash_attention_chunked",
+__all__ = ["NEG_INF", "softmax_scale", "check_prefix", "flash_attention_ref", "flash_attention_chunked",
            "flash_attention_gqa", "split_pieces", "PIECE_PRODUCTS", "piece_scores", "flash_attention_pieces"]
 
 NEG_INF = -1e30
@@ -53,26 +60,34 @@ def softmax_scale(d: int) -> float:
     return float(1.0 / torch.sqrt(torch.tensor(float(d), dtype=torch.float32)))
 
 
-def _mask(qp: torch.Tensor, kp: torch.Tensor, causal: bool, window: int | None) -> torch.Tensor:
+def check_prefix(prefix: int, window: int | None) -> None:
+    """A causal prefix is >= 0, and 0 under a window."""
+    if prefix < 0 or (prefix and window is not None):
+        raise ValueError(f"flash_attention: prefix must be >= 0, and 0 under a window; got prefix {prefix}, "
+                         f"window {window}")
+
+
+def _mask(qp: torch.Tensor, kp: torch.Tensor, causal: bool, window: int | None, prefix: int = 0) -> torch.Tensor:
     """[..., Sq] and [..., Skv] positions -> [..., Sq, Skv] admitted pairs."""
     mask = torch.ones(qp.shape + kp.shape[-1:], dtype=torch.bool, device=qp.device)
     if causal:
-        mask &= kp[..., None, :] <= qp[..., :, None]
+        mask &= kp[..., None, :] <= (torch.clamp(qp, min=prefix - 1) if prefix else qp)[..., :, None]
     if window is not None:
         mask &= qp[..., :, None] - kp[..., None, :] < window
     return mask
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
-                        window: int | None = None) -> torch.Tensor:
+                        window: int | None = None, prefix: int = 0) -> torch.Tensor:
     """q [BH, Sq, D], k, v [BH, Skv, D] -> [BH, Sq, D] in q's dtype."""
+    check_prefix(prefix, window)
     d = q.shape[-1]
     scale = 1.0 / (d ** 0.5)
     qpos = torch.arange(q.shape[1], device=q.device)
     kpos = torch.arange(k.shape[1], device=q.device)
     with no_tf32():
         s = torch.einsum("bqd,bkd->bqk", q.to(torch.float32) * scale, k.to(torch.float32))
-        s = torch.where(_mask(qpos, kpos, causal, window)[None], s, NEG_INF)
+        s = torch.where(_mask(qpos, kpos, causal, window, prefix)[None], s, NEG_INF)
         p = torch.softmax(s, dim=-1)
         return torch.einsum("bqk,bkd->bqd", p, v.to(torch.float32)).to(q.dtype)
 
@@ -92,9 +107,10 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
 
 def flash_attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tensor,
                             k_pos: torch.Tensor, *, causal: bool = True, window: int | None = None,
-                            chunk: int = 1024, kv_chunk: int = 512) -> torch.Tensor:
+                            chunk: int = 1024, kv_chunk: int = 512, prefix: int = 0) -> torch.Tensor:
     """q [B, Sq, Kh, G, D], k, v [B, Skv, Kh, D], q_pos [B, Sq], k_pos
     [B, Skv] -> [B, Sq, Kh, G, D] in q's dtype."""
+    check_prefix(prefix, window)
     b, sq, kh, g, d = q.shape
     skv = k.shape[1]
     scale = softmax_scale(d)
@@ -112,7 +128,7 @@ def flash_attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q
                 kj = k[:, j * kc:(j + 1) * kc].to(torch.float32)
                 vj = v[:, j * kc:(j + 1) * kc]
                 s = torch.einsum("bqkgd,bckd->bkgqc", qf, kj)
-                mask = _mask(qp, k_pos[:, j * kc:(j + 1) * kc], causal, window)  # [B, qc, kc]
+                mask = _mask(qp, k_pos[:, j * kc:(j + 1) * kc], causal, window, prefix)  # [B, qc, kc]
                 s = torch.where(mask[:, None, None], s, NEG_INF)
                 m_new = torch.maximum(m, s.amax(dim=-1))
                 p = torch.exp(s - m_new[..., None])
@@ -126,15 +142,17 @@ def flash_attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q
 
 
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
-                        window: int | None = None, chunk: int = 1024, kv_chunk: int = 512) -> torch.Tensor:
+                        window: int | None = None, chunk: int = 1024, kv_chunk: int = 512,
+                        prefix: int = 0) -> torch.Tensor:
     """The model layout: q [B, Sq, H, D], k, v [B, Skv, Kh, D] (query head
-    h reads KV head h // (H / Kh)), positions from 0 -> [B, Sq, H, D]."""
+    h reads KV head h // (H / Kh)), positions from 0, a causal ``prefix``
+    -> [B, Sq, H, D]."""
     b, sq, h, d = q.shape
     skv, kh = k.shape[1], k.shape[2]
     q_pos = torch.arange(sq, device=q.device).expand(b, sq)
     k_pos = torch.arange(skv, device=q.device).expand(b, skv)
     out = flash_attention_chunked(q.reshape(b, sq, kh, h // kh, d), k, v, q_pos, k_pos, causal=causal,
-                                  window=window, chunk=chunk, kv_chunk=kv_chunk)
+                                  window=window, chunk=chunk, kv_chunk=kv_chunk, prefix=prefix)
     return out.reshape(b, sq, h, d)
 
 

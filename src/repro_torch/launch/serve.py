@@ -7,11 +7,15 @@ codes), and drains a synthetic workload through ``ServeEngine`` (continuous
 batching, chunked prefill, greedy decoding). On the card every weight site,
 the tied head and the cell run the hand-written CUDA kernels. A model-zoo
 arch (``--arch rwkv6_3b``, ``--arch h2o_danube3_4b`` or another dense
-config, ``--arch jamba_v01_52b``, ``dbrx_132b`` or ``kimi_k2_1t_a32b``)
-serves its reduced config, as the reference CLI does: lockstep
+config, ``--arch jamba_v01_52b``, ``dbrx_132b``, ``kimi_k2_1t_a32b`` or
+``qwen2_vl_2b``, text prompts) serves its reduced config, as the reference
+CLI does: lockstep
 one-token steps, each lane once, so ``--requests`` must not exceed
 ``--batch``, and an attention model gets a KV cache of 2048 positions; its
-full width is driven from the API (``chip_smoke.py``).
+full width is driven from the API (``chip_smoke.py``). ``--arch
+whisper_large_v3`` exits 1: the engine feeds no encoder input, so Whisper
+is driven through ``encode``, ``prefill_cross`` and ``decode_step`` (the
+reference CLI fails on it too).
 
 ``--frontend`` serves the LSTM LM through the multi-tenant router: engine
 replicas (``--replicas``) share one FP8 LSTM-state prefix cache
@@ -46,6 +50,7 @@ when a request was rejected because every replica was ejected.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_3b --device cpu --requests 4 --batch 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o_danube3_4b --device cpu --requests 4 --batch 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba_v01_52b --device cpu --requests 2 --batch 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_vl_2b --device cpu --requests 2 --batch 2
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --frontend --replicas 2 --workload zipf-prefix
   PYTHONPATH=src python -m repro_torch.launch.serve --full --frontend --replicas 2 --workload zipf-prefix
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --dense --policy fp32
@@ -204,6 +209,10 @@ def main(argv=None):
             "--frontend serves LSTM-family models (continuous lane re-arming + prefix cache need "
             f"lane-major recurrent state); arch {args.arch!r} is family {cfg.family!r} — use the "
             "plain engine path instead")
+    if cfg.family == "audio":
+        raise SystemExit(
+            f"arch {args.arch!r} is family 'audio': the serving engine feeds no encoder input; drive "
+            "Whisper through its encode, prefill_cross and decode_step (repro_torch.models.Whisper)")
     policy = get_policy(args.policy)
     model = build(cfg)
     rng = np.random.default_rng(args.seed)

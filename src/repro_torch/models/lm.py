@@ -2,17 +2,24 @@
 
 Counterpart of ``repro.models.lm``: ``CausalLM`` for the ``ssm`` family
 (RWKV-6), the ``dense`` family (attention + FFN blocks), the ``moe`` family
-(attention + MoE blocks, after ``first_k_dense`` leading dense layers) and
+(attention + MoE blocks, after ``first_k_dense`` leading dense layers),
 the ``hybrid`` family (Jamba's period of ``attn_every`` sub-layers: Mamba
 mixers with attention at sub-layer attn_every/2 - 1, an MoE MLP on every
-``moe_every``-th): embedding -> leading dense blocks -> stack of periods ->
-final norm -> tied head, with the reference's parameter names
-(``embed/table``, ``head_block{i}/<leaf>``, ``stack/b{i}/<leaf>`` stacked
-over the groups, ``final_norm``), so ``repro_torch.bridge`` carries a JAX
-model or its packed store across unchanged. The ``audio`` and ``vlm``
-families raise until they are ported (``ROADMAP.md`` Queue 1 item 8).
-Inference only (forward, loss, prefill, decode): the zoo's training is not
-ported.
+``moe_every``-th) and the ``vlm`` family (Qwen2-VL's decoder: dense blocks
+under M-RoPE, with ``n_patches`` stub patch embeddings that replace the
+first embeddings through the [d, d] ``patch_proj``): embedding -> leading
+dense blocks -> stack of periods -> final norm -> tied head, with the
+reference's parameter names (``embed/table``, ``head_block{i}/<leaf>``,
+``stack/b{i}/<leaf>`` stacked over the groups, ``final_norm``,
+``patch_proj/w``), so ``repro_torch.bridge`` carries a JAX model or its
+packed store across unchanged. The ``audio`` family is ``Whisper``
+(``models/whisper.py``). Inference only (forward, loss, prefill, decode):
+the zoo's training is not ported.
+
+A vlm prefill with patches attends as the reference does on its M-RoPE t
+ids: the patches see one another whole, text sees every patch and the text
+before it; ``dispatch.flash_attention`` takes that as its causal
+``prefix`` = ``n_patches``.
 """
 from __future__ import annotations
 
@@ -21,12 +28,16 @@ import dataclasses
 import torch
 
 from ..configs.base import ArchConfig
+from ..core import floatsd
 from ..core.policy import Policy
 from ..device import resolve_device
+from ..kernels import dispatch as kd
+from ..kernels.floatsd_matmul.ref import no_tf32
 from ..nn.attention import Attention
 from ..nn.ffn import FFN
 from ..nn.linear import QuantEmbedding
 from ..nn.mamba import Mamba
+from ..nn.module import truncated_normal_init
 from ..nn.moe import MoE
 from ..nn.norms import LayerNorm, RMSNorm
 from ..nn.rwkv import RWKV6ChannelMix, RWKV6TimeMix
@@ -67,7 +78,7 @@ CACHE_DTYPE = torch.bfloat16
 
 
 #: the families ``CausalLM`` builds
-FAMILIES = ("ssm", "dense", "moe", "hybrid")
+FAMILIES = ("ssm", "dense", "moe", "hybrid", "vlm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,14 +87,14 @@ class CausalLM:
 
     def __post_init__(self):
         if self.cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"the port's CausalLM builds the {', '.join(FAMILIES)} families; family "
-                f"{self.cfg.family!r} ({self.cfg.name}) is still to port (ROADMAP.md Queue 1 item 8)")
+            raise ValueError(
+                f"CausalLM builds the {', '.join(FAMILIES)} families, not {self.cfg.family!r} "
+                f"({self.cfg.name}): models.build gives each family its model")
 
     def _attn(self) -> Attention:
         c = self.cfg
         return Attention(c.d_model, c.n_heads, c.kv_heads, head_dim=c.hd, window=c.window, rope=c.rope,
-                         rope_theta=c.rope_theta, qkv_bias=c.qkv_bias)
+                         rope_theta=c.rope_theta, mrope_sections=c.mrope_sections, qkv_bias=c.qkv_bias)
 
     def _ffn(self, hidden: int | None = None) -> FFN:
         c = self.cfg
@@ -96,7 +107,7 @@ class CausalLM:
     def _period(self) -> tuple:
         """The blocks of one stack group, as the reference's ``_period``."""
         c = self.cfg
-        if c.family == "dense":
+        if c.family in ("dense", "vlm"):
             return (Block(c.d_model, attn=self._attn(), ffn_mod=self._ffn(), norm=c.norm),)
         if c.family == "moe":
             return (Block(c.d_model, attn=self._attn(), moe_mod=self._moe(), norm=c.norm),)
@@ -141,35 +152,81 @@ class CausalLM:
         ``each``, where given, takes each of those parts (each of the
         stack's blocks on its own) as soon as it is drawn and returns what
         the tree keeps (``WeightStore.pack_streamed`` packs them), so at
-        most one block is live in f32; it needs a one-group stack."""
+        most one block is live in f32; it needs a one-group stack. A vlm
+        gets its [d, d] ``patch_proj``."""
         keep = each or (lambda tree: tree)
         p = {"embed": keep(self._embed().init(generator)),
              "stack": self._stack().init(generator, each),
              "final_norm": keep(self._final_norm().init(generator))}
         for i, hb in enumerate(self._head_blocks()):
             p[f"head_block{i}"] = keep(hb.init(generator))
+        if self.cfg.n_patches:
+            d = self.cfg.d_model
+            p["patch_proj"] = keep({"w": truncated_normal_init(generator, (d, d), 0.02)})
         return p
 
     def hoist(self, p):
         """A served tree with the small packed leaves of the stack and the
-        leading blocks decoded to f32 once (``nn.transformer.hoist``); the
-        weight sites and the embedding keep their codes. The entry points
-        hoist what they are given, so a tree hoisted once is decoded no
-        more at each call."""
-        return {k: v if k in ("embed", "final_norm") else hoist(v) for k, v in p.items()}
+        leading blocks decoded to f32 once (``nn.transformer.hoist``), and
+        the vlm's ``patch_proj`` too (a dense product outside any kernel,
+        as in the reference); the weight sites and the embedding keep their
+        codes. The entry points hoist what they are given, so a tree
+        hoisted once is decoded no more at each call."""
+        out = {k: v if k in ("embed", "final_norm") else hoist(v) for k, v in p.items()}
+        w = out.get("patch_proj", {}).get("w")
+        if kd.is_packed(w):
+            out["patch_proj"] = {"w": floatsd.decode(w.codes, w.bias)}
+        return out
+
+    def _positions(self, batch_dict, b: int, s: int, device):
+        """(rotary positions, the attention's causal prefix), as the
+        reference's ``_positions``: [B, S] ids 0, 1, ...; under M-RoPE [B,
+        S, 3] (t, h, w) ids, with patches at t = 0 on a side x side grid (side
+        = floor(sqrt(n_patches))) and text from t = h = w = side on; the
+        prefix is the patches, which see one another whole."""
+        base = torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+        if self.cfg.rope != "mrope":
+            return base, 0
+        npat = self.cfg.n_patches if "patch_embeds" in batch_dict else 0
+        side = max(1, int(npat ** 0.5))
+        patch = base < npat
+        text = base - npat + side
+        t = torch.where(patch, 0, text)
+        h = torch.where(patch, (base % max(npat, 1)) // side, text)
+        w = torch.where(patch, base % side, text)
+        return torch.stack([t, h, w], dim=-1), npat
+
+    def _embed_inputs(self, p, batch_dict, policy: Policy) -> torch.Tensor:
+        """The token embeddings, with the first ``n_patches`` replaced by
+        ``patch_embeds`` [B, n_patches, d] @ ``patch_proj/w`` (f32, TF32
+        off) where they are given."""
+        c = self.cfg
+        tokens = batch_dict["tokens"]
+        x = self._embed().apply(p["embed"], tokens, policy)
+        if c.n_patches and "patch_embeds" in batch_dict:
+            pe = batch_dict["patch_embeds"]
+            if pe.shape[1] != c.n_patches or tokens.shape[1] < c.n_patches:
+                raise ValueError(f"{c.name}: {c.n_patches} patch embeddings go first in the sequence; got "
+                                 f"{pe.shape[1]} of them for {tokens.shape[1]} positions")
+            with no_tf32():
+                pe = torch.matmul(pe.to(x.dtype), p["patch_proj"]["w"].to(x.dtype))
+            x = torch.cat([pe, x[:, c.n_patches:]], dim=1)
+        return x
 
     def forward(self, p, batch_dict, policy: Policy):
-        """Full-sequence forward of {"tokens" [B, S]} -> (logits [B, S,
-        vocab padded], aux: the MoE layers' summed load-balancing loss, 0
-        for the families without)."""
+        """Full-sequence forward of {"tokens" [B, S]} (a vlm's optionally
+        with "patch_embeds" [B, n_patches, d]) -> (logits [B, S, vocab
+        padded], aux: the MoE layers' summed load-balancing loss, 0 for the
+        families without)."""
         p = self.hoist(p)
         emb = self._embed()
-        x = emb.apply(p["embed"], batch_dict["tokens"], policy)
+        x = self._embed_inputs(p, batch_dict, policy)
+        pos, prefix = self._positions(batch_dict, *x.shape[:2], x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, hb in enumerate(self._head_blocks()):
-            x, a = hb.apply(p[f"head_block{i}"], x, policy)
+            x, a = hb.apply(p[f"head_block{i}"], x, policy, pos, prefix)
             aux = aux + a
-        x, a = self._stack().apply(p["stack"], x, policy)
+        x, a = self._stack().apply(p["stack"], x, policy, pos, prefix)
         x = self._final_norm().apply(p["final_norm"], x)
         return emb.attend(p["embed"], x, policy), aux + a
 

@@ -122,15 +122,18 @@ class Block:
         return {"norm1": n.init(generator), "mixer": self._mixer_mod().init(generator),
                 "norm2": n.init(generator), "mlp": self._mlp_mod().init(generator)}
 
-    def apply(self, p, x: torch.Tensor, policy: Policy):
+    def apply(self, p, x: torch.Tensor, policy: Policy, positions=None, prefix: int = 0):
         """Full-sequence path (forward / prefill): x [B, S, d] -> (x, the
-        MoE's load-balancing loss, or 0)."""
+        MoE's load-balancing loss, or 0). ``positions`` and the causal
+        ``prefix`` reach attention (``Attention.apply``) only."""
         n = _norm(self.norm, self.dim)
         h = n.apply(p["norm1"], x)
         if self.mixer == "rwkv":
             mix, _ = self.rwkv_mod.apply(p["mixer"], h, policy)
+        elif self.mixer == "attn":
+            mix = self.attn.apply(p["mixer"], h, policy, positions=positions, prefix=prefix)
         else:
-            mix = self._mixer_mod().apply(p["mixer"], h, policy)
+            mix = self.mamba_mod.apply(p["mixer"], h, policy)
         x = x + mix
         h2 = n.apply(p["norm2"], x)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -163,6 +166,7 @@ class Block:
         )
 
     def decode(self, p, x: torch.Tensor, cache, policy: Policy):
+        """One token: x [B, 1, d] -> (x, new cache)."""
         n = _norm(self.norm, self.dim)
         h = n.apply(p["norm1"], x)
         if self.mixer == "rwkv":
@@ -170,7 +174,10 @@ class Block:
             x = x + mix
             y, x_cm = self.cmix_mod.apply(p["mlp"], n.apply(p["norm2"], x), policy, cache.x_cm)
             return x + y, RWKVState(s_new, x_tm, x_cm)
-        mix, cache = self._mixer_mod().decode(p["mixer"], h, cache, policy)
+        if self.mixer == "attn":
+            mix, cache = self.attn.decode(p["mixer"], h, cache, policy)
+        else:
+            mix, cache = self.mamba_mod.decode(p["mixer"], h, cache, policy)
         x = x + mix
         h2 = n.apply(p["norm2"], x)
         y = self.moe_mod.apply(p["mlp"], h2, policy)[0] if self.mlp == "moe" else self.ffn_mod.apply(
@@ -204,13 +211,13 @@ class Stack:
         return {f"b{i}": each(tree_map(lambda t: t.unsqueeze(0), b.init(generator)))
                 for i, b in enumerate(self.blocks)}
 
-    def apply(self, p, x: torch.Tensor, policy: Policy):
+    def apply(self, p, x: torch.Tensor, policy: Policy, positions=None, prefix: int = 0):
         """x [B, S, d] -> (x, the summed load-balancing loss)."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer in range(self.n_groups):
             lp = _layer(p, layer)
             for i, b in enumerate(self.blocks):
-                x, a = b.apply(lp[f"b{i}"], x, policy)
+                x, a = b.apply(lp[f"b{i}"], x, policy, positions, prefix)
                 aux = aux + a
         return x, aux
 

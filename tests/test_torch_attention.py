@@ -1,7 +1,8 @@
 """The port's attention modules and their kernel's plain versions against
 the JAX package, on the CPU: the flash-attention oracle and the model's
-chunked online softmax, RoPE, ``QuantDense``, ``FFN`` and ``Attention``
-(the full-sequence path and the ring-buffer decode).
+chunked online softmax, RoPE and M-RoPE, ``QuantDense``, ``FFN`` and
+``Attention`` (the full-sequence path, cross-attention, no causal mask,
+M-RoPE, and the ring-buffer decode).
 
 Inputs are made with numpy from a seed and handed to both packages.
 Tolerances (measured on the CPU):
@@ -30,6 +31,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse: one intra-op thread)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -72,6 +74,12 @@ def assert_close(got, want, what, tol=TOL):
 
 def _rng(*key):
     return np.random.default_rng(zlib.crc32(repr(key).encode()))
+
+
+def jx(fn, *args):
+    """``fn(*args)`` of the JAX package as one jitted program: its eager form
+    compiles each of its ops anew, seconds a call."""
+    return jax.jit(fn)(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -167,8 +175,13 @@ def test_rope_matches_jax():
     np.testing.assert_allclose(tk.numpy(), np.asarray(jk), rtol=1e-6, atol=1e-4)
     np.testing.assert_allclose(tq[0].numpy(), np.asarray(jq[0]), rtol=1e-6, atol=1e-6)  # positions < 16
     np.testing.assert_allclose(rotary.rope_freqs(120).numpy(), np.asarray(jrotary.rope_freqs(120)), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rotary.apply_mrope(q, k, pos, 120)
+    # M-RoPE (head 120: 60 frequency channels in sections of 20) on (t, h, w)
+    # ids that differ per section
+    pos3 = np.stack([pos, pos // 2, pos % 7], axis=-1)
+    jq, jk = jrotary.apply_mrope(jnp.asarray(q), jnp.asarray(k), jnp.asarray(pos3), 120, (20, 20, 20))
+    tq, tk = rotary.apply_mrope(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(pos3), 120, (20, 20, 20))
+    np.testing.assert_allclose(tq.numpy(), np.asarray(jq), rtol=1e-6, atol=1e-4)
+    np.testing.assert_allclose(tk.numpy(), np.asarray(jk), rtol=1e-6, atol=1e-4)
 
 
 @pytest.mark.parametrize("use_bias", [False, True])
@@ -178,7 +191,8 @@ def test_quant_dense_matches_jax(use_bias):
     if use_bias:
         p["b"] = rng.standard_normal(96).astype(np.float32)
     x = rng.standard_normal((3, 5, 64)).astype(np.float32)
-    want = JQuantDense(64, 96, use_bias=use_bias).apply(jax.tree_util.tree_map(jnp.asarray, p), jnp.asarray(x), JPOL)
+    want = jx(lambda p, x: JQuantDense(64, 96, use_bias=use_bias).apply(p, x, JPOL),
+              jax.tree_util.tree_map(jnp.asarray, p), jnp.asarray(x))
     tp = bridge.from_jax_params(p, "cpu")
     dense = QuantDense(64, 96, use_bias=use_bias)
     assert_close(dense.apply(tp, torch.from_numpy(x), TPOL), want, "QuantDense")
@@ -199,8 +213,8 @@ def test_ffn_matches_jax(kind, quant_silu):
     if kind != "gelu":
         p["wg"] = {"w": (rng.standard_normal((64, 160)) / 8).astype(np.float32)}
     x = (rng.standard_normal((2, 7, 64)) * 2).astype(np.float32)
-    want = JFFN(64, 160, kind=kind, quant_silu=quant_silu).apply(
-        jax.tree_util.tree_map(jnp.asarray, p), jnp.asarray(x), JPOL)
+    want = jx(lambda p, x: JFFN(64, 160, kind=kind, quant_silu=quant_silu).apply(p, x, JPOL),
+              jax.tree_util.tree_map(jnp.asarray, p), jnp.asarray(x))
     tkd.STATS.reset()
     ffn = FFN(64, 160, kind=kind, quant_silu=quant_silu)
     assert_close(ffn.apply(bridge.from_jax_params(p, "cpu"), torch.from_numpy(x), TPOL), want, f"FFN {kind}")
@@ -234,7 +248,8 @@ def test_attention_apply_and_decode_match_jax_past_the_ring_wrap(kh, window, bia
     ja, ta = JAttention(**kw), Attention(**kw)
     jp, tp = jax.tree_util.tree_map(jnp.asarray, p), bridge.from_jax_params(p, "cpu")
     tkd.STATS.reset()
-    assert_close(ta.apply(tp, torch.from_numpy(x), TPOL), ja.apply(jp, jnp.asarray(x), JPOL), "apply")
+    assert_close(ta.apply(tp, torch.from_numpy(x), TPOL), jx(lambda p, x: ja.apply(p, x, JPOL), jp, jnp.asarray(x)),
+                 "apply")
     assert tkd.STATS.count("flash_attention", "ref") == 1
     s_max = min(32, window) if window else 24
     jc = JKVCache.init(2, s_max, kh, d)
@@ -249,7 +264,27 @@ def test_attention_apply_and_decode_match_jax_past_the_ring_wrap(kh, window, bia
             assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
             assert_close(got.float(), np.asarray(want, np.float32), f"cache {name} step {t}")
         assert int(tc.pos) == int(jc.pos) == t + 1
-    with pytest.raises(NotImplementedError, match="cross-attention"):
-        ta.apply(tp, torch.from_numpy(x), TPOL, kv=torch.from_numpy(x))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Attention(dim, h, kh, rope="mrope")
+    if window is not None:
+        return
+    # Whisper's attentions: cross-attention (kv=: K and V of 24 other states
+    # through wk and wv, every key admitted) and the encoder's self-attention
+    # without the causal mask; then Qwen2-VL's M-RoPE on (t, h, w) ids
+    kvx = rng.standard_normal((2, 24, dim)).astype(np.float32)
+    xkw = {**kw, "rope": "none"}
+    tkd.STATS.reset()
+    assert_close(Attention(**xkw, causal=False).apply(tp, torch.from_numpy(x), TPOL, kv=torch.from_numpy(kvx)),
+                 jx(lambda p, x, kv: JAttention(**xkw, causal=False).apply(p, x, JPOL, kv=kv), jp, jnp.asarray(x),
+                    jnp.asarray(kvx)), "cross")
+    assert_close(Attention(**kw, causal=False).apply(tp, torch.from_numpy(x), TPOL),
+                 jx(lambda p, x: JAttention(**kw, causal=False).apply(p, x, JPOL), jp, jnp.asarray(x)),
+                 "no causal mask")
+    assert tkd.STATS.count("flash_attention", "ref") == 2
+    assert tkd.STATS.count("floatsd_matmul") == 0  # dense weights: fake-quant einsums
+    with pytest.raises(ValueError, match="rotary"):
+        ta.apply(tp, torch.from_numpy(x), TPOL, kv=torch.from_numpy(kvx))
+    mkw = {**kw, "rope": "mrope", "mrope_sections": (8, 4, 4)}
+    pos3 = np.broadcast_to(np.stack([np.arange(s), np.arange(s) // 3, np.arange(s) % 5], -1), (2, s, 3))
+    pos3 = np.ascontiguousarray(pos3, dtype=np.int32)
+    assert_close(Attention(**mkw).apply(tp, torch.from_numpy(x), TPOL, positions=torch.from_numpy(pos3)),
+                 jx(lambda p, x, pos: JAttention(**mkw).apply(p, x, JPOL, positions=pos), jp, jnp.asarray(x),
+                    jnp.asarray(pos3)), "mrope")

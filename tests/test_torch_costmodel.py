@@ -38,6 +38,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse: one intra-op thread)
 
 from repro.kernels import dispatch as jkd  # noqa: E402
 from repro.kernels.flash_attention import cost as j_fa  # noqa: E402

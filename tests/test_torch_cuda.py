@@ -775,6 +775,22 @@ FLASH_SHAPES = [
     (1, 1024, 1024, 32, 8, 120, True, 4096, torch.float32),
     # the hybrid's prefill: 32 heads of 128 (the kernel's D_MAX) over 8, no window
     (2, 1024, 1024, 32, 8, 128, True, None, torch.float32),
+    # Whisper: its encoder (no causal mask, S 1500, 20 heads of 64) and its
+    # cross-attention (queries over the 1500 encoder states), and a ragged
+    # cross shape in bf16
+    (1, 1500, 1500, 20, 20, 64, False, None, torch.float32),
+    (2, 64, 1500, 20, 20, 64, False, None, torch.float32),
+    (1, 7, 301, 4, 4, 64, False, None, torch.bfloat16),
+]
+# Qwen2-VL's prefill over its patches: causal with a prefix that sees itself
+# whole (key j <= max(i, prefix - 1)): prefixes inside the first query
+# block, across blocks and tiles, a bf16 one, and one past the sequence (no
+# mask at all)
+FLASH_PREFIX_SHAPES = [
+    (2, 200, 6, 1, 128, 40, torch.float32),
+    (2, 1024, 12, 2, 128, 256, torch.float32),
+    (1, 300, 12, 2, 128, 130, torch.bfloat16),
+    (1, 90, 4, 2, 64, 500, torch.float32),
 ]
 
 
@@ -785,12 +801,12 @@ def _flash_inputs(dev, b, sq, skv, h, kh, d, dtype, seed=0):
     return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
-def _flash_oracle(q, k, v, causal, window):
+def _flash_oracle(q, k, v, causal, window, prefix=0):
     """The [BH, S, D] oracle on the model layout, K and V expanded."""
     b, sq, h, d = q.shape
     skv, g = k.shape[1], h // k.shape[2]
     ex = lambda t: t.repeat_interleave(g, dim=2).permute(0, 2, 1, 3).reshape(b * h, skv, d)  # noqa: E731
-    o = flash_attention_ref(q.permute(0, 2, 1, 3).reshape(b * h, sq, d), ex(k), ex(v), causal, window)
+    o = flash_attention_ref(q.permute(0, 2, 1, 3).reshape(b * h, sq, d), ex(k), ex(v), causal, window, prefix)
     return o.reshape(b, h, sq, d).permute(0, 2, 1, 3)
 
 
@@ -812,6 +828,27 @@ def test_flash_attention_kernel_matches_both_plain_versions(dev, b, sq, skv, h, 
     o2 = flash_attention(q, k, v, causal=causal, window=window)  # a second launch: the same bits
     torch.cuda.synchronize()
     assert torch.equal(o, o2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,kh,d,prefix,dtype", FLASH_PREFIX_SHAPES)
+def test_flash_attention_prefix_kernel_matches_both_plain_versions(dev, b, s, h, kh, d, prefix, dtype):
+    q, k, v = _flash_inputs(dev, b, s, s, h, kh, d, dtype, seed=prefix)
+    n0 = flash_attention.launches
+    o = flash_attention(q, k, v, prefix=prefix)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    _assert_flash_close(o, _flash_oracle(q, k, v, True, None, prefix))
+    _assert_flash_close(o, flash_attention_gqa(q, k, v, prefix=prefix))
+    assert torch.equal(o, flash_attention(q, k, v, prefix=prefix))
+    # the prefix changes the result of the rows before it, and prefix 0 and 1
+    # are the causal mask, bit for bit
+    causal = flash_attention(q, k, v)
+    assert torch.equal(flash_attention(q, k, v, prefix=0), causal)
+    assert torch.equal(flash_attention(q, k, v, prefix=1), causal)
+    assert not torch.equal(o[:, :min(prefix, s) - 1], causal[:, :min(prefix, s) - 1])
+    with pytest.raises(ValueError, match="prefix"):
+        flash_attention(q, k, v, window=16, prefix=prefix)
 
 
 @pytest.mark.cuda
@@ -895,6 +932,44 @@ def test_reduced_dense_on_the_kernels_matches_its_plain_versions(dev):
         for t in range(70):
             lg, cache = model.decode_step(tree, toks[:, t:t + 1], cache, pol)
             torch.testing.assert_close(lg[:, 0], got[:, t], rtol=0, atol=1e-2 * scale)
+
+
+@pytest.mark.cuda
+def test_reduced_whisper_and_vlm_on_the_kernels_match_their_plain_versions(dev):
+    """The reduced whisper_large_v3 (encode, decode_seq, prefill_cross and
+    decode steps) and qwen2_vl_2b (a prefill over its 16 patches: the
+    causal prefix on the kernel) served on the card against backend="ref",
+    with no activation quantizer."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.serving import WeightStore
+
+    pol = get_policy("fp32")
+    for arch in ("whisper_large_v3", "qwen2_vl_2b"):
+        cfg = get_config(arch).reduced()
+        model = build(cfg)
+        tree = model.hoist(WeightStore.pack(model.init(_gen(dev, 5))).tree)
+        toks = torch.randint(0, cfg.vocab, (2, 48), device=dev, generator=_gen(dev, 6))
+        with torch.no_grad():
+            if arch.startswith("whisper"):
+                frames = torch.randn((2, cfg.enc_seq, cfg.d_model), device=dev, generator=_gen(dev, 7))
+                run = lambda: model.decode_seq(tree, toks, model.encode(tree, frames, pol), pol)  # noqa: E731
+            else:
+                patches = torch.randn((2, cfg.n_patches, cfg.d_model), device=dev, generator=_gen(dev, 7))
+                run = lambda: model.prefill(tree, {"tokens": toks, "patch_embeds": patches}, pol)  # noqa: E731
+            kd.STATS.reset()
+            got = run()
+            counts = kd.STATS.snapshot()
+            with kd.use_backend("ref"):
+                want = run()
+            assert set(counts) == {("flash_attention", "cuda"), ("floatsd_matmul", "cuda")}, counts
+            scale = max(1.0, float(want.abs().max()))
+            torch.testing.assert_close(got, want, rtol=0, atol=2.0 ** -8 * scale)
+            if arch.startswith("whisper"):
+                cache = model.prefill_cross(tree, frames, model.init_cache(2, pol, dev, cache_len=64), pol)
+                for t in range(8):
+                    lg, cache = model.decode_step(tree, toks[:, t:t + 1], cache, pol)
+                    torch.testing.assert_close(lg[:, 0], got[:, t], rtol=0, atol=5e-3 * scale)
 
 
 # The redesigned element-wise kernels: the gate function's O(1) LUT index at

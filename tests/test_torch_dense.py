@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse: one intra-op thread)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -46,7 +47,8 @@ from repro.models.lm import CausalLM as JLM  # noqa: E402
 from repro.models.lm import cross_entropy as jcross_entropy  # noqa: E402
 from repro.models.lm import mask_padded_vocab as jmask  # noqa: E402
 from repro.serving import ServeEngine as JEngine  # noqa: E402
-from repro.serving import pack_tree as jpack_tree  # noqa: E402
+from repro.core import floatsd as jfloatsd  # noqa: E402
+from repro.kernels.dispatch import PackedTensor as JPackedTensor  # noqa: E402
 from repro.serving.weight_store import tree_nbytes as jtree_nbytes  # noqa: E402
 from repro.serving.weight_store import unpack_tree as junpack_tree  # noqa: E402
 from repro_torch import bridge  # noqa: E402
@@ -75,6 +77,15 @@ MARGIN_FLOOR = 1e-4
 JPOL = jget_policy("floatsd8_table6")
 TPOL = get_policy("floatsd8_table6")
 JSERVE, TSERVE = JPOL.replace(weight_quant="none"), TPOL.replace(weight_quant="none")
+
+
+#: the reference's ``pack_tree``, its ``floatsd.encode`` at every leaf of two
+#: or more axes, in one jitted program compiled once for the module: the same
+#: codes and biases as its eager form, which compiles each leaf's ops anew
+#: (12 s for the reduced RWKV-6 tree); the reference's engine, handed the
+#: packed tree, packs it no more (tests/test_torch_hybrid.py packs so too)
+jpack_tree = jax.jit(lambda p: jax.tree_util.tree_map(
+    lambda w: JPackedTensor(*jfloatsd.encode(w)) if w.ndim >= 2 else w, p))
 
 
 def np_params(jcfg=JCFG, seed=0):
@@ -141,7 +152,7 @@ def jax_side():
     for t in range(DECODE):
         lg, cache = step(packed, toks[:, t:t + 1], cache)
         steps.append((np.asarray(lg), jax.tree_util.tree_map(np.asarray, cache)))
-    eng = JEngine(jm, params, JPOL, lanes=LANES, chunk=4, cache_len=CACHE_LEN)
+    eng = JEngine(jm, packed, JPOL, lanes=LANES, chunk=4, cache_len=CACHE_LEN)
     reqs = eng.submit_all([p.copy() for p in prompts()], max_new=MAX_NEW)
     eng.run()
     return dict(params=params, packed=packed, dense_logits=np.asarray(dense_logits),

@@ -46,6 +46,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse: one intra-op thread)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -321,7 +322,17 @@ def test_cli_serves_the_reduced_model_on_cpu(capsys, arch, n_packed):
 
 
 def test_audio_and_vision_families_still_raise():
-    for arch in ("whisper_large_v3", "qwen2_vl_2b"):
-        cfg = dataclasses.replace(get_config("dbrx_132b"), name=arch, family=jget_config(arch).family)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build(cfg)
+    """Once a refusal, now the two families' builds: ``build`` gives
+    Whisper for ``audio`` and CausalLM for ``vlm``, with the JAX package's
+    parameter shapes; CausalLM still refuses ``audio``."""
+    from repro.models.whisper import Whisper as JWhisper
+    from repro_torch.models import Whisper
+
+    for arch, tcls, jcls in (("whisper_large_v3", Whisper, JWhisper), ("qwen2_vl_2b", CausalLM, JLM)):
+        tm = build(get_config(arch).reduced())
+        assert type(tm) is tcls
+        jp = jax.eval_shape(jcls(jget_config(arch).reduced()).init, jax.random.PRNGKey(0))
+        tp = tm.init(torch.Generator().manual_seed(0))
+        assert {k: tuple(v.shape) for k, v in _flat(tp).items()} == {k: tuple(v.shape) for k, v in _flat(jp).items()}
+    with pytest.raises(ValueError, match="CausalLM builds"):
+        CausalLM(get_config("whisper_large_v3"))

@@ -11,6 +11,7 @@ from pathlib import Path
 import pytest
 
 pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse: one intra-op thread)
 
 ROOT = Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "jaxlib", "repro")

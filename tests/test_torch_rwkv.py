@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse: one intra-op thread)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -50,7 +51,8 @@ from repro.nn.rwkv import RWKV6ChannelMix as JCMix  # noqa: E402
 from repro.nn.rwkv import RWKV6TimeMix as JTMix  # noqa: E402
 from repro.nn.rwkv import RWKVState as JState  # noqa: E402
 from repro.serving import ServeEngine as JEngine  # noqa: E402
-from repro.serving import pack_tree as jpack_tree  # noqa: E402
+from repro.core import floatsd as jfloatsd  # noqa: E402
+from repro.kernels.dispatch import PackedTensor as JPackedTensor  # noqa: E402
 from repro.serving.weight_store import tree_nbytes as jtree_nbytes  # noqa: E402
 from repro.serving.weight_store import unpack_tree as junpack_tree  # noqa: E402
 from repro_torch import bridge  # noqa: E402
@@ -60,7 +62,7 @@ from repro_torch.core.policy import get_policy  # noqa: E402
 from repro_torch.kernels import dispatch as tkd  # noqa: E402
 from repro_torch.kernels.rwkv_wkv.ops import rwkv_wkv  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
-from repro_torch.models import CausalLM, build  # noqa: E402
+from repro_torch.models import CausalLM, Whisper, build  # noqa: E402
 from repro_torch.nn.rwkv import RWKV6ChannelMix, RWKV6TimeMix, RWKVState  # noqa: E402
 from repro_torch.serving import ServeEngine, WeightStore, synthetic_prompts, tree_nbytes  # noqa: E402
 
@@ -75,6 +77,15 @@ MARGIN_FLOOR = 1e-4
 JPOL = jget_policy("floatsd8_table6")
 TPOL = get_policy("floatsd8_table6")
 JSERVE, TSERVE = JPOL.replace(weight_quant="none"), TPOL.replace(weight_quant="none")
+
+
+#: the reference's ``pack_tree``, its ``floatsd.encode`` at every leaf of two
+#: or more axes, in one jitted program compiled once for the module: the same
+#: codes and biases as its eager form, which compiles each leaf's ops anew
+#: (12 s for the reduced RWKV-6 tree); the reference's engine, handed the
+#: packed tree, packs it no more (tests/test_torch_hybrid.py packs so too)
+jpack_tree = jax.jit(lambda p: jax.tree_util.tree_map(
+    lambda w: JPackedTensor(*jfloatsd.encode(w)) if w.ndim >= 2 else w, p))
 
 
 def np_params(seed=0):
@@ -289,7 +300,7 @@ def jax_side():
     for t in range(10):
         lg, cache = step(packed, toks[:, t:t + 1], cache)
         steps.append((np.asarray(lg), jax.tree_util.tree_map(np.asarray, cache)))
-    eng = JEngine(jm, params, JPOL, lanes=LANES, chunk=4, cache_len=64)
+    eng = JEngine(jm, packed, JPOL, lanes=LANES, chunk=4, cache_len=64)
     reqs = eng.submit_all([p.copy() for p in prompts()], max_new=MAX_NEW)
     eng.run()
     return dict(params=params, packed=packed, dense_logits=np.asarray(dense_logits),
@@ -448,7 +459,7 @@ def test_engine_tokens_match_jax_and_lockstep_guards(jax_side, port_params):
         with pytest.raises(RuntimeError, match="cannot re-arm a used lane"):
             e.step_once()
     for e in (ServeEngine(CausalLM(TCFG), port_params, TPOL, lanes=LANES),
-              JEngine(JLM(JCFG), jax_side["params"], JPOL, lanes=LANES, cache_len=64)):
+              JEngine(JLM(JCFG), jax_side["packed"], JPOL, lanes=LANES, cache_len=64)):
         e.submit_all([p.copy() for p in prompts(LANES + 1)], max_new=2)
         with pytest.raises(ValueError, match="cannot be reset per.lane"):
             e.run()
@@ -512,8 +523,10 @@ def test_hoist_decodes_small_leaves_once_and_keeps_weight_sites_packed(port_para
 
 def test_build_and_cache_contract():
     assert isinstance(build(TCFG), CausalLM)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(ArchConfig(name="audio_x", family="audio", n_layers=2, d_model=64, vocab=128))
+    audio = ArchConfig(name="audio_x", family="audio", n_layers=2, d_model=64, vocab=128)
+    assert isinstance(build(audio), Whisper)  # the audio family is Whisper's, not CausalLM's
+    with pytest.raises(ValueError, match="CausalLM builds"):
+        CausalLM(audio)
     cache = CausalLM(TCFG).init_cache(5, TPOL, "cpu")
     s = cache["stack"]["b0"]
     assert s.s.shape == (L, 5, H, HD, HD) and s.s.dtype == torch.float32

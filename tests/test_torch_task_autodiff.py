@@ -8,6 +8,7 @@ leaf within 1e-3 of JAX's change to it)."""
 import pytest
 
 pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse: one intra-op thread)
 
 from test_torch_task_train import _held_to_jax  # noqa: E402
 

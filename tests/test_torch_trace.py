@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse: one intra-op thread)
 
 from repro_torch.core.policy import get_policy  # noqa: E402
 from repro_torch.faults import FAULTS  # noqa: E402
