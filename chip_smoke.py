@@ -229,6 +229,38 @@ Phases, in order; the first failure exits non-zero:
                 Printed: generated tok/s, TTFT p50/p95 per tenant and the
                 median decode pump beside the frontend phase's, and one
                 emit_counters call against the pump.
+ 18-24.         the zoo's hybrid, moe, audio and vlm families (hybrid,
+                hybrid-x, moe, audio, audio-x, vlm, vlm-x).
+ 25. zoo-train-x  every zoo family's reduced config (h2o_danube3_4b,
+                rwkv6_3b, dbrx_132b, jamba_v01_52b, qwen2_vl_2b with its
+                16 stub patches, whisper_large_v3 with its frames; B 2 x S
+                32) on the kernels against backend="ref" from the same
+                params and batch: under fp32 the loss (1e-4 relative) and
+                every leaf's loss-scaled gradient (2e-2 of its scale),
+                under floatsd8_table6 one train step each whose
+                grads_finite agree (the loss and masters reported); every
+                flash, wkv and qsigmoid forward on its kernel (the remat's
+                recompute included), none on the plain path; then the
+                training CLI's --arch h2o_danube3_4b --steps 5 on the
+                card, its dispatch line all flash_attention/cuda.
+ 26. zoo-train  h2o_danube3_4b at its published width, cut to 11 of 24
+                layers (the most whose step peaks under about 70 GB), B 1
+                x S 8192 (the 4096 window bites), floatsd8_table6, Adam,
+                static scale 1024, telemetry on, 4 steps from seed 0:
+                every flash forward on the kernel (2 a layer a step: the
+                forward and the remat's recompute), every loss finite, the
+                peak max_memory_allocated, the median step and tok/s, one
+                step profiled (device busy share, the GEMMs', the top
+                device operations); then 2 layers of the same width under
+                fp32 on the kernels against backend="ref" (phase 25's
+                bounds).
+
+The kernel phase's flash_attention training rows (the dense prefill's
+shape and [1,8192,32,120] under the window): the kernel's log-sum-exp
+output against the plain version's (1e-4 + 1e-5 |lse|), o bit-identical
+with and without it, the kernel's time with and without it, and the plain
+backward flash_bwd's time beside scaled_dot_product_attention's forward +
+backward.
 
 Phase 3 ends with the cost ledger: every timed kernel row's launch cost
 model recorded with its measured time (STATS.add_time), LEDGER.table()
@@ -4075,6 +4107,416 @@ def audio_x_phase(torch, dev, smi):
     return gaps
 
 
+# ---------------------------------------------------------------------------
+# the zoo's training on the card (phases 25-26, and the kernel phase's
+# training rows of flash_attention)
+# ---------------------------------------------------------------------------
+
+# the flash kernel's lse against the chunked plain version's: the kernel's
+# scores carry f32 accuracy up to their sum order, so its log-sum-exp stays
+# within 1e-4 + 1e-5 |lse| (tests/test_torch_cuda.py's bound)
+LSE_ATOL, LSE_RTOL = 1e-4, 1e-5
+# (name, B, S, H, Kh, D, window): the dense prefill's shape (the window
+# inactive) and the full-width training shape, where the window bites
+FLASH_TRAIN_CASES = [("train-prefill", ZOO_B, ZOO_S, 32, 8, 120, 4096), ("train-window", 1, 8192, 32, 8, 120, 4096)]
+ZOO_TRAIN_ARCHS = ("h2o_danube3_4b", "rwkv6_3b", "dbrx_132b", "jamba_v01_52b", "qwen2_vl_2b", "whisper_large_v3")
+ZOO_TRAIN_X_B, ZOO_TRAIN_X_S = 2, 32  # S a multiple of 16: the RWKV prefill runs the wkv kernel
+# kernels against backend="ref" under fp32, the same params and batch: the
+# loss within 1e-4 relative; each leaf's loss-scaled gradient within
+# ZOO_GRAD_TOL of its scale max(max |want|, 1e-2 G), G the largest |want| of
+# any leaf (a key bias's exact gradient is 0: noise on both paths). The
+# attention's forward rounds p to bf16 from scores that differ in their last
+# bits between the kernel and the plain version (their outputs agree within
+# FLASH_TOL), and the backward reads o and lse; the bound is FLASH_TOL's rtol
+ZOO_LOSS_RTOL = 1e-4
+ZOO_GRAD_TOL = 2e-2
+ZOO_CLI_STEPS = 5
+TRAIN_ARCH = "h2o_danube3_4b"
+# full-width h2o_danube3_4b trained at B 1 x S 8192: the depth whose
+# measured peak (max_memory_allocated) stays under about 70 GB (PERF.md: ~40
+# B a parameter, the fp16 master, Adam's f32 moments, the gradient trees
+# and the skip-select copies)
+TRAIN_LAYERS = 11
+TRAIN_B, TRAIN_S, TRAIN_STEPS_FULL = 1, 8192, 4
+TRAIN_X_LAYERS = 2
+TRAIN_PEAK_MAX = 72e9  # bytes: the depth's reason; a larger peak fails the phase
+
+
+def flash_train_phase(torch, dev, flush):
+    """Phase 3, continued: the flash kernel's training forward (o with each
+    row's log-sum-exp) against the plain version's at the dense prefill's
+    shape and the full-width training shape (the window biting): lse
+    within its bound, o bit-identical with and without the lse, the
+    kernel's time with and without it; the plain backward ``flash_bwd``
+    timed beside scaled_dot_product_attention's forward + backward (the
+    library call for the same gradient, for information)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import _mask, flash_attention_gqa, flash_bwd
+    from repro_torch.kernels.floatsd_matmul.ref import no_tf32
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    rows = {}
+    for name, b, s, h, kh, d, window in FLASH_TRAIN_CASES:
+        q = torch.randn((b, s, h, d), device=dev, generator=g) * FLASH_Q_SCALE
+        k, v = (torch.randn((b, s, kh, d), device=dev, generator=g) for _ in range(2))
+        do = torch.randn((b, s, h, d), device=dev, generator=g)
+        kw = dict(causal=True, window=window)
+        o = flash_attention(q, k, v, **kw)
+        o2, lse = flash_attention(q, k, v, **kw, return_lse=True)
+        plain_o, plain_lse = flash_attention_gqa(q, k, v, **kw, return_lse=True)
+        torch.cuda.synchronize()
+        check(torch.equal(o, o2), f"flash_attention {name}: o differs with the lse")
+        lse_err = (lse - plain_lse).abs()
+        check(bool((lse_err <= LSE_ATOL + LSE_RTOL * plain_lse.abs()).all()),
+              f"flash_attention {name}: lse beyond its bound (max err {float(lse_err.max()):.3e})")
+        atol, rtol = FLASH_TOL["float32"]
+        o_err = (o - plain_o).abs()
+        check(bool((o_err <= atol + rtol * plain_o.abs()).all()), f"flash_attention {name}: o beyond the bound")
+        t_no = timed_ms(torch, lambda: flash_attention(q, k, v, **kw), 10, flush)
+        t_lse = timed_ms(torch, lambda: flash_attention(q, k, v, **kw, return_lse=True), 10, flush)
+        with no_tf32():
+            t_plain = timed_ms(torch, lambda: flash_attention_gqa(q, k, v, **kw, return_lse=True), 3, flush)
+            t_bwd = timed_ms(torch, lambda: flash_bwd(q, k, v, o, lse, do, **kw, chunk=min(1024, s)), 3, flush)
+            qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+            dot = do.transpose(1, 2).contiguous()
+            lib_kw = (dict(is_causal=True) if window >= s else
+                      dict(attn_mask=_mask(torch.arange(s, device=dev), torch.arange(s, device=dev), True, window)))
+
+            def lib_fwd_bwd():
+                out = sdpa(qt, kt, vt, enable_gqa=True, **lib_kw)
+                torch.autograd.grad(out, (qt, kt, vt), dot)
+
+            t_lib = timed_ms(torch, lambda: sdpa(qt, kt, vt, enable_gqa=True, **lib_kw), 10, flush)
+            t_lib_bwd = timed_ms(torch, lib_fwd_bwd, 5, flush)
+        pairs = b * h * attend_pairs(s, s, True, window)
+        # the training forward moves q, k, v and o once and writes 4 B of lse a (batch, head, row)
+        bd = bound(q.element_size() * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel(),
+                   flash_ops(pairs * d, q, k))
+        rows[name] = dict(ms=t_lse, ms_no_lse=t_no, plain_ms=t_plain, library_ms=t_lib, bwd_plain_ms=t_bwd,
+                          library_fwd_bwd_ms=t_lib_bwd, err=max(float(o_err.max()), float(lse_err.max())), **bd)
+        print(f"  {name} q [{b},{s},{h},{d}], k, v [{b},{s},{kh},{d}] f32, causal, window {window}: lse vs the plain "
+              f"version max_abs_err {float(lse_err.max()):.3e} (bound {LSE_ATOL} + {LSE_RTOL} |lse|), o bit-identical "
+              f"with and without the lse | kernel {t_lse:.4f} ms with the lse, {t_no:.4f} ms without; plain forward "
+              f"{t_plain:.3f} ms; plain backward flash_bwd {t_bwd:.3f} ms; SDPA forward {t_lib:.4f} ms, forward + "
+              f"backward {t_lib_bwd:.4f} ms ({'is_causal' if window >= s else 'attn_mask=band'}, enable_gqa); "
+              f"{fmt_bound(bd)}", flush=True)
+        del q, k, v, do, o, o2, lse, plain_o, plain_lse, qt, kt, vt, dot
+    torch.cuda.empty_cache()
+    return rows
+
+
+def wkv_train_phase(torch, dev, flush) -> dict:
+    """Phase 3, continued: the wkv's training backward at the full-width
+    prefill shape ([2,1024,40,64], w0 = -2): the gradient through
+    dispatch.rwkv_wkv with the kernel's forward equal bit for bit to the
+    same with the plain forward (the backward reads only the inputs), and
+    the backward's time (the reference model's chunked scan recomputed
+    under autograd, wkv_chunked_scan) beside the kernel's forward."""
+    from repro_torch.kernels import dispatch as kd
+    from repro_torch.kernels.rwkv_wkv.ops import rwkv_wkv
+    from repro_torch.kernels.rwkv_wkv.ref import wkv_chunked_scan
+    from repro_torch.kernels.floatsd_matmul.ref import no_tf32
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
+    b, s, h, k = ZOO_B, ZOO_S, 40, 64
+    r, kk, vv = (torch.randn((b, s, h, k), device=dev, generator=g) for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn((b, s, h, k), device=dev, generator=g) * 0.3 - 2.0))
+    u = torch.randn((h, k), device=dev, generator=g) * 0.1
+    cy, cs = torch.randn((b, s, h, k), device=dev, generator=g), torch.randn((b, h, k, k), device=dev, generator=g)
+
+    def grads(backend=None):
+        xs = [t.detach().requires_grad_() for t in (r, kk, vv, w, u)]
+        with kd.use_backend(backend):
+            y, st = kd.rwkv_wkv(*xs)
+            return torch.autograd.grad((y, st), xs, (cy, cs))
+
+    n0 = rwkv_wkv.launches
+    got = grads()
+    check(rwkv_wkv.launches == n0 + 1, "rwkv_wkv: the trained forward did not launch the kernel")
+    check(all(torch.equal(a, e) for a, e in zip(got, grads("ref"))),
+          "rwkv_wkv: the gradient differs between the kernel's forward and the plain one")
+
+    def backward():
+        xs = [t.detach().requires_grad_() for t in (r, kk, vv, w, u)]
+        with no_tf32():
+            y, st = wkv_chunked_scan(*xs)
+            torch.autograd.grad((y, st), xs, (cy, cs))
+
+    t_fwd = timed_ms(torch, lambda: rwkv_wkv(r, kk, vv, w, u), 10, flush)
+    t_bwd = timed_ms(torch, backward, 3, flush)
+    print(f"  rwkv_wkv training backward r, k, w, v [{b},{s},{h},{k}]: the gradient with the kernel's forward equal "
+          f"bit for bit to the plain forward's | kernel forward {t_fwd:.4f} ms; plain backward (the chunked scan "
+          f"recomputed under autograd) {t_bwd:.3f} ms", flush=True)
+    return dict(ms=t_fwd, bwd_plain_ms=t_bwd)
+
+
+def zoo_train_counters(reset: bool = False) -> dict:
+    """Launch counts of the zoo training path's kernels (zeroed when ``reset``)."""
+    from repro_torch.kernels.floatsd_quantize.ops import floatsd_quantize
+
+    counts = zoo_counters(reset)
+    if reset:
+        floatsd_quantize.launches = 0
+    return {**counts, "floatsd_quantize": floatsd_quantize.launches}
+
+
+def _train_batch(torch, dev, cfg, b: int, s: int, seed: int) -> dict:
+    g = torch.Generator(device=dev).manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), device=dev, generator=g),
+             "labels": torch.randint(0, cfg.vocab, (b, s), device=dev, generator=g)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((b, cfg.enc_seq, cfg.d_model), device=dev, generator=g)
+    if cfg.n_patches:
+        batch["patch_embeds"] = torch.randn((b, cfg.n_patches, cfg.d_model), device=dev, generator=g)
+    return batch
+
+
+def loss_and_grads(torch, model, params, batch, policy, backend=None):
+    """The loss-scaled loss and every leaf's loss-scaled gradient (the train
+    step's run policy), on the kernels or, with backend="ref", the plain
+    versions: (loss, {leaf: gradient})."""
+    from repro_torch._tree import tree_map
+    from repro_torch.core import loss_scaling as ls
+    from repro_torch.kernels import dispatch as kd
+
+    run = policy.replace(grad_quant="fp8_kernel") if policy.grad_quant == "fp8" else policy
+    tree = tree_map(lambda t: t.detach().requires_grad_(), params)
+    leaves = flat_leaves(tree)
+    scale = ls.static_init(policy.loss_scale, device=batch["tokens"].device)
+    with kd.use_backend(backend):  # the backward's remat recomputes the forward: inside the block too
+        loss = ls.scale_loss(model.loss(tree, batch, run).to(torch.float32), scale)
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    return float(loss), {k: (torch.zeros_like(v) if gr is None else gr) for (k, v), gr in zip(leaves.items(), grads)}
+
+
+def grad_gaps(torch, got: dict, want: dict) -> dict:
+    """Per leaf: the largest |got - want| over max(max |want|, 1e-2 G), G the
+    largest |want| of any leaf; nonfinite elements must sit in the same
+    places."""
+    g = max(float(w[torch.isfinite(w)].abs().max()) if bool(torch.isfinite(w).any()) else 0.0 for w in want.values())
+    out = {}
+    for k, w in want.items():
+        a = got[k]
+        fin_w, fin_a = torch.isfinite(w), torch.isfinite(a)
+        scale = max(float(w[fin_w].abs().max()) if bool(fin_w.any()) else 0.0, 1e-2 * g, 1e-30)
+        err = torch.where(fin_w & fin_a, (a.float() - w.float()).abs(), 0.0)
+        out[k] = (float(err.max()) / scale, bool(torch.equal(fin_w, fin_a)))
+    return out
+
+
+def zoo_train_x_phase(torch, dev, smi):
+    """Phase 25: every zoo family's reduced config trained on the card, on
+    the kernels against backend="ref" from the same params and batch (B 2 x
+    S 32; Qwen2-VL with its 16 stub patches, Whisper with its frames):
+    under fp32 the loss and every leaf's loss-scaled gradient within the
+    stated bounds, under floatsd8_table6 one make_train_step step each
+    whose grads_finite agree (the differences reported); every flash,
+    wkv and qsigmoid forward on its kernel on the first path, none on the
+    second; then the training CLI's --arch on the card."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import dispatch as kd
+    from repro_torch.launch import train as tl
+    from repro_torch.models import build
+    from repro_torch.optim import adam
+    from repro_torch.optim.train_state import init_state, make_train_step
+
+    launches, rows = {}, {}
+    fp32, pol, opt = get_policy("fp32"), get_policy("floatsd8_table6"), adam()
+    for arch in ZOO_TRAIN_ARCHS:
+        cfg = get_config(arch).reduced()
+        model = build(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+        batch = _train_batch(torch, dev, cfg, ZOO_TRAIN_X_B, ZOO_TRAIN_X_S, SEED + 31)
+        # fp32: the loss and every leaf's gradient; floatsd8_table6: one train
+        # step from the same init; on the kernels, then on the plain path
+        res = {}
+        zoo_train_counters(reset=True)
+        kd.STATS.reset()
+        for backend in (None, "ref"):
+            loss, grads = loss_and_grads(torch, model, params, batch, fp32, backend)
+            with kd.use_backend(backend):
+                new, m = make_train_step(model.loss, opt, pol, lr=1e-3)(init_state(params, opt, pol), batch)
+            res[backend] = (loss, grads, bool(m["grads_finite"]), float(m["loss"]), flat_leaves(new.params))
+            if backend is None:
+                n_kernel, stats = zoo_train_counters(), kd.STATS.snapshot()
+        check(zoo_train_counters() == n_kernel, f"{arch}: a kernel launched on backend='ref'")
+        want_ops = {"flash_attention"} if cfg.family != "ssm" else {"rwkv_wkv", "qsigmoid"}
+        check(all(n_kernel[op] > 0 for op in want_ops)
+              and all(stats.get((op, "ref"), 0) == 0 for op in ("flash_attention", "rwkv_wkv", "qsigmoid")),
+              f"{arch}: the forwards did not all run on the kernels: launches {n_kernel}, dispatch {stats}")
+        (loss, grads, finite, step_loss, masters), (loss_ref, grads_ref, finite_ref, step_loss_ref, masters_ref) = (
+            res[None], res["ref"])
+        check(abs(loss - loss_ref) <= ZOO_LOSS_RTOL * abs(loss_ref), f"{arch}: loss {loss} vs plain {loss_ref}")
+        gaps = grad_gaps(torch, grads, grads_ref)
+        worst = max((v[0], k) for k, v in gaps.items() if not k.endswith("wk/b"))  # a key bias's exact gradient is 0
+        check(all(v[1] for v in gaps.values()) and worst[0] <= ZOO_GRAD_TOL,
+              f"{arch}: gradient {worst[1]} {worst[0]:.3e} of its scale (bound {ZOO_GRAD_TOL})")
+        check(finite == finite_ref, f"{arch}: grads_finite {finite} on the kernels, {finite_ref} on the plain path")
+        moved = max(float((masters[k].float() - masters_ref[k].float()).abs().max()) for k in masters)
+        launches[arch] = n_kernel
+        rows[arch] = dict(loss=loss, loss_ref=loss_ref, grad_gap=worst, finite=finite)
+        print(f"zoo-train-x {arch} ({cfg.family}, reduced, B {ZOO_TRAIN_X_B} x S {ZOO_TRAIN_X_S}): fp32 loss-scaled "
+              f"loss {loss:.6f} vs plain {loss_ref:.6f}; largest leaf gradient gap {worst[0]:.3e} of its scale "
+              f"({worst[1]}; bound {ZOO_GRAD_TOL}; key biases, whose exact gradient is 0, not held); "
+              f"floatsd8_table6 step: grads_finite {finite} on both paths, loss {step_loss:.6f} vs "
+              f"{step_loss_ref:.6f}, masters at most {moved:.3e} apart; kernel launches {n_kernel} "
+              f"(forwards and the remat's recompute)", flush=True)
+        del model, params, res, grads, grads_ref, masters, masters_ref
+    torch.cuda.empty_cache()
+    # the training CLI on the card: every attention forward on the kernel
+    kd.STATS.reset()
+    zoo_train_counters(reset=True)
+    out_text = io.StringIO()
+    with contextlib.redirect_stdout(out_text):
+        out = tl.main(["--arch", TRAIN_ARCH, "--steps", str(ZOO_CLI_STEPS), "--log-every", str(ZOO_CLI_STEPS)])
+    text = out_text.getvalue()
+    print("\n".join("  cli: " + line for line in text.splitlines()), flush=True)
+    cli = zoo_train_counters()
+    cfg = get_config(TRAIN_ARCH).reduced()
+    want_flash = 2 * cfg.n_layers * ZOO_CLI_STEPS  # each layer's forward and its recompute, each step
+    dispatch_line = next(line for line in text.splitlines() if line.startswith("dispatch:"))
+    check(cli["flash_attention"] == want_flash and f"flash_attention/cuda={want_flash}" in dispatch_line
+          and "/ref=" not in dispatch_line, f"training CLI --arch {TRAIN_ARCH}: launches {cli}, {dispatch_line}")
+    check(all(math.isfinite(x) for x in out["losses"]), f"training CLI: losses {out['losses']}")
+    launches["cli"] = cli
+    total = {op: sum(c[op] for c in launches.values()) for op in cli}
+    return {"launches": total, "rows": rows}
+
+
+def device_share(torch, run):
+    """One ``run()`` under torch.profiler: (wall ms, device busy ms, the
+    top device operations by time as (name, ms, launches))."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ops = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    return wall, sum(ms for _, ms, _ in ops), sorted(ops, key=lambda o: -o[1])
+
+
+def zoo_train_phase(torch, dev, smi, flash_rows):
+    """Phase 26: h2o_danube3_4b at its published width (d 3840, 32 heads of
+    120 over 8, d_ff 10240, vocab 32000, window 4096), TRAIN_LAYERS layers,
+    trained TRAIN_STEPS_FULL steps at B 1 x S 8192 under floatsd8_table6
+    (Adam, lr 1e-3, static scale 1024, telemetry on, as the CLI) from a
+    seeded init: every flash forward on the kernel (2 a layer a step: the
+    forward and the remat's recompute), none on the plain path; every loss
+    finite; the peak memory; one step profiled. Then TRAIN_X_LAYERS layers
+    of the same width under fp32 on the kernels against backend="ref": the
+    loss and every leaf's gradient within the bounds of phase 25."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import dispatch as kd
+    from repro_torch.models import build
+    from repro_torch.optim import adam
+    from repro_torch.optim.train_state import init_state, make_train_step
+
+    full = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    check((cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.hd, cfg.d_ff, cfg.vocab, cfg.window)
+          == (3840, 32, 8, 120, 10240, 32000, 4096), f"{TRAIN_ARCH}: not the published width")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # what earlier phases still hold
+    model = build(cfg)
+    pol, opt = get_policy("floatsd8_table6"), adam()
+    state = init_state(model.init(torch.Generator(device=dev).manual_seed(SEED)), opt, pol)
+    n_params = sum(v.numel() for v in flat_leaves(state.params).values())
+    step = make_train_step(model.loss, opt, pol, lr=1e-3, telemetry=True)
+    batch = _train_batch(torch, dev, cfg, TRAIN_B, TRAIN_S, SEED + 41)
+    torch.cuda.synchronize()
+    state_bytes = torch.cuda.memory_allocated() - base
+    zoo_train_counters(reset=True)
+    kd.STATS.reset()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS_FULL):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))  # a device->host copy: synchronised
+        times.append(time.perf_counter() - t0)
+        check(bool(m["grads_finite"]), f"{TRAIN_ARCH} at full width: a nonfinite step")
+    counts = zoo_train_counters()
+    stats = kd.STATS.snapshot()
+    peak = torch.cuda.max_memory_allocated() - base
+    want_flash = 2 * TRAIN_LAYERS * TRAIN_STEPS_FULL
+    check(counts["flash_attention"] == want_flash and stats.get(("flash_attention", "cuda"), 0) == want_flash
+          and sum(n for (_, b), n in stats.items() if b == "ref") == 0,
+          f"{TRAIN_ARCH} at full width: launches {counts}, dispatch {stats} (want {want_flash} flash_attention)")
+    check(all(math.isfinite(x) for x in losses), f"{TRAIN_ARCH} at full width: losses {losses}")
+    check(peak <= TRAIN_PEAK_MAX, f"{TRAIN_ARCH} at full width: peak {peak} B above {TRAIN_PEAK_MAX:.0f}")
+    warm = statistics.median(times[1:])
+    holder = {"state": state}
+
+    def one_step():
+        holder["state"], mm = step(holder["state"], batch)
+        float(mm["loss"])
+
+    wall, busy, ops = device_share(torch, one_step)
+    # the flash backward's own einsums are GEMMs too: its share overlaps the GEMM group's
+    groups = {"flash_attention kernel": 0.0, "GEMM (the f32 einsums, TF32 off)": 0.0, "other": 0.0}
+    for name, ms, _ in ops:
+        low = name.lower()
+        key = ("flash_attention kernel" if "flash_fwd_kernel" in low or "flash_split_kv" in low else
+               "GEMM (the f32 einsums, TF32 off)" if "gemm" in low or "cutlass" in low else "other")
+        groups[key] += ms
+    bwd_ms = TRAIN_LAYERS * flash_rows["train-window"]["bwd_plain_ms"]
+    print(f"zoo-train {TRAIN_ARCH} at full width (d_model 3840, 32/8 heads of 120, d_ff 10240, vocab 32000, window "
+          f"4096), {TRAIN_LAYERS} of {full.n_layers} layers ({n_params:,} parameters), B {TRAIN_B} x S {TRAIN_S}, "
+          f"floatsd8_table6, Adam lr 1e-3, static scale 1024, telemetry on: losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; step times {', '.join(f'{t:.3f}' for t in times)} s, median warm "
+          f"{warm:.3f} s ({TRAIN_B * TRAIN_S / warm:.0f} tok/s); state {state_bytes:,} B, peak "
+          f"max_memory_allocated {peak:,} B above the {base:,} B earlier phases hold ({peak / n_params:.1f} B a "
+          f"parameter); launches {counts} "
+          f"({want_flash} flash_attention: forward + recompute, every one on the kernel) | one step profiled: wall "
+          f"{wall:.1f} ms, device busy {busy:.1f} ms ({busy / wall:.1%}); by group "
+          + ", ".join(f"{k} {v:.1f} ms ({v / busy:.1%})" for k, v in groups.items())
+          + f"; the plain flash backward, {TRAIN_LAYERS} x {flash_rows['train-window']['bwd_plain_ms']:.2f} ms "
+          f"(the kernel phase's train-window row, its einsums among the GEMMs) = {bwd_ms:.1f} ms, "
+          f"{bwd_ms / busy:.1%} of the busy time; top "
+          f"device operations: " + "; ".join(f"{n[:60]} {ms:.1f} ms x{c}" for n, ms, c in ops[:8]) + f" ({smi})",
+          flush=True)
+    del state, holder, step, model
+    torch.cuda.empty_cache()
+    # kernels against the plain versions at TRAIN_X_LAYERS layers of the same width, fp32
+    xcfg = dataclasses.replace(full, n_layers=TRAIN_X_LAYERS)
+    xmodel = build(xcfg)
+    params = xmodel.init(torch.Generator(device=dev).manual_seed(SEED))
+    fp32 = get_policy("fp32")
+    t0 = time.perf_counter()
+    loss, grads = loss_and_grads(torch, xmodel, params, batch, fp32)
+    t_kernel = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_ref, grads_ref = loss_and_grads(torch, xmodel, params, batch, fp32, backend="ref")
+    t_ref = time.perf_counter() - t0
+    gaps = grad_gaps(torch, grads, grads_ref)
+    worst = max((v[0], k) for k, v in gaps.items() if not k.endswith("wk/b"))
+    check(abs(loss - loss_ref) <= ZOO_LOSS_RTOL * abs(loss_ref), f"zoo-train x: loss {loss} vs plain {loss_ref}")
+    check(all(v[1] for v in gaps.values()) and worst[0] <= ZOO_GRAD_TOL,
+          f"zoo-train x: gradient {worst[1]} {worst[0]:.3e} of its scale (bound {ZOO_GRAD_TOL})")
+    print(f"zoo-train x ({TRAIN_X_LAYERS} layers at full width, B {TRAIN_B} x S {TRAIN_S}, fp32, kernels vs "
+          f"backend='ref'): loss {loss:.6f} vs {loss_ref:.6f} (bound {ZOO_LOSS_RTOL} relative); largest leaf gradient "
+          f"gap {worst[0]:.3e} of its scale ({worst[1]}; bound {ZOO_GRAD_TOL}); loss and gradients {t_kernel:.2f} s on "
+          f"the kernels, {t_ref:.2f} s on the plain path", flush=True)
+    del xmodel, params, grads, grads_ref
+    torch.cuda.empty_cache()
+    return {"launches": counts, "steps": TRAIN_STEPS_FULL, "layers": TRAIN_LAYERS, "step_s": warm, "peak": peak,
+            "busy_ms": busy, "wall_ms": wall, "groups": groups, "flash_profiled": groups["flash_attention kernel"]}
+
+
+
 def ledger_host_cost(torch, dev, step_ms: float) -> float:
     """The dispatch ledger's bookkeeping of one decode-shape floatsd_matmul
     call (its Decision lookup, the record and the touched bytes), timed
@@ -4157,6 +4599,10 @@ def main() -> int:
     zmm = zoo_matmul_phase(torch, dev, flush)
     dmm = zoo_matmul_phase(torch, dev, flush, DENSE_ARCH, DENSE_MM_SITES, SEED + 5)
     fa = flash_phase(torch, dev, flush)
+    t0 = time.perf_counter()
+    fa_train = flash_train_phase(torch, dev, flush)
+    wkv_train = wkv_train_phase(torch, dev, flush)
+    print(f"kernels: flash_attention's and rwkv_wkv's training rows in {time.perf_counter() - t0:.1f} s", flush=True)
     task_rows, task_steps = task_kernel_phase(torch, dev, flush)
     del flush
     ledger_phase(smi)
@@ -4274,6 +4720,16 @@ def main() -> int:
     dense_x_phase(torch, dev, smi, VLM_ARCH, "vlm-x")
     print(f"vlm-x: phase 24 in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # 25-26. the zoo's training: every family's reduced config against the
+    # plain path and through the CLI, then h2o_danube3_4b at full width
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ztx = zoo_train_x_phase(torch, dev, smi)
+    print(f"zoo-train-x: phase 25 in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    zt = zoo_train_phase(torch, dev, smi, fa_train)
+    print(f"zoo-train: phase 26 in {time.perf_counter() - t0:.1f} s", flush=True)
+
     # result lines: each kernel's time per decode step (serving), per train
     # step, or per entry-point pass, from the kernel phase's per-launch times
     # and the launch counts of each path
@@ -4313,7 +4769,8 @@ def main() -> int:
         ("rwkv_wkv", "rwkv_wkv/rwkv_wkv.cu", "rwkv_wkv/kernel.py:27", wkv.values(),
          [(ZL, wkv[(ZOO_S, -2.0)])], f"zoo prefill at B {ZOO_B} x S {ZOO_S}: {ZL} x r, k, w [2,1024,40,64], "
          "v [2,1024,40,64] -> y, final state; library call: none", None, None),
-        ("flash_attention", "flash_attention/flash_attention.cu", "flash_attention/kernel.py:27", fa.values(),
+        ("flash_attention", "flash_attention/flash_attention.cu", "flash_attention/kernel.py:27",
+         [*fa.values(), *fa_train.values()],
          [(DL, fa["prefill"])], f"dense prefill at B {ZOO_B} x S {ZOO_S}: {DL} x q [2,1024,32,120], k, v "
          "[2,1024,8,120] f32, causal (window 4096 inactive); library: scaled_dot_product_attention(is_causal=True, "
          "enable_gqa=True)", None, None),
@@ -4322,7 +4779,7 @@ def main() -> int:
              "entry": ent["launches"], "runtime": rt["launches"], "zoo": zoo["launches"],
              "dense": dense["launches"], "frontend": front["launches"], "http": http["launches"],
              "hybrid": hybrid["launches"], "moe": moe["launches"], "audio": audio["launches"],
-             "vlm": vlm["launches"]}
+             "vlm": vlm["launches"], "zoo_train_x": ztx["launches"], "zoo_train": zt["launches"]}
     # the zoo prefill's share of the kernels it shares with the LSTM paths
     zoo_prefill = {
         "floatsd_matmul": ([(6 * ZL, zmm[("dd", ZOO_B * ZOO_S)]), (ZL, zmm[("cmix-k", ZOO_B * ZOO_S)]),
@@ -4371,6 +4828,15 @@ def main() -> int:
                 parts = [(2 * DL, dmm[("wq-wo", m)]), (2 * DL, dmm[("wk-wv", m)]), (2 * DL, dmm[("wi-wg", m)]),
                          (DL, dmm[("ffn-wo", m)]), (1, dmm[("head", m)])]
                 rec[key] = {**composite(parts), "per": f"{what}: {DENSE_SITES * DL + 1} sites at M = {m}"}
+        if name == "rwkv_wkv":
+            rec["train_backward_plain_ms"] = wkv_train["bwd_plain_ms"]
+        if name == "flash_attention":
+            rec["zoo_train_step"] = {
+                **composite([(2 * TRAIN_LAYERS, fa_train["train-window"])]), "profiled_ms": zt["flash_profiled"],
+                "per": f"full-width {TRAIN_ARCH} train step at {TRAIN_LAYERS} layers, B {TRAIN_B} x S {TRAIN_S}: "
+                       f"{2 * TRAIN_LAYERS} x q [1,8192,32,120] with lse (forward + remat recompute), window 4096; "
+                       f"the backward plain PyTorch ({fa_train['train-window']['bwd_plain_ms']:.2f} ms a layer); "
+                       "library: SDPA's forward (attn_mask=band)"}
         for key, path in (("zoo_prefill_profiled", zoo), ("dense_prefill_profiled", dense),
                           ("hybrid_prefill_profiled", hybrid), ("audio_prefill_profiled", audio),
                           ("vlm_prefill_profiled", vlm)):

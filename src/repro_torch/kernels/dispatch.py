@@ -21,6 +21,16 @@ that actually ran, with its predicted ``Cost`` (``COST_SPECS``: one
 ``obs.costmodel.CostSpec`` per op, its function in ``kernels/<op>/cost.py``)
 and the bytes of the tensors it handed over; ``LEDGER`` joins the two with
 the measured times fed through ``STATS.add_time``.
+
+The zoo's three ops (``flash_attention``, ``rwkv_wkv``, ``qsigmoid``) are
+differentiable when grad is on and an input requires a gradient: one
+``torch.autograd.Function`` each, whose forward is the resolved backend as
+above (the kernel on the card, recorded) and whose backward is a plain
+PyTorch port of the reference's VJP (``flash_bwd`` on the saved o and the
+kernel's lse; the reference model's chunked wkv recomputed under autograd;
+the straight-through sigmoid derivative). The backwards record no
+Decision and no cost. Otherwise (serving, ``no_grad``) no Function is
+applied and the call is the forward alone.
 """
 from __future__ import annotations
 
@@ -37,7 +47,7 @@ from ..obs import costmodel
 from ..obs import telemetry as obs_telemetry
 from .flash_attention import cost as fa_cost
 from .flash_attention import ops as fa_ops
-from .flash_attention.ref import flash_attention_gqa
+from .flash_attention.ref import flash_attention_gqa, flash_bwd
 from .floatsd4_matmul import cost as fm4_cost
 from .floatsd4_matmul import ops as fm4_ops
 from .floatsd4_matmul.ref import floatsd4_matmul_ref
@@ -55,7 +65,7 @@ from .qsigmoid import ops as qs_ops
 from .qsigmoid.ref import qsigmoid_ref
 from .rwkv_wkv import cost as rw_cost
 from .rwkv_wkv import ops as rw_ops
-from .rwkv_wkv.ref import wkv_ref
+from .rwkv_wkv.ref import wkv_chunked_scan, wkv_ref
 
 __all__ = [
     "BACKENDS", "ZERO_CODE", "PackedTensor", "is_packed", "Decision",
@@ -672,9 +682,13 @@ def quantize(x: torch.Tensor, bias=None, *, backend: str | None = None):
     return codes, bias
 
 
-def qsigmoid(x: torch.Tensor, *, backend: str | None = None) -> torch.Tensor:
-    """Two-region FloatSD8 sigmoid of any-shape ``x``, same shape and
-    dtype."""
+def _grad_wanted(*ts: torch.Tensor) -> bool:
+    """Does the call build an autograd node: grad mode on and an input
+    that requires a gradient."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _qsigmoid(x: torch.Tensor, backend: str | None) -> torch.Tensor:
     be, why = _resolve(x, backend)
     y = qsigmoid_ref(x) if be == "ref" else qs_ops.qsigmoid(x)
     shape = (x.numel(), x.element_size(), y.element_size())
@@ -683,9 +697,59 @@ def qsigmoid(x: torch.Tensor, *, backend: str | None = None) -> torch.Tensor:
     return y
 
 
+class _QSigmoid(torch.autograd.Function):
+    """The dispatched forward; the reference's straight-through backward,
+    the exact sigmoid's derivative g s (1 - s) in x's dtype
+    (``repro.core.qsigmoid.qsigmoid``)."""
+
+    @staticmethod
+    def forward(ctx, x, backend):
+        ctx.save_for_backward(x)
+        return _qsigmoid(x, backend)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        s = torch.sigmoid(x)
+        return g * (s * (1 - s)), None
+
+
+def qsigmoid(x: torch.Tensor, *, backend: str | None = None) -> torch.Tensor:
+    """Two-region FloatSD8 sigmoid of any-shape ``x``, same shape and
+    dtype. Differentiable (straight through) when grad is on and ``x``
+    requires it."""
+    if _grad_wanted(x):
+        _check(backend)
+        return _QSigmoid.apply(x, backend)
+    return _qsigmoid(x, backend)
+
+
 # ---------------------------------------------------------------------------
 # the model zoo's recurrence and attention
 # ---------------------------------------------------------------------------
+
+
+class _RwkvWkv(torch.autograd.Function):
+    """The dispatched forward; the backward recomputes the wkv under
+    autograd through ``wkv_chunked_scan``, the reference model's chunked
+    scan, the function whose gradient the reference takes."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, backend):
+        ctx.save_for_backward(r, k, v, w, u)
+        ctx.set_materialize_grads(False)
+        return _rwkv_wkv(r, k, v, w, u, backend)
+
+    @staticmethod
+    def backward(ctx, gy, gs):
+        ins = [t.detach().requires_grad_(t.requires_grad) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y, st = wkv_chunked_scan(*ins)
+        outs = [(o, g) for o, g in ((y, gy), (st, gs)) if g is not None and o.requires_grad]
+        wanted = [t for t in ins if t.requires_grad]
+        grads = iter(torch.autograd.grad([o for o, _ in outs], wanted, [g for _, g in outs], allow_unused=True)
+                     if outs and wanted else ())
+        return (*(next(grads) if t.requires_grad else None for t in ins), None)
 
 
 def rwkv_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
@@ -696,9 +760,17 @@ def rwkv_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     evaluates 16 tokens at a time with the state kept on chip; ``chunk`` is
     the reference's argument and must be 16, the kernel's fixed chunk. The
     plain version is the per-token recurrence (the same function). A short
-    last chunk is bounds-checked, so every S runs unpadded."""
+    last chunk is bounds-checked, so every S runs unpadded. Differentiable
+    when grad is on and an input requires it (``_RwkvWkv``)."""
     if chunk != rw_ops.CHUNK:
         raise ValueError(f"rwkv_wkv: the kernel's chunk is {rw_ops.CHUNK}, got {chunk}")
+    if _grad_wanted(r, k, v, w, u):
+        _check(backend)
+        return _RwkvWkv.apply(r, k, v, w, u, backend)
+    return _rwkv_wkv(r, k, v, w, u, backend)
+
+
+def _rwkv_wkv(r, k, v, w, u, backend):
     be, why = _resolve(r, backend)
     y, state = wkv_ref(r, k, v, w, u) if be == "ref" else rw_ops.rwkv_wkv(r, k, v, w, u)
     b, s, h, kk = r.shape
@@ -706,6 +778,27 @@ def rwkv_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     _record("rwkv_wkv", be, why, shape, lambda: rw_cost.wkv_cost(
         *shape[:5], backend=be, u_batched=shape[5], elem_bytes=shape[6]), _nbytes(r, k, v, w, u, y, state))
     return y, state
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The dispatched forward, asked for each row's log-sum-exp; the
+    backward is ``flash_bwd`` on the saved o and lse (the reference's
+    custom VJP), with the reference's query chunk min(1024, Skv)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, prefix, backend):
+        o, lse = _flash_attention(q, k, v, causal, window, prefix, backend, True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.cfg = (causal, window, prefix)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window, prefix = ctx.cfg
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do, causal=causal, window=window, prefix=prefix,
+                               chunk=min(1024, k.shape[1]))
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
@@ -719,18 +812,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     KV tiles of its own size with the running softmax state on chip; the
     plain version is the model's chunked online softmax (1024 query rows
     against 512 keys at a time, the reference model's split), the same
-    function: both round p and v to bf16 before their product."""
+    function: both round p and v to bf16 before their product.
+    Differentiable when grad is on and an input requires it
+    (``_FlashAttention``: the forward also writes each row's log-sum-exp)."""
+    if _grad_wanted(q, k, v):
+        _check(backend)
+        return _FlashAttention.apply(q, k, v, causal, window, prefix, backend)
+    return _flash_attention(q, k, v, causal, window, prefix, backend, False)[0]
+
+
+def _flash_attention(q, k, v, causal, window, prefix, backend, lse: bool):
+    """(o, each row's log-sum-exp or None) from the resolved backend."""
     be, why = _resolve(q, backend)
     if be == "ref":
-        o = flash_attention_gqa(q, k, v, causal=causal, window=window, prefix=prefix)
+        out = flash_attention_gqa(q, k, v, causal=causal, window=window, prefix=prefix, return_lse=lse)
     else:
-        o = fa_ops.flash_attention(q, k, v, causal=causal, window=window, prefix=prefix)
+        out = fa_ops.flash_attention(q, k, v, causal=causal, window=window, prefix=prefix, return_lse=lse)
+    o, row_lse = out if lse else (out, None)
     b, sq, h, d = q.shape
-    shape = (b, sq, k.shape[1], h, k.shape[2], d, causal, window, q.element_size(), prefix)
+    shape = (b, sq, k.shape[1], h, k.shape[2], d, causal, window, q.element_size(), prefix, lse)
     _record("flash_attention", be, why, shape, lambda: fa_cost.flash_attention_cost(
-        *shape[:6], backend=be, causal=causal, window=window, elem_bytes=shape[8], prefix=prefix),
-        _nbytes(q, k, v, o))
-    return o
+        *shape[:6], backend=be, causal=causal, window=window, elem_bytes=shape[8], prefix=prefix, lse=lse),
+        _nbytes(q, k, v, o, *([row_lse] if lse else [])))
+    return o, row_lse
 
 
 # ---------------------------------------------------------------------------

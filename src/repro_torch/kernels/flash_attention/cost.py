@@ -99,10 +99,12 @@ def visited_pairs(sq: int, skv: int, causal: bool, window: int | None, prefix: i
 
 def flash_attention_cost(b: int, sq: int, skv: int, h: int, kh: int, d: int, *, backend: str,
                          causal: bool = True, window: int | None = None, elem_bytes: int = 4,
-                         prefix: int = 0) -> Cost:
+                         prefix: int = 0, lse: bool = False) -> Cost:
+    """``lse``: the training forward also writes each row's f32
+    log-sum-exp (4 B a (batch, head, row))."""
     bh = b * h
     pairs = attend_pairs(sq, skv, causal, window, prefix)
-    write = bh * sq * d * elem_bytes
+    write = bh * sq * (d * elem_bytes + (4 if lse else 0))
     if backend == "ref":
         macs = 2 * bh * pairs * d  # QK^T + PV
         return Cost(flops=2 * macs + bh * (SOFTMAX_FLOPS_PER_PAIR * pairs + 2 * sq * d), macs=macs,

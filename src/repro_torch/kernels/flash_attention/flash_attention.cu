@@ -52,7 +52,11 @@
 // m is finite). p and v are rounded to bf16 before their product, as the
 // reference rounds them, so the tensor cores form the reference's products
 // exactly and sum them in f32; l sums the unrounded p; the output is acc /
-// max(l, 1e-30). expf, no fast math. Tiles wholly outside the block's causal
+// max(l, 1e-30). expf, no fast math. Given a pointer, the kernel also writes
+// each row's log-sum-exp m + log(max(l, 1e-30)) (f32, [B, H, Sq]), the
+// residual the training path's backward reads (the reference's custom VJP
+// saves it, src/repro/nn/attention.py:104); the outputs o are the same bits
+// with it or without. Tiles wholly outside the block's causal
 // band and window are skipped, which gives the same result, except in a
 // block that holds a row with no admitted key at all (only when Sq > Skv
 // under a window): there every tile runs, so that row averages every v as
@@ -242,9 +246,9 @@ __device__ __forceinline__ void issue_tile(uint16_t* dst, const uint16_t* kvb, i
 
 template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_kernel(const T* __restrict__ q, const uint16_t* __restrict__ kv, T* __restrict__ o, int Sq, int Skv,
-                 int Skv8, int H, int G, int Kh, int D, long long q_sb, long long q_ss, long long q_sh, float scale,
-                 int causal, long long window, int prefix) {
+flash_fwd_kernel(const T* __restrict__ q, const uint16_t* __restrict__ kv, T* __restrict__ o, float* __restrict__ lse,
+                 int Sq, int Skv, int Skv8, int H, int G, int Kh, int D, long long q_sb, long long q_ss, long long q_sh,
+                 float scale, int causal, long long window, int prefix) {
   constexpr int P = pieces<T>();
   constexpr int KS = DP / 16;   // k16 steps of QK^T
   constexpr int NS = kBN / 8;   // n8 blocks of a score tile
@@ -448,6 +452,11 @@ flash_fwd_kernel(const T* __restrict__ q, const uint16_t* __restrict__ kv, T* __
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+  if (lse != nullptr && tq == 0) {  // the row's log-sum-exp, for the backward
+    float* lb = lse + (long long)bh * Sq;
+    if (row0 < Sq) lb[row0] = m0 + logf(den0);
+    if (row1 < Sq) lb[row1] = m1 + logf(den1);
+  }
   T* o0 = o + (((long long)b * Sq + row0) * H + h) * D;
   T* o1 = o + (((long long)b * Sq + row1) * H + h) * D;
 #pragma unroll
@@ -465,8 +474,8 @@ flash_fwd_kernel(const T* __restrict__ q, const uint16_t* __restrict__ kv, T* __
 }
 
 template <typename T, int DP>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* scratch, int B, int Sq, int Skv,
-                   int H, int Kh, int D, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, void* scratch, int B, int Sq,
+                   int Skv, int H, int Kh, int D, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
                    long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh, float scale,
                    int causal, long long window, int prefix, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<T, DP>();
@@ -482,7 +491,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* s
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   flash_fwd_kernel<T, DP><<<dim3((Sq + kBM - 1) / kBM, B * H), kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), kv, static_cast<T*>(o), Sq, Skv, skv8, H, H / Kh, Kh, D, q_sb, q_ss, q_sh, scale,
+      static_cast<const T*>(q), kv, static_cast<T*>(o), lse, Sq, Skv, skv8, H, H / Kh, Kh, D, q_sb, q_ss, q_sh, scale,
       causal, window, prefix);
   return cudaGetLastError();
 }
@@ -498,12 +507,14 @@ extern "C" long long flash_attention_scratch_bytes(int B, int Skv, int Kh, int D
 
 // q [B, Sq, H, D], k, v [B, Skv, Kh, D] with the given batch, position and
 // head strides (elements; the last axis contiguous), o contiguous [B, Sq, H,
-// D], scratch of flash_attention_scratch_bytes (16-byte aligned); dtype 0:
+// D], lse null or contiguous f32 [B, H, Sq] (each row's m + log max(l,
+// 1e-30), the backward's residual; o is the same either way), scratch of flash_attention_scratch_bytes (16-byte aligned); dtype 0:
 // all f32, 1: all bf16. 1 <= D <= 128, Kh divides H, B * H <= 65535, Skv >=
 // 1; window <= 0: none; prefix >= 0, and 0 under a window. Launches the
 // pre-pass and the forward kernel on `stream`; returns the first launch
 // error (cudaError_t).
-extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o, void* scratch, int B,
+extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o, void* lse, void* scratch,
+                                      int B,
                                       int Sq, int Skv, int H, int Kh, int D, long long q_sb, long long q_ss,
                                       long long q_sh, long long k_sb, long long k_ss, long long k_sh,
                                       long long v_sb, long long v_ss, long long v_sh, float scale, int causal,
@@ -513,12 +524,12 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   cudaError_t e;
   if (dtype == 1)
     e = (wide ? launch<__nv_bfloat16, 128> : launch<__nv_bfloat16, 64>)(
-        q, k, v, o, scratch, B, Sq, Skv, H, Kh, D, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
-        causal, window, prefix, st);
+        q, k, v, o, static_cast<float*>(lse), scratch, B, Sq, Skv, H, Kh, D, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+        v_sb, v_ss, v_sh, scale, causal, window, prefix, st);
   else
-    e = (wide ? launch<float, 128> : launch<float, 64>)(q, k, v, o, scratch, B, Sq, Skv, H, Kh, D, q_sb, q_ss,
-                                                        q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal,
-                                                        window, prefix, st);
+    e = (wide ? launch<float, 128> : launch<float, 64>)(
+        q, k, v, o, static_cast<float*>(lse), scratch, B, Sq, Skv, H, Kh, D, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+        v_sb, v_ss, v_sh, scale, causal, window, prefix, st);
   return static_cast<int>(e);
 }
 

@@ -27,22 +27,23 @@ def _library():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.flash_attention_scratch_bytes.argtypes = [i, i, i, i, i]
         lib.flash_attention_scratch_bytes.restype = ll
-        lib.flash_attention_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ll, ll, ll, ll, ll, ll, ll, ll, ll,
+        lib.flash_attention_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, ll, ll, ll, ll, ll, ll, ll, ll, ll,
                                                ctypes.c_float, i, ll, i, i, p]
         lib.flash_attention_launch.restype = i
     return lib
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
-                    window: int | None = None, prefix: int = 0) -> torch.Tensor:
+                    window: int | None = None, prefix: int = 0, return_lse: bool = False):
     """Attention over contiguous positions from 0 in the model layout: q
     [B, Sq, H, D], k, v [B, Skv, Kh, D] (query head h reads KV head h // (H
     / Kh)), f32 or bf16, each read in place (last axis contiguous) ->
     contiguous [B, Sq, H, D] in q's dtype. A causal row i admits the keys j
-    <= max(i, prefix - 1)."""
+    <= max(i, prefix - 1). ``return_lse``: (o, each row's log-sum-exp, f32
+    [B, H, Sq]), the backward's residual; o is the same bits either way."""
     check_prefix(prefix, window)
     if q.device.type == "cpu":
-        return flash_attention_gqa(q, k, v, causal=causal, window=window, prefix=prefix)
+        return flash_attention_gqa(q, k, v, causal=causal, window=window, prefix=prefix, return_lse=return_lse)
     ts = (q, k, v)
     if any(t.device != q.device for t in ts) or q.device.type != "cuda":
         raise ValueError(f"flash_attention: needs every tensor on one card, got {[str(t.device) for t in ts]}")
@@ -62,8 +63,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
         raise ValueError(f"flash_attention: window must be None or >= 1, got {window}")
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in ts)
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if return_lse else None
     if o.numel() == 0:
-        return o
+        return (o, lse) if return_lse else o
     if skv == 0:
         raise ValueError("flash_attention: no keys (Skv = 0)")
     lib, dtype = _library(), _DTYPES[q.dtype]
@@ -72,14 +74,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
                           device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.flash_attention_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), scratch.data_ptr(),
+        err = lib.flash_attention_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                         None if lse is None else lse.data_ptr(), scratch.data_ptr(),
                                          b, sq, skv, h, kh, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                          softmax_scale(d), int(causal), -1 if window is None else int(window),
                                          int(prefix), dtype, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
     flash_attention.launches += 1
-    return o
+    return (o, lse) if return_lse else o
 
 
 flash_attention.launches = 0

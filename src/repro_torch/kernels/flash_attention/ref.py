@@ -20,7 +20,11 @@ masks at -1e30, softmax, times v):
     D], k, v [B, Skv, Kh, D], positions from 0, a causal ``prefix``): what
     ``dispatch.flash_attention`` computes for a CPU tensor or
     ``backend="ref"``, so on the CPU the model computes what the JAX model
-    computes.
+    computes. With ``return_lse`` both also give each row's log-sum-exp
+    m + log(max(l, 1e-30)), the residual of the backward.
+  * ``flash_bwd``: the training path's backward, a port of the reference
+    model's ``_flash_bwd`` (its chunks and bf16 roundings) on the saved o
+    and lse, on CPU tensors and on the card alike (no kernel of it yet).
 
 The kernel's f32 scores, in plain PyTorch (nothing on the main path calls
 them; the CPU tests hold them against f64 and the JAX oracle):
@@ -49,7 +53,7 @@ import torch
 from ..floatsd_matmul.ref import no_tf32
 
 __all__ = ["NEG_INF", "softmax_scale", "check_prefix", "flash_attention_ref", "flash_attention_chunked",
-           "flash_attention_gqa", "split_pieces", "PIECE_PRODUCTS", "piece_scores", "flash_attention_pieces"]
+           "flash_attention_gqa", "flash_bwd", "split_pieces", "PIECE_PRODUCTS", "piece_scores", "flash_attention_pieces"]
 
 NEG_INF = -1e30
 
@@ -107,9 +111,11 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
 
 def flash_attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tensor,
                             k_pos: torch.Tensor, *, causal: bool = True, window: int | None = None,
-                            chunk: int = 1024, kv_chunk: int = 512, prefix: int = 0) -> torch.Tensor:
+                            chunk: int = 1024, kv_chunk: int = 512, prefix: int = 0, return_lse: bool = False):
     """q [B, Sq, Kh, G, D], k, v [B, Skv, Kh, D], q_pos [B, Sq], k_pos
-    [B, Skv] -> [B, Sq, Kh, G, D] in q's dtype."""
+    [B, Skv] -> [B, Sq, Kh, G, D] in q's dtype; with ``return_lse`` also
+    each row's log-sum-exp m + log(max(l, 1e-30)), f32 [B, Kh, G, Sq], the
+    residual the reference's custom VJP saves."""
     check_prefix(prefix, window)
     b, sq, kh, g, d = q.shape
     skv = k.shape[1]
@@ -117,6 +123,7 @@ def flash_attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q
     nq, nk = _split(sq, chunk), _split(skv, kv_chunk)
     qc, kc = sq // nq, skv // nk
     out = torch.empty((b, sq, kh, g, d), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, kh, g, sq), dtype=torch.float32, device=q.device) if return_lse else None
     with no_tf32():
         for i in range(nq):
             qf = q[:, i * qc:(i + 1) * qc].to(torch.float32) * scale
@@ -138,22 +145,89 @@ def flash_attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q
                 m = m_new
             o = acc / torch.clamp(l, min=1e-30)[..., None]  # [B, Kh, G, qc, D]
             out[:, i * qc:(i + 1) * qc] = o.permute(0, 3, 1, 2, 4)
-    return out.to(q.dtype)
+            if lse is not None:
+                lse[..., i * qc:(i + 1) * qc] = m + torch.log(torch.clamp(l, min=1e-30))
+    return (out.to(q.dtype), lse) if return_lse else out.to(q.dtype)
 
 
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
                         window: int | None = None, chunk: int = 1024, kv_chunk: int = 512,
-                        prefix: int = 0) -> torch.Tensor:
+                        prefix: int = 0, return_lse: bool = False):
     """The model layout: q [B, Sq, H, D], k, v [B, Skv, Kh, D] (query head
     h reads KV head h // (H / Kh)), positions from 0, a causal ``prefix``
-    -> [B, Sq, H, D]."""
+    -> [B, Sq, H, D]; with ``return_lse`` also each row's log-sum-exp, f32
+    [B, H, Sq] (the kernel's layout)."""
     b, sq, h, d = q.shape
     skv, kh = k.shape[1], k.shape[2]
     q_pos = torch.arange(sq, device=q.device).expand(b, sq)
     k_pos = torch.arange(skv, device=q.device).expand(b, skv)
     out = flash_attention_chunked(q.reshape(b, sq, kh, h // kh, d), k, v, q_pos, k_pos, causal=causal,
-                                  window=window, chunk=chunk, kv_chunk=kv_chunk, prefix=prefix)
+                                  window=window, chunk=chunk, kv_chunk=kv_chunk, prefix=prefix,
+                                  return_lse=return_lse)
+    if return_lse:
+        return out[0].reshape(b, sq, h, d), out[1].reshape(b, h, sq)
     return out.reshape(b, sq, h, d)
+
+
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+              do: torch.Tensor, *, causal: bool = True, window: int | None = None, prefix: int = 0,
+              chunk: int = 1024, kv_chunk: int = 512):
+    """The attention's backward, a port of the reference's ``_flash_bwd``
+    (``repro.nn.attention``) on the model layout: q, o, do [B, Sq, H, D],
+    k, v [B, Skv, Kh, D], lse [B, H, Sq] f32 (the forward's) -> (dq, dk,
+    dv) in q's, k's and v's dtypes. The score tiles are recomputed per
+    chunk of ``chunk`` query rows and ``kv_chunk`` keys (the reference's
+    split, each the largest divisor of its length not above the request):
+    p = exp(s - lse), dv = p^T do, dp = do v^T, ds = p (dp - delta) scale
+    with delta = rowsum(do o), dq = ds k, dk = ds^T q. p, ds, do, k and q
+    are rounded to bf16 before their products (dp takes do and v in f32),
+    every sum is f32, dk and dv accumulate over the query chunks in order.
+    The mask is the forward's (positions from 0, the causal ``prefix``, the
+    window). A tile whose every pair the mask rejects adds exactly zero
+    (its p is 0) unless a row of its chunk admits no key at all, so it is
+    skipped, decided on the host from the positions."""
+    check_prefix(prefix, window)
+    b, sq, h, d = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    scale = softmax_scale(d)
+    nq, nk = _split(sq, chunk), _split(skv, kv_chunk)
+    qc, kc = sq // nq, skv // nk
+    dev = q.device
+    q5, o5, do5 = (t.reshape(b, sq, kh, g, d) for t in (q, o, do))
+    lse5 = lse.reshape(b, kh, g, sq)
+    dq = torch.empty((b, sq, kh, g, d), dtype=torch.float32, device=dev)
+    dk = torch.zeros((b, skv, kh, d), dtype=torch.float32, device=dev)
+    dv = torch.zeros((b, skv, kh, d), dtype=torch.float32, device=dev)
+    q_pos, k_pos = torch.arange(sq, device=dev), torch.arange(skv, device=dev)
+    host_q, host_k = torch.arange(sq), torch.arange(skv)
+    with no_tf32():
+        delta = torch.einsum("bqkgd,bqkgd->bkgq", do5.to(torch.float32), o5.to(torch.float32))
+        for i in range(nq):
+            rows = slice(i * qc, (i + 1) * qc)
+            qi = q5[:, rows].to(torch.float32)
+            qf, qb = qi * scale, _bf16(qi)
+            dof = do5[:, rows].to(torch.float32)
+            dob = _bf16(dof)
+            lse_c, delta_c = lse5[..., rows, None], delta[..., rows, None]
+            # a row of the chunk with no admitted key at all (Sq > Skv under a window) spreads p over every key
+            lonely = window is not None and (i + 1) * qc - 1 >= skv - 1 + window
+            dq_c = torch.zeros((b, qc, kh, g, d), dtype=torch.float32, device=dev)
+            for j in range(nk):
+                keys = slice(j * kc, (j + 1) * kc)
+                if not lonely and not _mask(host_q[rows], host_k[keys], causal, window, prefix).any():
+                    continue
+                kj = k[:, keys].to(torch.float32)
+                s = torch.einsum("bqkgd,bckd->bkgqc", qf, kj)
+                s = torch.where(_mask(q_pos[rows], k_pos[keys], causal, window, prefix), s, NEG_INF)
+                p = torch.exp(s - lse_c)
+                dv[:, keys] += torch.einsum("bkgqc,bqkgd->bckd", _bf16(p), dob)
+                dp = torch.einsum("bqkgd,bckd->bkgqc", dof, v[:, keys].to(torch.float32))
+                dsb = _bf16(p * (dp - delta_c) * scale)
+                dq_c = dq_c + torch.einsum("bkgqc,bckd->bqkgd", dsb, _bf16(kj))
+                dk[:, keys] += torch.einsum("bkgqc,bqkgd->bckd", dsb, qb)
+            dq[:, rows] = dq_c
+    return dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def split_pieces(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

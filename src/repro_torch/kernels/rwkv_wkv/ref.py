@@ -15,14 +15,23 @@ the main path calls it): per chunk of 16, the record the kernel's pre-pass
 forms once (q = r e^{bprev}, kd = k e^{b_last - b}, the tile with the
 pairwise decay e^{min(bprev_t - b_i, 0)} below the diagonal and the bonus
 on it, e^{b_last}), then the walk y = q S + A v, S <- e^{b_last} S + kd^T
-v."""
+v.
+
+``wkv_chunked_scan`` is the reference model's own chunked scan
+(``repro.nn.rwkv.RWKV6TimeMix._wkv_chunked``), term for term: per chunk
+the inter-chunk, intra-chunk and bonus terms added in that order, and the
+pairwise decay e^{min(bprev_t - b_i, 0)} through ``torch.minimum``, whose
+gradient splits at a tie as JAX's does (the subdiagonal's exponent is
+exactly 0). The training path's wkv backward recomputes the forward
+through it under autograd: the function whose gradient the reference
+takes."""
 from __future__ import annotations
 
 import torch
 
 from ..floatsd_matmul.ref import no_tf32
 
-__all__ = ["wkv_ref", "wkv_chunked", "CHUNK"]
+__all__ = ["wkv_ref", "wkv_chunked", "wkv_chunked_scan", "CHUNK"]
 
 CHUNK = 16  # the kernel's chunk length
 
@@ -83,3 +92,43 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tens
             st = torch.exp(blast[:, :, c])[..., 0, :, None] * st + kd[:, :, c].transpose(-1, -2) @ vc[:, :, c]
         y = torch.stack(ys, dim=2).reshape(b, h, n * chunk, vv)[:, :, :s].permute(0, 2, 1, 3)
     return y.contiguous(), st
+
+
+def wkv_chunked_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
+                     chunk: int = CHUNK) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference model's chunked wkv from a zero state, S a multiple of
+    ``chunk``: r, k, w [B, S, H, K], v [B, S, H, V], u [H, K] -> (y [B, S,
+    H, V], s_fin [B, H, K, V]), f32, differentiable in every input."""
+    b, s, h, kk = r.shape
+    vv = v.shape[-1]
+    n = s // chunk
+    if n * chunk != s:
+        raise ValueError(f"wkv_chunked_scan: S {s} is not a multiple of the chunk {chunk}")
+
+    def chunks(t):  # [B, S, H, X] -> [B, n, chunk, H, X]
+        return t.reshape(b, n, chunk, h, t.shape[-1])
+
+    f = lambda t: t.to(torch.float32)  # noqa: E731
+    rc, kc, vc = chunks(f(r)), chunks(f(k)), chunks(f(v))
+    logw = chunks(torch.log(torch.clamp(f(w), min=1e-38)))
+    uu = u[None, None]
+    tri = torch.ones(chunk, chunk, dtype=torch.bool, device=r.device).tril(-1)[None, :, :, None]
+    zero = torch.zeros((), dtype=torch.float32, device=r.device)
+    st = torch.zeros((b, h, kk, vv), dtype=torch.float32, device=r.device)
+    ys = []
+    with no_tf32():
+        for c in range(n):
+            rt, kt, vt, lw = rc[:, c], kc[:, c], vc[:, c], logw[:, c]  # [B, L, H, X]
+            bcum = torch.cumsum(lw, dim=1)
+            bprev = bcum - lw
+            blast = bcum[:, -1]  # [B, H, K]
+            y_inter = torch.einsum("blhk,bhkv->blhv", rt * torch.exp(bprev), st)
+            ldiff = bprev[:, :, None] - bcum[:, None]  # [B, t, i, H, K]
+            a = (rt[:, :, None] * kt[:, None] * torch.exp(torch.minimum(ldiff, zero))).sum(-1)
+            a = torch.where(tri, a, zero)
+            y_intra = torch.einsum("blih,bihv->blhv", a, vt)
+            y_bonus = torch.sum(rt * uu * kt, -1, keepdim=True) * vt
+            kd = kt * torch.exp(blast[:, None] - bcum)
+            st = st * torch.exp(blast)[..., None] + torch.einsum("blhk,blhv->bhkv", kd, vt)
+            ys.append(y_inter + y_intra + y_bonus)
+    return torch.stack(ys, dim=1).reshape(b, s, h, vv), st

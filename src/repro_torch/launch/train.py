@@ -1,5 +1,6 @@
 """Training CLI of the port: one of the paper's four tasks (the WikiText-2
-LM by default; UDPOS, SNLI, Multi30K) under FloatSD8 weights, FP8
+LM by default; UDPOS, SNLI, Multi30K), or with ``--arch`` a zoo config's
+reduced model on the causal-LM objective, under FloatSD8 weights, FP8
 activations and gradients and an FP16 master copy, through the fused
 quantized BPTT, with the reference's runtime (counterpart of
 ``repro.launch.train``): a prefetching input pipeline, async keep-3
@@ -15,6 +16,17 @@ telemetry's FloatSD8 quantizes.
   PYTHONPATH=src python -m repro_torch.launch.train --full --steps 20                    # paper width, GPU
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 6 --save-every 3 \\
       --fail-at 4 --ckpt-dir /tmp/x      # crashes after step 4; without --fail-at it resumes from 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch h2o_danube3_4b --device cpu --steps 2 \\
+      --batch 2 --seq 16                 # a zoo config, reduced (the reference's build_task)
+
+``--arch`` builds ``get_config(arch).reduced()`` and draws its batches from
+``synthetic.wikitext2(batch, seq, vocab)`` (``--batch`` 16 and ``--seq``
+128 by default), trained by Adam at lr 1e-3 unless ``--lr`` is given, as
+the reference's ``build_task``; on the card every attention's forward runs
+the flash-attention kernel, RWKV's wkv and receptance gates theirs, and
+their backwards are plain PyTorch. The ``audio`` family exits 1: the
+batch has no encoder ``frames`` (the reference's CLI fails on it too);
+Whisper trains through ``make_train_step`` with frames in the batch.
 
 Prints the reference's ``step N  loss L  scale S  finite F`` lines (and a
 ``tel:`` line) every ``--log-every`` steps and at the last, ``resumed from
@@ -42,21 +54,29 @@ import time
 import numpy as np
 import torch
 
+from ..configs import get_config
 from ..core.policy import get_policy
+from ..data import synthetic
 from ..data.pipeline import ShardedPipeline
 from ..device import resolve_device
 from ..distributed.checkpointing import CheckpointManager
 from ..distributed.fault_tolerance import PreemptionSignal, RestartableLoop, StragglerMonitor
 from ..kernels import dispatch as kd
+from ..models import build
 from ..models.task_zoo import TASKS, make_task
 from ..nn import lstm
 from ..obs.telemetry import TelemetryLogger
+from ..optim import adam
 from ..optim.train_state import init_state, make_train_step
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--task", default="wikitext2", choices=TASKS)
+    ap.add_argument("--arch", default=None, help="a zoo config id: train its reduced config on the "
+                    "causal-LM objective instead of --task")
+    ap.add_argument("--batch", type=int, default=16, help="--arch's batch size")
+    ap.add_argument("--seq", type=int, default=128, help="--arch's sequence length")
     ap.add_argument("--full", action="store_true", help="the paper's width (Table III)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--policy", default="floatsd8_table6")
@@ -89,8 +109,28 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def describe(model) -> str:
-    """The model's widths, from its fields."""
+    """The model's widths, from its fields (a zoo model's from its config)."""
+    cfg = getattr(model, "cfg", None)
+    if cfg is not None:
+        return (f"family {cfg.family}, n_layers {cfg.n_layers}, d_model {cfg.d_model}, heads {cfg.n_heads}/"
+                f"{cfg.kv_heads} of {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}")
     return ", ".join(f"{f.name} {getattr(model, f.name)}" for f in dataclasses.fields(model))
+
+
+def build_task(args):
+    """(name, model, data, optimizer, lr): the zoo config ``--arch``
+    reduced, on ``synthetic.wikitext2`` batches of ``--batch`` x ``--seq``,
+    Adam at lr 1e-3 (the reference's ``build_task``), or ``--task``."""
+    if args.arch:
+        cfg = get_config(args.arch).reduced()
+        if cfg.family == "audio":
+            raise SystemExit(
+                f"arch {args.arch!r} is family 'audio': its loss needs encoder frames, which the CLI's "
+                "batches do not have; train Whisper through optim.make_train_step with 'frames' in the batch")
+        data = synthetic.wikitext2(batch=args.batch, seq=args.seq, vocab=cfg.vocab)
+        return args.arch, build(cfg), data, adam(), args.lr or 1e-3
+    model, data, opt, lr, _ = make_task(args.task, full=args.full)
+    return args.task, model, data, opt, args.lr or lr
 
 
 @contextlib.contextmanager
@@ -132,8 +172,7 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     device = resolve_device(args.device)
     policy = get_policy(args.policy)
-    model, data, opt, lr, _ = make_task(args.task, full=args.full)
-    lr = args.lr or lr
+    name, model, data, opt, lr = build_task(args)
     step_fn = make_train_step(model.loss, opt, policy, lr=lr, fused=False if args.no_fused else None,
                               telemetry=not args.no_telemetry)
 
@@ -145,7 +184,7 @@ def main(argv=None) -> dict:
     keys = data.token_keys
     tokens = sum(first[k].size for k in keys)
     shape = " + ".join(f"{k} {first[k].shape[0]} x {first[k].shape[1]}" for k in keys)
-    print(f"model: {args.task} {type(model).__name__} ({describe(model)}) | policy {policy.name} | "
+    print(f"model: {name} {type(model).__name__} ({describe(model)}) | policy {policy.name} | "
           f"{opt.name} lr {lr} | batch {shape} | {device}", flush=True)
 
     ckpt = CheckpointManager(args.ckpt_dir, keep=3) if args.ckpt_dir else None

@@ -13,8 +13,9 @@ reference's parameter names (``embed/table``, ``head_block{i}/<leaf>``,
 ``stack/b{i}/<leaf>`` stacked over the groups, ``final_norm``,
 ``patch_proj/w``), so ``repro_torch.bridge`` carries a JAX model or its
 packed store across unchanged. The ``audio`` family is ``Whisper``
-(``models/whisper.py``). Inference only (forward, loss, prefill, decode):
-the zoo's training is not ported.
+(``models/whisper.py``). Entry points: forward, loss (trained through
+``optim.make_train_step``, every family; the stack rematerialises its
+groups), prefill and decode.
 
 A vlm prefill with patches attends as the reference does on its M-RoPE t
 ids: the patches see one another whole, text sees every patch and the text

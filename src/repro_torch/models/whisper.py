@@ -18,7 +18,10 @@ once, then every decoder layer's cross-attention K and V into a bf16 cache)
 and ``decode_step`` (the self-attention ring buffer, then an f32 softmax
 over the cached cross keys in plain torch ops, as the reference). The
 serving engine feeds no encoder input, so Whisper is driven through these
-(the JAX package's CLI cannot serve it either). Inference only.
+(the JAX package's CLI cannot serve it either). Trained through ``loss``
+with ``frames`` in the batch; each encoder and decoder layer is then
+rematerialised (``nn.transformer.remat``), as the reference checkpoints
+its scanned layer bodies.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ from ..nn.ffn import FFN
 from ..nn.linear import QuantEmbedding
 from ..nn.module import stack_init, truncated_normal_init
 from ..nn.norms import LayerNorm
-from ..nn.transformer import _layer, hoist
+from ..nn.transformer import _layer, hoist, remat
 from .lm import CACHE_DTYPE, cross_entropy, mask_padded_vocab
 
 __all__ = ["Whisper"]
@@ -92,10 +95,13 @@ class Whisper:
         p = self.hoist(p)
         ln, attn, ffn = self._ln(), self._attn(False), self._ffn()
         x = frames + p["pos_enc"].to(frames.dtype)[None]
-        for layer in range(self.cfg.enc_layers):
-            lp = _layer(p["enc"], layer)
+
+        def layer_fn(lp, x):
             x = x + attn.apply(lp["attn"], ln.apply(lp["ln1"], x), policy)
-            x = x + ffn.apply(lp["ffn"], ln.apply(lp["ln2"], x), policy)
+            return x + ffn.apply(lp["ffn"], ln.apply(lp["ln2"], x), policy)
+
+        for layer in range(self.cfg.enc_layers):
+            x = remat(layer_fn, _layer(p["enc"], layer), x)
         return ln.apply(p["ln_enc"], x)
 
     def decode_seq(self, p, tokens: torch.Tensor, enc_states: torch.Tensor, policy: Policy) -> torch.Tensor:
@@ -109,11 +115,14 @@ class Whisper:
         if s > table.shape[0]:
             table = table.repeat(-(-s // table.shape[0]), 1)
         x = x + table[:s].to(x.dtype)[None]
-        for layer in range(self.cfg.n_layers):
-            lp = _layer(p["dec"], layer)
+
+        def layer_fn(lp, x, enc_states):
             x = x + sattn.apply(lp["self_attn"], ln.apply(lp["ln1"], x), policy)
             x = x + xattn.apply(lp["cross_attn"], ln.apply(lp["ln_x"], x), policy, kv=enc_states)
-            x = x + ffn.apply(lp["ffn"], ln.apply(lp["ln2"], x), policy)
+            return x + ffn.apply(lp["ffn"], ln.apply(lp["ln2"], x), policy)
+
+        for layer in range(self.cfg.n_layers):
+            x = remat(layer_fn, _layer(p["dec"], layer), x, enc_states)
         return emb.attend(p["embed"], ln.apply(p["ln_dec"], x), policy)
 
     def loss(self, p, batch_dict, policy: Policy) -> torch.Tensor:

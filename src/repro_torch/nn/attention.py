@@ -3,7 +3,7 @@
 Counterpart of ``repro.nn.attention``: MHA, GQA and MQA (any KV head count
 dividing the heads), causal masking or none (an encoder's), a sliding
 window (SWA), cross-attention (``kv=``: Whisper's decoder), RoPE and M-RoPE
-(Qwen2-VL), biased q/k/v projections. Inference only.
+(Qwen2-VL), biased q/k/v projections.
 
 The full-sequence path (``Attention.apply``) runs ``dispatch.flash_attention``
 on the model layout, q [B, S, H, D] and k, v [B, S, Kh, D]: the
@@ -13,6 +13,10 @@ with its chunks and its bf16 PV). The reference computes this call with
 its XLA ``flash_attention`` and never calls its Pallas kernel, which
 computes the same function; routing the model to the kernel is a recorded
 deviation (``ROADMAP.md`` Queue 3), like the RWKV-6 prefill's wkv route.
+Trained, the same call is differentiable: its forward also writes each
+row's log-sum-exp and its backward is ``flash_bwd``, a port of the
+reference's custom VJP (``dispatch._FlashAttention``), for self- and
+cross-attention, causal, windowed and with a ``prefix`` alike.
 The rotary embedding takes the positions it is given (default 0, 1, ...;
 M-RoPE's are [B, S, 3] (t, h, w) ids), but the mask is by index: causal is
 j <= max(i, ``prefix`` - 1), which is the reference's mask on its positions

@@ -10,7 +10,8 @@ four projections are ``quant_einsum`` weight sites (packed codes run the
 matmul kernel); the rest runs in plain torch ops, as the reference runs
 its scan in ``lax.scan``s outside any Pallas kernel. The reference chunks
 the scan into scans of 256 steps, sequential across chunks, so the per-token
-loop here computes the same values. Inference only.
+loop here computes the same values; trained, the loop keeps each state
+out of place, so autograd goes through it (the same values).
 
 The decode step keeps the reference's cache: the f32 state [B, d_inner,
 d_state] and the last d_conv - 1 inputs of the convolution. The window is
@@ -101,11 +102,18 @@ class Mamba:
         recurrence's multiply and add, one token at a time."""
         da = torch.exp(dt[..., None] * a)  # [B, S, di, ds]
         dbx = (dt * x)[..., None] * bm[:, :, None, :]
-        hs = torch.empty_like(da)
-        for t in range(x.shape[1]):
-            torch.mul(h, da[:, t], out=hs[:, t])
-            hs[:, t] += dbx[:, t]
-            h = hs[:, t]
+        if torch.is_grad_enabled() and (h.requires_grad or da.requires_grad or dbx.requires_grad):  # trained
+            states = []
+            for t in range(x.shape[1]):
+                h = h * da[:, t] + dbx[:, t]
+                states.append(h)
+            hs = torch.stack(states, dim=1)
+        else:
+            hs = torch.empty_like(da)
+            for t in range(x.shape[1]):
+                torch.mul(h, da[:, t], out=hs[:, t])
+                hs[:, t] += dbx[:, t]
+                h = hs[:, t]
         return (hs * cm[:, :, None, :]).sum(-1), h
 
     def apply(self, p, u: torch.Tensor, policy: Policy) -> torch.Tensor:

@@ -26,7 +26,10 @@ into g = gcd(tokens, ``dispatch_groups``) groups (the reference's
 
 The reference's gather-based combine switch (``REPRO_MOE_GATHER_COMBINE``)
 is not ported. The router is not a weight site: a served tree hands it
-decoded (``nn.transformer.hoist``). Inference only.
+decoded (``nn.transformer.hoist``). Trained, the dispatch's gradient is
+the transpose of the reference's (``_Dispatch``); routing, the combine and
+the load-balancing loss go through plain autograd, the router's gradient
+from the gates and the loss.
 """
 from __future__ import annotations
 
@@ -57,6 +60,39 @@ def record_routes():
         yield out
     finally:
         _ROUTES.pop()
+
+
+def _dispatch(xq: torch.Tensor, slots, e: int, cap: int, k: int, bdt) -> torch.Tensor:
+    """Each token's row k times into its assignments' slots of a zero [g, E,
+    C, d] buffer of ``bdt`` (the drop bucket E cut off). The buffer is
+    written as bytes: index_put_ on the card takes no FP8 dtype."""
+    g, _, d = xq.shape
+    src = xq.to(bdt).repeat_interleave(k, dim=1)  # [g, t*k, d]
+    buf = torch.zeros((g, e + 1, cap, d), dtype=bdt, device=xq.device)
+    bytes_of = (lambda z: z.view(torch.uint8)) if bdt.itemsize == 1 else (lambda z: z)
+    bytes_of(buf).index_put_(slots, bytes_of(src))
+    return buf[:, :e]
+
+
+class _Dispatch(torch.autograd.Function):
+    """``_dispatch`` cast to the compute dtype, with the transpose of the
+    reference's cast, scatter, repeat and cast as its backward: the
+    buffer's gradient rounded to ``bdt`` (the cast's transpose), each
+    assignment's slot gathered (zero in the drop bucket), a token's k rows
+    summed in f32 and rounded to ``bdt`` once, then cast to xq's dtype."""
+
+    @staticmethod
+    def forward(ctx, xq, slots, e, cap, k, bdt, cdt):
+        ctx.slots, ctx.k, ctx.bdt, ctx.x_dtype = slots, k, bdt, xq.dtype
+        return _dispatch(xq, slots, e, cap, k, bdt).to(cdt)
+
+    @staticmethod
+    def backward(ctx, g):
+        gb = torch.nn.functional.pad(g.to(ctx.bdt).to(torch.float32), (0, 0, 0, 0, 0, 1))  # + the drop bucket
+        rows = gb[ctx.slots]  # [g, t*k, d]
+        n, tk, d = rows.shape
+        dx = rows.reshape(n, tk // ctx.k, ctx.k, d).sum(2).to(ctx.bdt).to(ctx.x_dtype)
+        return dx, None, None, None, None, None, None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,14 +178,12 @@ class MoE:
         gi = torch.arange(g, device=dev)[:, None].expand(g, tg * k)
         xq = quant_act(xf, policy)  # the activations entering the expert products
         bdt = policy.act_dtypes()[0] if policy.act_fwd == "fp8" else xq.dtype
-        src = xq.to(bdt).repeat_interleave(k, dim=1)  # [g, t*k, d]: each token's row k times
-        # the buffer is written as bytes: index_put_ on the card takes no FP8 dtype
-        buf = torch.zeros((g, e + 1, cap, d), dtype=bdt, device=dev)
-        bytes_of = (lambda z: z.view(torch.uint8)) if bdt.itemsize == 1 else (lambda z: z)
-        bytes_of(buf).index_put_((gi, route.slot_e, route.slot_c), bytes_of(src))
-
         cdt = policy.cdt() or x.dtype
-        be = buf[:, :e].to(cdt)
+        slots = (gi, route.slot_e, route.slot_c)
+        if torch.is_grad_enabled() and xq.requires_grad:
+            be = _Dispatch.apply(xq, slots, e, cap, k, bdt, cdt)
+        else:
+            be = _dispatch(xq, slots, e, cap, k, bdt).to(cdt)
         hi = quant_einsum("gecd,edh->gech", be, p["wi"], policy)
         hg = quant_einsum("gecd,edh->gech", be, p["wg"], policy)
         act = _silu(hg, self.quant_silu and policy.sigmoid_quant) * hi

@@ -5,16 +5,18 @@ Counterpart of ``repro.nn.rwkv``, with its parameter names and its
 simplifications (one learned token-shift lerp per projection, decay LoRA
 rank 64). The receptance gates (``g`` of the time mix, ``r`` of the channel
 mix) are the paper's two-region FloatSD8 sigmoid through
-``dispatch.qsigmoid``: its kernel on the card. Inference only: no gradient
-is defined through the kernels.
+``dispatch.qsigmoid``: its kernel on the card, with the reference's
+straight-through gradient when trained.
 
 The wkv recurrence of a full sequence from a zero state (``state is None``,
 S > 1, S % 16 == 0) runs ``dispatch.rwkv_wkv``, the hand-written chunked
 kernel on the card. The reference computes that case with its XLA chunked
 scan (``_wkv_chunked``); its Pallas kernel computes the same function but
 no model module calls it, so routing the model to the kernel is a recorded
-deviation (``ROADMAP.md`` Queue 3). Every other call runs the per-token
-recurrence ``_wkv_sequential`` in plain torch ops. For S = 1 (each decode
+deviation (``ROADMAP.md`` Queue 3); trained, its backward recomputes the
+reference model's chunked scan under autograd (``dispatch._RwkvWkv``).
+Every other call runs the per-token recurrence ``_wkv_sequential`` in
+plain torch ops, trained through plain autograd, as the reference's. For S = 1 (each decode
 step) and S % 16 != 0 the reference does the same; for S > 1, S % 16 == 0
 from a carried state it takes its chunked scan from that state, and the
 port the per-token loop, the same function (no caller passes such a
@@ -101,8 +103,8 @@ class RWKV6TimeMix:
         r = quant_einsum("bsd,dk->bsk", lerp(0), p["wr"], policy)
         k = quant_einsum("bsd,dk->bsk", lerp(1), p["wk"], policy)
         v = quant_einsum("bsd,dk->bsk", lerp(2), p["wv"], policy)
-        with no_tf32():
-            wl = (lerp(3).to(torch.float32) @ p["w_lora_a"]) @ p["w_lora_b"]
+        with no_tf32():  # an fp16 master promotes to f32, as the reference's einsum promotes it
+            wl = (lerp(3).to(torch.float32) @ p["w_lora_a"].to(torch.float32)) @ p["w_lora_b"].to(torch.float32)
         w = torch.exp(-torch.exp(p["w0"] + wl))  # data-dependent decay in (0, 1)
         g = quant_einsum("bsd,dk->bsk", lerp(4), p["wg"], policy)
         return r, k, v, w, g
@@ -126,7 +128,7 @@ class RWKV6TimeMix:
         r, k, v, w, g = self._proj(p, xq, xprev, policy)
         rh, kh, vh = map(self._heads, (r, k, v))
         wh = self._heads(w.to(torch.float32))
-        u = p["u"]
+        u = p["u"].to(torch.float32)  # an fp16 master's gradient is cast back to fp16, as in the reference
         if state is None and s > 1 and s % rw_ops.CHUNK == 0:
             ys, s_fin = kd.rwkv_wkv(rh, kh, vh, wh, u)
         else:

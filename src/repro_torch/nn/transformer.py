@@ -10,6 +10,14 @@ MLPs (``ffn``; ``moe``: the mixture of experts, whose load-balancing loss
 hybrid: 8), with every parameter leaf stacked on a leading group axis, as
 the reference's scanned stack has them, and loops over the groups.
 
+Trained (grad on and an input requiring it), each group runs under
+``torch.utils.checkpoint`` (``remat``): its activations are recomputed in
+the backward, as the reference's scanned stack rematerialises its body
+(``jax.checkpoint``). The reference keeps the body's matmul outputs (its
+``dots`` policy); the port recomputes the whole group, the same values
+(a recorded deviation, ``ROADMAP.md`` Queue 3), and the recompute's
+kernel launches are counted like any other.
+
 A served stack's leaves are FloatSD8 ``PackedTensor``s with one bias per
 stacked leaf. ``hoist`` decodes the small ones (everything but the weight
 sites) to f32 once, for all layers; layer ``l`` then gets ``codes[l]``
@@ -21,8 +29,9 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.utils.checkpoint
 
-from .._tree import tree_map
+from .._tree import tree_leaves, tree_map
 from ..core import floatsd
 from ..core.policy import Policy
 from ..kernels import dispatch as kd
@@ -35,7 +44,7 @@ from .norms import LayerNorm, RMSNorm
 from .rwkv import WEIGHT_SITES as RWKV_SITES
 from .rwkv import RWKV6ChannelMix, RWKV6TimeMix, RWKVState
 
-__all__ = ["Block", "Stack", "hoist", "WEIGHT_SITES"]
+__all__ = ["Block", "Stack", "hoist", "remat", "WEIGHT_SITES"]
 
 #: the leaf names a matmul reads: the RWKV mixes' projections, Mamba's four
 #: projections, the experts' wi, wg and wo, and the weight ``w`` of every
@@ -66,6 +75,16 @@ def hoist(tree, name: str = ""):
     if kd.is_packed(tree) and name not in WEIGHT_SITES:
         return floatsd.decode(tree.codes, tree.bias)
     return tree
+
+
+def remat(fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` (non-reentrant) when
+    grad is on and a tensor among ``args`` (nested in dicts, tuples and
+    lists) requires it: the backward recomputes ``fn`` instead of keeping
+    its activations. Otherwise a plain call."""
+    if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad for t in tree_leaves(args)):
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def _layer(tree, l: int):
@@ -212,13 +231,18 @@ class Stack:
                 for i, b in enumerate(self.blocks)}
 
     def apply(self, p, x: torch.Tensor, policy: Policy, positions=None, prefix: int = 0):
-        """x [B, S, d] -> (x, the summed load-balancing loss)."""
+        """x [B, S, d] -> (x, the summed load-balancing loss). Trained, each
+        group is rematerialised (``remat``)."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer in range(self.n_groups):
-            lp = _layer(p, layer)
-            for i, b in enumerate(self.blocks):
-                x, a = b.apply(lp[f"b{i}"], x, policy, positions, prefix)
-                aux = aux + a
+            x, aux = remat(self._group, _layer(p, layer), x, aux, policy, positions, prefix)
+        return x, aux
+
+    def _group(self, lp, x: torch.Tensor, aux: torch.Tensor, policy: Policy, positions, prefix: int):
+        """One group's blocks in order, each's loss added to ``aux``."""
+        for i, b in enumerate(self.blocks):
+            x, a = b.apply(lp[f"b{i}"], x, policy, positions, prefix)
+            aux = aux + a
         return x, aux
 
     def init_cache(self, batch: int, s_max: int | None, dtype, device):

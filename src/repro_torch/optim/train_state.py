@@ -87,8 +87,10 @@ def make_train_step(loss_fn, opt: Optimizer, policy: Policy, lr: float = 1e-3,
         params = tree_map(lambda p: p.detach().requires_grad_(), state.params)
         raw_loss = loss_fn(params, batch, run_policy)
         scaled = ls.scale_loss(raw_loss.to(torch.float32), state.scale)
-        flat = iter(torch.autograd.grad(scaled, tree_leaves(params)))
+        flat = iter(torch.autograd.grad(scaled, tree_leaves(params), allow_unused=True))
+        # a leaf the loss does not read (a vlm's patch_proj without patches) gets zeros, as from jax.grad
         grads = tree_map(lambda _: next(flat), params)
+        grads = tree_map(lambda g, p: torch.zeros_like(p) if g is None else g, grads, params)
         # the loss-scaled values the FP8 quantizer is about to see
         tel = obs_telemetry.fp8_grad_stats(grads) if telemetry else None
         if run_policy.grad_quant in ("fp8", "fp8_kernel"):

@@ -1686,3 +1686,91 @@ def test_reduced_hybrid_and_moe_models_on_the_kernels_match_their_plain_versions
         assert torch.equal(a.expert_idx, b.expert_idx)
     scale = max(1.0, float(want.abs().max()))
     torch.testing.assert_close(got, want, rtol=0, atol=2.0 ** -8 * scale)
+
+
+# the training path's flash forward: each row's log-sum-exp beside o. The
+# kernel's scores carry f32 accuracy up to their sum order (the six-piece
+# products), so its lse stays within 1e-4 + 1e-5 |lse| of the chunked plain
+# version's; o is the same bits with the lse and without it
+LSE_ATOL, LSE_RTOL = 1e-4, 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,kh,d,causal,window,dtype", FLASH_SHAPES)
+def test_flash_attention_lse_matches_the_plain_version_and_o_is_unchanged(dev, b, sq, skv, h, kh, d, causal,
+                                                                           window, dtype):
+    q, k, v = _flash_inputs(dev, b, sq, skv, h, kh, d, dtype)
+    o = flash_attention(q, k, v, causal=causal, window=window)
+    n0 = flash_attention.launches
+    o2, lse = flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1 and lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    assert torch.equal(o, o2)
+    _, want = flash_attention_gqa(q, k, v, causal=causal, window=window, return_lse=True)
+    torch.testing.assert_close(lse, want, rtol=LSE_RTOL, atol=LSE_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,kh,d,prefix,dtype", FLASH_PREFIX_SHAPES)
+def test_flash_attention_lse_under_a_prefix(dev, b, s, h, kh, d, prefix, dtype):
+    q, k, v = _flash_inputs(dev, b, s, s, h, kh, d, dtype, seed=prefix)
+    o, lse = flash_attention(q, k, v, prefix=prefix, return_lse=True)
+    assert torch.equal(o, flash_attention(q, k, v, prefix=prefix))
+    _, want = flash_attention_gqa(q, k, v, prefix=prefix, return_lse=True)
+    torch.testing.assert_close(lse, want, rtol=LSE_RTOL, atol=LSE_ATOL)
+
+
+# the differentiable dispatch ops with the kernel's forward against the same
+# ops with the plain forward (backend="ref"), the backward plain PyTorch in
+# both: wkv's and qsigmoid's backward read only the inputs, so their
+# gradients are the same bits; flash's reads o and lse, which differ within
+# the forward's bound, so its gradients are held to that bound (f32: atol
+# 6e-3, rtol 2e-2 of the gradient's scale max(1, max |want|))
+GRAD_CASES = {
+    "flash-causal-window": lambda dev: ("flash", _flash_inputs(dev, 2, 200, 200, 8, 2, 120, torch.float32),
+                                        dict(causal=True, window=64)),
+    "flash-dense-prefill": lambda dev: ("flash", _flash_inputs(dev, 1, 1024, 1024, 32, 8, 120, torch.float32),
+                                        dict(causal=True, window=4096)),
+    "flash-prefix": lambda dev: ("flash", _flash_inputs(dev, 2, 200, 200, 6, 1, 128, torch.float32, seed=40),
+                                 dict(prefix=40)),
+    "flash-cross": lambda dev: ("flash", _flash_inputs(dev, 2, 64, 300, 4, 4, 64, torch.float32),
+                                dict(causal=False)),
+    "wkv": lambda dev: ("wkv", _wkv_grad_inputs(dev), {}),
+    "qsigmoid": lambda dev: ("qsigmoid", (torch.randn((4, 64, 256), device=dev, generator=_gen(dev, 9)) * 4,), {}),
+}
+
+
+def _wkv_grad_inputs(dev, b=2, s=64, h=4, k=32):
+    g = _gen(dev, 11)
+    r, kk, v = (torch.randn((b, s, h, k), device=dev, generator=g) * 0.5 for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn((b, s, h, k), device=dev, generator=g) - 2))
+    return r, kk, v, w, torch.randn((h, k), device=dev, generator=g) * 0.3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GRAD_CASES))
+def test_dispatch_gradients_with_the_kernel_forward_match_the_plain_forward(dev, case):
+    op, ins, kw = GRAD_CASES[case](dev)
+    fn = {"flash": kd.flash_attention, "wkv": kd.rwkv_wkv, "qsigmoid": kd.qsigmoid}[op]
+    counter = {"flash": flash_attention, "wkv": rwkv_wkv, "qsigmoid": qsigmoid}[op]
+
+    def grads(backend):
+        xs = [t.detach().clone().requires_grad_() for t in ins]
+        with kd.use_backend(backend):
+            out = fn(*xs, **kw)
+        outs = out if isinstance(out, tuple) else (out,)
+        g = _gen(dev, 13)
+        cts = [torch.randn(o.shape, device=dev, generator=g) for o in outs]
+        return torch.autograd.grad(outs, xs, cts)
+
+    n0 = counter.launches
+    got = grads(None)
+    assert counter.launches == n0 + 1
+    want = grads("ref")
+    assert counter.launches == n0 + 1
+    for a, b in zip(got, want):
+        if op == "flash":
+            scale = max(1.0, float(b.abs().max()))
+            torch.testing.assert_close(a, b, rtol=2e-2, atol=6e-3 * scale)
+        else:
+            assert torch.equal(a, b)
