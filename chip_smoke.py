@@ -254,6 +254,35 @@ Phases, in order; the first failure exits non-zero:
                 device operations); then 2 layers of the same width under
                 fp32 on the kernels against backend="ref" (phase 25's
                 bounds).
+ 27. dense4     FloatSD4 serving of a stacked model: h2o_danube3_4b at its
+                published width and depth from its FloatSD4 store
+                (2,078,169,600 resident bytes, asserted; the stacked leaves
+                nibble-packed and grouped along the layer axis, as the JAX
+                package packs them): phase 14's prefill, decode and engine,
+                every weight site and the head on floatsd4_matmul (169 a
+                prefill: each layer's code and exponent planes read in
+                place), none on the FloatSD8 matmul or the plain path.
+ 28. dense4-x   phase 15 from the FloatSD4 store.
+ 29. family4-x  rwkv6_3b at 2 layers of full width, the reduced Jamba and
+                DBRX, qwen2_vl_2b at 2 layers over its patches and
+                whisper_large_v3 at 2 + 2 layers, each from its FloatSD4
+                store on the kernels against backend="ref": fp32 logits
+                within each family's bound, greedy tokens equal over the
+                plain path's margin-decisive prefix.
+ 30. dense84    stablelm_3b and phi4_mini_3p8b in FloatSD8, granite_20b in
+                FloatSD8 and FloatSD4, at their published widths and depths
+                through phase 14 (16 decode steps against the prefill): the
+                resident bytes asserted and the build's peak device memory;
+                granite_20b's FloatSD8 store built by the two-pass streamed
+                pack (its f32 tree would be 80 GB), its FloatSD4 store
+                converted from it leaf by leaf.
+
+The kernel phase's floatsd4_matmul layer-plane rows: a [24, K, N] leaf of
+each dense site shape, layers 22 and 23 bit for bit against the plain
+version on FP8 and FP16 activations at M 1, 8 and 2048, timed beside the
+plain version, torch.matmul on the decoded layer and the bound, the tied
+head beside them; an odd L (the pad nibble), L 40 (the second exponent
+plane, subnormal weights) and N 1000, every layer bit for bit.
 
 The kernel phase's flash_attention training rows (the dense prefill's
 shape and [1,8192,32,120] under the window): the kernel's log-sum-exp
@@ -998,6 +1027,141 @@ def kernel_phase4(torch, dev, flush, floor_ms):
     print(f"  every f32 bit pattern (2^32, {(1 << 32) // chunk} chunks of 2^{F32_SWEEP_LOG2_CHUNK}): 0 differ from the "
           f"plain version, in {sweep_s:.1f} s")
     return mm4, quant, qsig
+
+
+# a stacked FloatSD4 leaf's layer (the JAX package packs a scanned stack along
+# its layer axis): floatsd4_matmul's layout 2 on a layer's code-byte and
+# exponent planes, at the dense family's four site shapes (h2o_danube3_4b's
+# seven weight sites) at decode (M 1, 8 lanes) and prefill (M 2048), beside
+# the tied head's transposed table at the same M
+PLANE_SITES = [("wq-wo", 3840, 3840), ("wk-wv", 3840, 960), ("wi-wg", 3840, 10240), ("ffn-wo", 10240, 3840)]
+PLANE_MS = (1, 8, 2048)
+PLANE_HEAD = ("head", 3840, 32000)  # the tied head: [M, 3840] @ table[32000, 3840]^T
+PLANE_EDGES = [(3, 1024, 1000), (40, 512, 384), (1, 3840, 1000)]  # (L, K, N)
+
+
+def plane_phase(torch, dev, flush):
+    """Phase 3, continued: floatsd4_matmul's layer-plane layout against its
+    plain version: a [24, K, N] FloatSD4 leaf of each dense site shape
+    (from FloatSD8 codes, as the store packs it), its layers 22 (nibble 0)
+    and 23 (nibble 1) bit for bit on FP8 and FP16 activations at M 1, 8 and
+    2048 (FP8 alone at 2048) and two launches bit-identical, timed beside
+    the plain version, torch.matmul on the decoded f32 layer and the bound;
+    the tied head (the transposed table) at the same M; then an odd L (the
+    last layer's pad nibble), L 40 (layers 32-39 on the second exponent
+    plane, at exponent -126 there) and an N that is not a multiple of 16,
+    every layer bit for bit, the last one timed."""
+    from repro_torch.core import floatsd4
+    from repro_torch.core.fp8 import FP16, quantize_fp8
+    from repro_torch.kernels import dispatch as kd
+    from repro_torch.kernels.floatsd4_matmul.ops import floatsd4_matmul
+    from repro_torch.kernels.floatsd4_matmul.ref import floatsd4_matmul_ref
+    from repro_torch.kernels.floatsd_matmul.ref import no_tf32, plan
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    rows = {}
+    print("kernels: floatsd4_matmul's layer planes (layout 2: a stacked leaf packed along its layer axis, "
+          "codes[l >> 1] and exps[l >> 5] [K, N], nibble l & 1; 2 bytes a weight) vs plain version, bit for bit "
+          "on FP8/FP16 activations", flush=True)
+    cases = [(site, k, n, False) for site, k, n in PLANE_SITES] + [(*PLANE_HEAD, True)]
+    for site, k, n, tr in cases:
+        if tr:  # the tied head: the [N, K] table packed along N, read in place
+            w4 = kd.pack4(torch.randn((n, k), device=dev, generator=g) * 0.02)
+            views = [w4]
+        else:
+            w4 = kd.pack4(kd.PackedTensor(*floatsd_codes(torch, (24, k, n), dev, g)))
+            views = [kd.layer_view4(w4, 22), kd.layer_view4(w4, 23)]
+        for m in PLANE_MS:
+            x = torch.randn((m, k), device=dev, generator=g)
+            acts = (quantize_fp8(x), quantize_fp8(x, FP16)) if m < 2048 else (quantize_fp8(x),)
+            for v in views:
+                nib = None if tr else v.nibble
+                for xq in acts:
+                    y = floatsd4_matmul(xq, v.codes, v.exps, n if tr else k, transposed=tr, nibble=nib)
+                    y2 = floatsd4_matmul(xq, v.codes, v.exps, n if tr else k, transposed=tr, nibble=nib)
+                    want = floatsd4_matmul_ref(xq, v.codes, v.exps, n if tr else k, transposed=tr, nibble=nib)
+                    torch.cuda.synchronize()
+                    mism = int((y != want).sum())
+                    check(mism == 0 and torch.equal(y, y2), f"floatsd4_matmul planes {site} M {m}: {mism} of {m * n} "
+                                                             f"outputs differ from the plain version, or two launches")
+                    del y, y2, want
+            v, xq = views[-1], acts[0]
+            nib = None if tr else v.nibble
+            wd = kd.unpack4(v) if tr else floatsd4.decode_plane(v.codes, v.exps, v.nibble)
+            wk = wd.t() if tr else wd
+            run = lambda: floatsd4_matmul(xq, v.codes, v.exps, n if tr else k, transposed=tr, nibble=nib)  # noqa: E731
+            with no_tf32():
+                t = timed_ms(torch, run, 20 if m < 2048 else 5, flush)
+                t_plain = timed_ms(torch, lambda: floatsd4_matmul_ref(xq, v.codes, v.exps, n if tr else k,
+                                                                      transposed=tr, nibble=nib),
+                                   3 if m < 2048 else 1, flush)
+                t_lib = timed_ms(torch, lambda: torch.matmul(xq, wk), 20 if m < 2048 else 5, flush)
+            wt = v.codes.numel() + v.exps.numel()
+            bd = bound(xq.numel() * 4 + wt + m * n * 4, 2.0 * m * n * k, matmul_peak(xq, wd))
+            p = plan(m, n, k, ordered=True)
+            key = dict(wt_nbytes=wt) if tr else dict(plane=True)
+            rows[(site, m)] = costed(dict(ms=t, plain_ms=t_plain, library_ms=t_lib, err=0.0, **bd),
+                                     "floatsd4_matmul", f"{'head' if tr else 'plane'} {site} [{m},{k}]x[{k},{n}]",
+                                     m, k, n, **key)
+            print(f"  {site:7s} [{m},{k}] x {'table[N,K]^T' if tr else 'planes [K,N]'} N={n}"
+                  f"{'' if tr else ', layers 22 and 23 of 24'}, route A (ordered, {p.splits} chunks of {p.chunk} k): "
+                  f"0 of {m * n} differ on {'FP8 and FP16' if m < 2048 else 'FP8'} activations, two launches "
+                  f"bit-identical | kernel {t:.4f} ms ({t / t_lib:.2f}x torch.matmul), plain {t_plain:.3f} ms, "
+                  f"torch.matmul on the decoded f32 weight {t_lib:.4f} ms, {fmt_bound(bd)}", flush=True)
+            del x, acts
+        del w4, views
+    # the edges: an odd L (layer L - 1's byte carries the pad nibble), L 40
+    # (layers 32.. on the second exponent plane, the last group at exponent
+    # -126), N not a multiple of 16 (the bytewise loads, unaligned planes)
+    for layers, k, n in PLANE_EDGES:
+        w = torch.randn((layers, k, n), device=dev, generator=g) * 0.05
+        if layers > 32 or layers == 1:
+            w[32 * ((layers - 1) // 32):] *= 2.0 ** -126
+        w4 = kd.pack4(w)
+        dense = kd.unpack4(w4)
+        sub = int(((dense != 0) & (dense.abs() < torch.finfo(torch.float32).tiny)).sum())
+        check(sub > 0 or layers == 3, f"floatsd4 planes L {layers}: no subnormal weights")
+        x = quantize_fp8(torch.randn((8, k), device=dev, generator=g))
+        for l in range(layers):
+            v = kd.layer_view4(w4, l)
+            check(torch.equal(floatsd4.decode_plane(v.codes, v.exps, v.nibble), dense[l]),
+                  f"floatsd4 planes L {layers}: layer {l}'s decode")
+            y = floatsd4_matmul(x, v.codes, v.exps, k, nibble=v.nibble)
+            want = floatsd4_matmul_ref(x, v.codes, v.exps, k, nibble=v.nibble)
+            torch.cuda.synchronize()
+            check(torch.equal(y, want), f"floatsd4 planes L {layers} layer {l}: {int((y != want).sum())} differ")
+        # the last layer (the pad nibble's byte, the last exponent plane) timed
+        v, wl = kd.layer_view4(w4, layers - 1), dense[layers - 1]
+        with no_tf32():
+            t = timed_ms(torch, lambda: floatsd4_matmul(x, v.codes, v.exps, k, nibble=v.nibble), 20, flush)
+            t_plain = timed_ms(torch, lambda: floatsd4_matmul_ref(x, v.codes, v.exps, k, nibble=v.nibble), 3, flush)
+            t_lib = timed_ms(torch, lambda: torch.matmul(x, wl), 20, flush)
+        bd = bound(x.numel() * 4 + 2 * k * n + 8 * n * 4, 2.0 * 8 * n * k, matmul_peak(x, wl))
+        rows[(f"L{layers}", 8)] = costed(dict(ms=t, plain_ms=t_plain, library_ms=t_lib, err=0.0, **bd),
+                                         "floatsd4_matmul", f"plane L {layers} [8,{k}]x[{k},{n}]", 8, k, n,
+                                         plane=True)
+        print(f"  L {layers} x [{k},{n}]{' (odd L: the pad nibble)' if layers % 2 else ''}"
+              f"{' (two exponent planes)' if layers > 32 else ''}{' (N % 16 != 0)' if n % 16 else ''}: every layer "
+              f"bit for bit at M 8 on FP8 activations, {sub} subnormal weights | layer {layers - 1}: kernel "
+              f"{t:.4f} ms, plain {t_plain:.3f} ms, torch.matmul on the decoded f32 layer {t_lib:.4f} ms, "
+              f"{fmt_bound(bd)}", flush=True)
+        del w, w4, dense, wl
+    return rows
+
+
+def floatsd_codes(torch, shape, dev, g):
+    """FloatSD8 codes of a random [*shape] weight scaled by its fan-in, and
+    their bias: a stacked leaf as the store packs it, drawn layer by layer."""
+    from repro_torch.core import floatsd
+
+    codes = torch.empty(shape, dtype=torch.uint8, device=dev)
+    bias = None
+    for l in range(shape[0]):
+        w = torch.randn(shape[1:], device=dev, generator=g) / shape[1] ** 0.5
+        if bias is None:  # layer 0's, with room: the others saturate past it
+            bias = int(floatsd.fit_bias(w * 1.25))
+        codes[l] = floatsd.encode(w, bias)[0]
+    return codes, bias
 
 
 BOUND_RTOL = 0.01  # the cost model's bound against the hand bound of the same row
@@ -2171,19 +2335,19 @@ def torch_ops(torch, fn) -> int:
     return Count.n
 
 
-def zoo_decode(torch, model, tree, toks, policy, late: int = 0):
-    """Sequence 0's first ZOO_DECODE tokens through decode_step one at a
-    time (an attention model's KV cache holds them all): (logits
-    [ZOO_DECODE, vocab], wall time of each step). ``late`` > 0 starts an
-    attention model's cache that many positions late, a negative control:
-    its unwritten slots then count as keys."""
+def zoo_decode(torch, model, tree, toks, policy, late: int = 0, n: int = ZOO_DECODE):
+    """Sequence 0's first ``n`` tokens through decode_step one at a time (an
+    attention model's KV cache holds them all): (logits [n, vocab], wall
+    time of each step). ``late`` > 0 starts an attention model's cache that
+    many positions late, a negative control: its unwritten slots then count
+    as keys."""
     out, times = [], []
     with torch.no_grad():
-        cache = model.init_cache(1, policy, toks.device, cache_len=ZOO_DECODE)
+        cache = model.init_cache(1, policy, toks.device, cache_len=n)
         if late:
             kv = cache["stack"]["b0"]
             cache = {**cache, "stack": {"b0": kv._replace(pos=kv.pos + late)}}
-        for t in range(ZOO_DECODE):
+        for t in range(n):
             t0 = time.perf_counter()
             lg, cache = model.decode_step(tree, toks[:1, t:t + 1], cache, policy)
             torch.cuda.synchronize()
@@ -2205,25 +2369,29 @@ def positions_gap(torch, got, want, tol=None) -> dict:
             "argmax": int((got.argmax(-1) == want.argmax(-1)).sum())}
 
 
-def zoo_counters(reset: bool = False) -> dict:
-    """Launch counts of the zoo paths' kernels (zeroed when ``reset``)."""
+def zoo_counters(reset: bool = False, fmt: str = "floatsd8") -> dict:
+    """Launch counts of the zoo paths' kernels (zeroed when ``reset``); a
+    FloatSD4 store's paths count floatsd4_matmul too."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.floatsd4_matmul.ops import floatsd4_matmul
     from repro_torch.kernels.floatsd_matmul.ops import floatsd_matmul
     from repro_torch.kernels.qsigmoid.ops import qsigmoid
     from repro_torch.kernels.rwkv_wkv.ops import rwkv_wkv
 
     wrappers = {"floatsd_matmul": floatsd_matmul, "qsigmoid": qsigmoid, "rwkv_wkv": rwkv_wkv,
                 "flash_attention": flash_attention}
+    if fmt == "floatsd4":
+        wrappers["floatsd4_matmul"] = floatsd4_matmul
     if reset:
         for w in wrappers.values():
             w.launches = 0
     return {op: w.launches for op, w in wrappers.items()}
 
 
-def zoo_build(torch, dev, n_layers=None, arch="rwkv6_3b", **over):
+def zoo_build(torch, dev, n_layers=None, arch="rwkv6_3b", fmt="floatsd8", **over):
     """``arch`` (or its first ``n_layers``; ``over`` replaces other config
-    fields) from seed 0, packed to FloatSD8; the f32 tree is freed before
-    anything is served."""
+    fields) from seed 0, packed to ``fmt`` (FloatSD8 or FloatSD4); the f32
+    tree is freed before anything is served."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2237,19 +2405,21 @@ def zoo_build(torch, dev, n_layers=None, arch="rwkv6_3b", **over):
     model = build(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(SEED))
-    store = WeightStore.pack(params)
+    store = WeightStore.pack(params, fmt=fmt)
     del params
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return cfg, model, store, time.perf_counter() - t0
 
 
-def zoo_serve(torch, model, tree, policy, prompts, backend=None, cache_len=None, max_new=ZOO_MAX_NEW):
+def zoo_serve(torch, model, tree, policy, prompts, backend=None, cache_len=None, max_new=ZOO_MAX_NEW,
+              weight_format="floatsd8"):
     """ServeEngine over the packed store: lanes in lockstep, one token a
     step; returns (engine, requests by rid, decode-step wall times)."""
     from repro_torch.serving import ServeEngine
 
-    eng = ServeEngine(model, tree, policy, lanes=ZOO_LANES, backend=backend, cache_len=cache_len)
+    eng = ServeEngine(model, tree, policy, lanes=ZOO_LANES, backend=backend, cache_len=cache_len,
+                      weight_format=weight_format)
     reqs = eng.submit_all([p.copy() for p in prompts], max_new=max_new)
     times = []
     eng.metrics.start()
@@ -2461,6 +2631,7 @@ def zoo_x_phase(torch, dev, smi):
 # RoPE, rmsnorm, SwiGLU, tied), served in FloatSD8
 DENSE_ARCH = "h2o_danube3_4b"
 DENSE_BYTES = 3_838_970_920  # tree_nbytes of the packed store: 9 stacked leaves + the table + the final norm
+DENSE4_BYTES = 2_078_169_600  # the FloatSD4 store: ceil(k/2) code bytes + ceil(k/32) exponents a column
 DENSE_KV_BYTES = 1_509_949_440  # the engine's bf16 KV cache: 24 layers x 2 x 8 lanes x 2048 x 8 x 120 x 2 B
 DENSE_CACHE_LEN = 2048  # the engine's KV cache positions (the serve CLI's)
 DENSE_SITES = 7  # weight sites a layer: wq, wk, wv, wo of the attention, wi, wg, wo of the FFN
@@ -2473,6 +2644,11 @@ DENSE_X_LAYERS = 2
 # seeds); the bound leaves 2.4x of headroom. A decode whose cache starts one
 # position late (an unwritten slot counted as a key) must exceed it.
 DENSE_TOL = 5e-3
+# the same check on h2o_danube3_4b's FloatSD4 store (dense4): its sound
+# reading is 2.980e-5 of the scale and a cache one position late 4.837e-3,
+# under DENSE_TOL (an H100 80GB HBM3 at 700 W); a bound between the two,
+# 17x above the first and 10x below the second
+DENSE4_TOL = 5e-4
 # kernels against the plain versions at DENSE_X_LAYERS layers, prefill logits
 # with no activation quantizer: one bf16 step (2^-8) of the logit scale. The
 # two attentions round p to bf16 from scores that differ in their last bits,
@@ -2654,9 +2830,10 @@ def flash_phase(torch, dev, flush):
     return rows
 
 
-def profile_prefill(torch, run):
+def profile_prefill(torch, run, mm: str = "floatsd_matmul"):
     """One prefill (``run()``) under torch.profiler: device time (ms) and
-    launches by kernel group, and the wall time (ms) of the same call."""
+    launches by kernel group, and the wall time (ms) of the same call;
+    ``mm`` names the matmul whose partial sums add_partials adds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2668,7 +2845,7 @@ def profile_prefill(torch, run):
         wall = (time.perf_counter() - t0) * 1e3
     names = [("flash_fwd_kernel", "flash_attention"), ("flash_split_kv", "flash_attention"),
              ("rwkv_wkv_kernel", "rwkv_wkv"), ("wkv_chunk_prep", "rwkv_wkv"), ("qsigmoid_kernel", "qsigmoid"),
-             ("floatsd_matmul_", "floatsd_matmul"), ("add_partials", "floatsd_matmul"),
+             ("floatsd4_matmul_", "floatsd4_matmul"), ("floatsd_matmul_", "floatsd_matmul"), ("add_partials", mm),
              ("split_pieces", "floatsd_matmul")]
     groups = {g: [0.0, 0] for _, g in names + [("", "other torch ops")]}
     for e in prof.key_averages():
@@ -2680,11 +2857,37 @@ def profile_prefill(torch, run):
     return {grp: v for grp, v in groups.items() if v[1]}, wall
 
 
+def site_count(store) -> int:
+    """Weight sites a layer of a packed store's stack (a matmul launch each)."""
+    from repro_torch.nn.transformer import WEIGHT_SITES
+
+    return sum(key.split("/")[-1] in WEIGHT_SITES for key in flat_leaves(store.tree["stack"]))
+
+
+def fmt_want(fmt: str, mm: int, flash: int) -> dict:
+    """zoo_counters(fmt)'s launches of a dense-block path: ``mm`` on the
+    format's matmul, none on the other."""
+    want = {"floatsd_matmul": 0, "qsigmoid": 0, "rwkv_wkv": 0, "flash_attention": flash}
+    if fmt == "floatsd4":
+        want["floatsd4_matmul"] = 0
+    want[MM_OP[fmt]] = mm
+    return want
+
+
+MM_OP = {"floatsd8": "floatsd_matmul", "floatsd4": "floatsd4_matmul"}
+FMT_NAME = {"floatsd8": "FloatSD8", "floatsd4": "FloatSD4"}
+
+
 def dense_phase(torch, dev, smi, arch=DENSE_ARCH, what="dense", resident=DENSE_BYTES, leaves=10,
-                kv_want=DENSE_KV_BYTES):
-    """Phase 14 (and 23, for ``VLM_ARCH``): a dense-block model at full
-    width, packed, prefilled (a vlm over its stub patches, the attention's
-    causal prefix), decoded and served."""
+                kv_want=DENSE_KV_BYTES, fmt="floatsd8", built=None, decode_n=ZOO_DECODE, tol=DENSE_TOL):
+    """Phase 14 (and 23, for ``VLM_ARCH``; 27 and 30 in FloatSD4 and for the
+    other dense configs): a dense-block model at full width, packed to
+    ``fmt``, prefilled (a vlm over its stub patches, the attention's causal
+    prefix), decoded ``decode_n`` tokens and served. ``built``: (cfg, model,
+    store, build seconds, peak bytes) of a store built by the caller (a
+    streamed one), else the model is drawn and packed here. ``tol``: the
+    bound of the decode-vs-prefill check with no activation quantizer,
+    which a cache one position late must exceed."""
     import numpy as np
 
     from repro_torch.core.policy import get_policy
@@ -2693,13 +2896,21 @@ def dense_phase(torch, dev, smi, arch=DENSE_ARCH, what="dense", resident=DENSE_B
     from repro_torch.serving import synthetic_prompts
 
     held = torch.cuda.memory_allocated()
-    cfg, model, store, t_build = zoo_build(torch, dev, arch=arch)
-    L = cfg.n_layers
+    if built is None:
+        torch.cuda.reset_peak_memory_stats()
+        cfg, model, store, t_build = zoo_build(torch, dev, arch=arch, fmt=fmt)
+        peak = torch.cuda.max_memory_allocated()
+    else:
+        cfg, model, store, t_build, peak = built
+    check(store.fmt == fmt, f"{what}: a {store.fmt} store for a {fmt} phase")
+    L, mm = cfg.n_layers, MM_OP[fmt]
+    sites = site_count(store)
     print(f"{what}: {cfg.name} ({L} layers, d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.hd} over "
-          f"{cfg.kv_heads} KV heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, window {cfg.window}"
+          f"{cfg.kv_heads} KV heads, d_ff {cfg.d_ff} {cfg.ffn_kind}, {cfg.norm}, vocab {cfg.vocab}, window {cfg.window}"
           + (f", M-RoPE sections {cfg.mrope_sections}, {cfg.n_patches} stub patches" if cfg.n_patches else "")
-          + f") from seed {SEED}: {store.dense_nbytes} B f32 -> {store.packed_nbytes} B packed FloatSD8 "
-          f"({store.n_packed} leaves) in {t_build:.1f} s; {held} B held on the card before the build", flush=True)
+          + f") from seed {SEED}: {store.dense_nbytes} B f32 -> {store.packed_nbytes} B packed {FMT_NAME[fmt]} "
+          f"({store.n_packed} leaves) in {t_build:.1f} s, peak device memory {peak} B; {held} B held on the card "
+          f"before the build", flush=True)
     check(store.packed_nbytes == resident and store.n_packed == leaves,
           f"{what} resident bytes {store.packed_nbytes} != {resident} ({store.n_packed} leaves packed)")
     pol = get_policy("floatsd8_table6").replace(weight_quant="none")
@@ -2709,18 +2920,18 @@ def dense_phase(torch, dev, smi, arch=DENSE_ARCH, what="dense", resident=DENSE_B
     if cfg.n_patches:
         g = torch.Generator(device=dev).manual_seed(SEED + 9)
         batch["patch_embeds"] = torch.randn((ZOO_B, cfg.n_patches, cfg.d_model), device=dev, generator=g)
-    n_sites = DENSE_SITES * L + 1
-    out = {}
+    n_sites = sites * L + 1
+    out = {"resident": store.packed_nbytes, "peak": peak, "build_s": t_build}
 
     kd.STATS.reset()
-    zoo_counters(reset=True)
+    zoo_counters(reset=True, fmt=fmt)
     with torch.no_grad():
         t0 = time.perf_counter()
         logits = model.prefill(tree, batch, pol)
         torch.cuda.synchronize()
         wall_first = time.perf_counter() - t0
-    launches, stats = zoo_counters(), kd.STATS.snapshot()
-    want = {"floatsd_matmul": n_sites, "qsigmoid": 0, "rwkv_wkv": 0, "flash_attention": L}
+    launches, stats = zoo_counters(fmt=fmt), kd.STATS.snapshot()
+    want = fmt_want(fmt, n_sites, L)
     check(launches == want, f"{what} prefill launches {launches} != {want}")
     check(stats == {(op, "cuda"): n for op, n in want.items() if n}, f"{what} prefill dispatch records {stats}")
     # the attention's calls carried the patches as the causal prefix
@@ -2735,13 +2946,13 @@ def dense_phase(torch, dev, smi, arch=DENSE_ARCH, what="dense", resident=DENSE_B
         model.prefill(tree, batch, pol)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    groups, wall_prof = profile_prefill(torch, lambda: model.prefill(tree, batch, pol))
+    groups, wall_prof = profile_prefill(torch, lambda: model.prefill(tree, batch, pol), mm)
     busy = sum(ms for ms, _ in groups.values())
     out["prefill"] = dict(launches=launches, wall_s=wall, tok_s=ZOO_B * ZOO_S / wall, profile=groups)
     print(f"{what} prefill: B {ZOO_B} x S {ZOO_S}"
           + (f" ({cfg.n_patches} patch embeddings first, the attention's causal prefix)" if cfg.n_patches else "")
           + f": {wall * 1e3:.1f} ms wall ({wall_first * 1e3:.1f} ms the first), {ZOO_B * ZOO_S / wall:.0f} tok/s "
-          f"({smi}); launches {launches} (per layer {DENSE_SITES} weight sites, 1 attention; + the head); dispatch "
+          f"({smi}); launches {launches} (per layer {sites} weight sites, 1 attention; + the head); dispatch "
           f"{dict((f'{o}/{b}', n) for (o, b), n in stats.items())}; logits finite, |max| "
           f"{float(logits.abs().max()):.3f}. Profiled prefill: {wall_prof:.1f} ms wall, device busy {busy:.1f} ms: "
           + ", ".join(f"{grp} {ms:.1f} ms ({n} kernels)" for grp, (ms, n) in groups.items()), flush=True)
@@ -2750,49 +2961,49 @@ def dense_phase(torch, dev, smi, arch=DENSE_ARCH, what="dense", resident=DENSE_B
             logits = model.prefill(tree, {"tokens": toks}, pol)
 
     kd.STATS.reset()
-    zoo_counters(reset=True)
-    dec, times = zoo_decode(torch, model, tree, toks, pol)
-    launches, stats = zoo_counters(), kd.STATS.snapshot()
+    zoo_counters(reset=True, fmt=fmt)
+    dec, times = zoo_decode(torch, model, tree, toks, pol, n=decode_n)
+    launches, stats = zoo_counters(fmt=fmt), kd.STATS.snapshot()
     with torch.no_grad():
-        cache = model.init_cache(1, pol, dev, cache_len=ZOO_DECODE)
+        cache = model.init_cache(1, pol, dev, cache_len=decode_n)
         n_ops = torch_ops(torch, lambda: model.decode_step(tree, toks[:1, :1], cache, pol))
         del cache
-    want = {"floatsd_matmul": n_sites * ZOO_DECODE, "qsigmoid": 0, "rwkv_wkv": 0, "flash_attention": 0}
+    want = fmt_want(fmt, n_sites * decode_n, 0)
     check(launches == want and sum(n for (_, b), n in stats.items() if b == "ref") == 0,
           f"{what} decode launches {launches} != {want}; dispatch {stats}")
     check(bool(torch.isfinite(dec).all()), f"{what} decode: nonfinite logits")
-    served = positions_gap(torch, dec, logits[0, :ZOO_DECODE], DENSE_TOL)
+    served = positions_gap(torch, dec, logits[0, :decode_n], tol)
     fp32 = get_policy("fp32")
     with torch.no_grad():
-        ref32 = model.prefill(tree, {"tokens": toks[:1, :ZOO_DECODE]}, fp32)[0]
-    dec32, _ = zoo_decode(torch, model, tree, toks, fp32)
-    plain = positions_gap(torch, dec32, ref32, DENSE_TOL)
-    check(plain["max"] <= DENSE_TOL, f"{what} decode vs prefill, no activation quantizer: max err "
-                                     f"{plain['max']:.3e} of the scale {plain['scale']:.3f} (bound {DENSE_TOL})")
-    late, _ = zoo_decode(torch, model, tree, toks, fp32, late=1)
-    control = positions_gap(torch, late, ref32, DENSE_TOL)
-    check(control["max"] > DENSE_TOL, f"{what} decode: the bound {DENSE_TOL} does not reject a cache one position "
-                                      f"late (max err {control['max']:.3e} of the scale)")
+        ref32 = model.prefill(tree, {"tokens": toks[:1, :decode_n]}, fp32)[0]
+    dec32, _ = zoo_decode(torch, model, tree, toks, fp32, n=decode_n)
+    plain = positions_gap(torch, dec32, ref32, tol)
+    late, _ = zoo_decode(torch, model, tree, toks, fp32, late=1, n=decode_n)
+    control = positions_gap(torch, late, ref32, tol)
     step = statistics.median(times[1:])
     out["decode"] = dict(launches=launches, step_ms=step * 1e3, tok_s=1 / step, aten_ops=n_ops, served=served,
                          plain=plain, late_control=control)
-    print(f"{what} decode: {ZOO_DECODE} steps of sequence 0 (B 1): median step {step * 1e3:.2f} ms, {1 / step:.1f} "
+    print(f"{what} decode: {decode_n} steps of sequence 0 (B 1): median step {step * 1e3:.2f} ms, {1 / step:.1f} "
           f"tok/s ({smi}), {n_ops} ATen operations a step; launches {launches}. Against the "
-          + ("text-only " if cfg.n_patches else "") + f"prefill's logits at positions 0-{ZOO_DECODE - 1}: with no "
+          + ("text-only " if cfg.n_patches else "") + f"prefill's logits at positions 0-{decode_n - 1}: with no "
           f"activation quantizer (policy fp32, the same codes) max err {plain['max']:.3e} of the scale "
-          f"{plain['scale']:.3f} (bound {DENSE_TOL}; position {ZOO_DECODE - 1}: {plain['last']:.3e}), argmax equal "
-          f"at {plain['argmax']} of {ZOO_DECODE}; negative control, the cache one position late: max err "
+          f"{plain['scale']:.3f} (bound {tol}; position {decode_n - 1}: {plain['last']:.3e}), argmax equal "
+          f"at {plain['argmax']} of {decode_n}; negative control, the cache 1 position late: max err "
           f"{control['max']:.3e}, beyond the bound from position {control['first']}; under floatsd8_table6 "
-          f"(reported) max err {served['max']:.3e} of the scale {served['scale']:.3f}, within {DENSE_TOL} up to "
-          f"position {served['first'] - 1}, argmax equal at {served['argmax']} of {ZOO_DECODE}", flush=True)
+          f"(reported) max err {served['max']:.3e} of the scale {served['scale']:.3f}, within {tol} up to "
+          f"position {served['first'] - 1}, argmax equal at {served['argmax']} of {decode_n}", flush=True)
+    check(plain["max"] <= tol, f"{what} decode vs prefill, no activation quantizer: max err "
+                               f"{plain['max']:.3e} of the scale {plain['scale']:.3f} (bound {tol})")
+    check(control["max"] > tol, f"{what} decode: the bound {tol} does not reject a cache 1 position late "
+                                f"(max err {control['max']:.3e} of the scale)")
     del logits, ref32, dec, dec32, late
 
     prompts = synthetic_prompts(ZOO_LANES, cfg.vocab, np.random.default_rng(SEED))
     kd.STATS.reset()
-    zoo_counters(reset=True)
+    zoo_counters(reset=True, fmt=fmt)
     eng, reqs, times = zoo_serve(torch, model, store.tree, get_policy("floatsd8_table6"), prompts,
-                                 cache_len=DENSE_CACHE_LEN)
-    launches, stats = zoo_counters(), kd.STATS.snapshot()
+                                 cache_len=DENSE_CACHE_LEN, weight_format=fmt)
+    launches, stats = zoo_counters(fmt=fmt), kd.STATS.snapshot()
     m = eng.metrics
     kv = eng.pool.caches["stack"]["b0"]
     kv_bytes = kv.k.numel() * kv.k.element_size() + kv.v.numel() * kv.v.element_size()
@@ -2800,7 +3011,7 @@ def dense_phase(torch, dev, smi, arch=DENSE_ARCH, what="dense", resident=DENSE_B
           f"{what} engine: chunk {eng.chunk}, store {eng.store.packed_nbytes}, KV cache {kv_bytes} B")
     check(all(r.status == "done" and len(r.out) == ZOO_MAX_NEW for r in reqs) and m.numeric_errors == 0,
           f"{what} engine: {[r.status for r in reqs]}, {m.numeric_errors} nonfinite")
-    want = {"floatsd_matmul": n_sites * m.steps, "qsigmoid": 0, "rwkv_wkv": 0, "flash_attention": 0}
+    want = fmt_want(fmt, n_sites * m.steps, 0)
     check(launches == want and sum(n for (_, b), n in stats.items() if b == "ref") == 0,
           f"{what} engine launches {launches} != {want}; dispatch {stats}")
     step = statistics.median(times)
@@ -2815,11 +3026,11 @@ def dense_phase(torch, dev, smi, arch=DENSE_ARCH, what="dense", resident=DENSE_B
     return out
 
 
-def dense_x_phase(torch, dev, smi, arch=DENSE_ARCH, what="dense-x"):
-    """Phase 15 (and 24, for ``VLM_ARCH``): the dense path at full width and
-    DENSE_X_LAYERS layers on the kernels against backend="ref" (the plain
-    versions) on the card: the prefill's logits (a vlm's over its stub
-    patches) and the engine's greedy tokens."""
+def dense_x_phase(torch, dev, smi, arch=DENSE_ARCH, what="dense-x", fmt="floatsd8"):
+    """Phase 15 (and 24, for ``VLM_ARCH``; 28 in FloatSD4): the dense path
+    at full width and DENSE_X_LAYERS layers on the kernels against
+    backend="ref" (the plain versions) on the card: the prefill's logits (a
+    vlm's over its stub patches) and the engine's greedy tokens."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -2827,7 +3038,7 @@ def dense_x_phase(torch, dev, smi, arch=DENSE_ARCH, what="dense-x"):
     from repro_torch.kernels import dispatch as kd
     from repro_torch.serving import synthetic_prompts
 
-    cfg, model, store, _ = zoo_build(torch, dev, DENSE_X_LAYERS, arch=arch)
+    cfg, model, store, _ = zoo_build(torch, dev, DENSE_X_LAYERS, arch=arch, fmt=fmt)
     tree = model.hoist(store.tree)
     toks = torch.as_tensor(np.random.default_rng(SEED).integers(0, cfg.vocab, (ZOO_B, ZOO_S)), device=dev)
     batch = {"tokens": toks}
@@ -2837,13 +3048,17 @@ def dense_x_phase(torch, dev, smi, arch=DENSE_ARCH, what="dense-x"):
     gaps = {}
     for name in ("fp32", "floatsd8_table6"):
         pol = get_policy(name).replace(weight_quant="none")
+        kd.STATS.reset()
         with torch.no_grad():
             got = model.prefill(tree, batch, pol)
+            stats = kd.STATS.snapshot()
             t0 = time.perf_counter()
             with kd.use_backend("ref"):
                 want = model.prefill(tree, batch, pol)
             torch.cuda.synchronize()
             t_ref = time.perf_counter() - t0
+        check(set(stats) == {(MM_OP[fmt], "cuda"), ("flash_attention", "cuda")},
+              f"{what} prefill on the kernels: dispatch {stats}")
         gaps[name] = positions_gap(torch, got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1]),
                                    DENSE_X_TOL)
         gaps[name]["bit_equal"] = float((got == want).float().mean())
@@ -2853,11 +3068,12 @@ def dense_x_phase(torch, dev, smi, arch=DENSE_ARCH, what="dense-x"):
                                      f"of the scale {g32['scale']:.3f} (bound {DENSE_X_TOL})")
     prompts = synthetic_prompts(ZOO_LANES, cfg.vocab, np.random.default_rng(SEED))
     pol8 = get_policy("floatsd8_table6")
-    _, reqs, _ = zoo_serve(torch, model, store.tree, pol8, prompts, cache_len=DENSE_CACHE_LEN)
-    _, refs, ref_times = zoo_serve(torch, model, store.tree, pol8, prompts, backend="ref", cache_len=DENSE_CACHE_LEN)
+    _, reqs, _ = zoo_serve(torch, model, store.tree, pol8, prompts, cache_len=DENSE_CACHE_LEN, weight_format=fmt)
+    _, refs, ref_times = zoo_serve(torch, model, store.tree, pol8, prompts, backend="ref", cache_len=DENSE_CACHE_LEN,
+                                   weight_format=fmt)
     decisive, agree = decisive_tokens(reqs, refs, what)
-    print(f"{what} ({DENSE_X_LAYERS} of {get_config(arch).n_layers} layers at full width, kernels vs "
-          f"backend='ref' on the card): prefill logits [{ZOO_B},{ZOO_S}]"
+    print(f"{what} ({DENSE_X_LAYERS} of {get_config(arch).n_layers} layers at full width in {FMT_NAME[fmt]}, "
+          f"kernels vs backend='ref' on the card): prefill logits [{ZOO_B},{ZOO_S}]"
           + (f" over {cfg.n_patches} patches" if cfg.n_patches else "")
           + f" with no activation quantizer (policy fp32, the same codes) max err {g32['max']:.3e} of the scale "
           f"{g32['scale']:.3f} (bound {DENSE_X_TOL}), {g32['bit_equal']:.2%} bit-equal; under floatsd8_table6 "
@@ -2870,6 +3086,171 @@ def dense_x_phase(torch, dev, smi, arch=DENSE_ARCH, what="dense-x"):
     del store, tree
     torch.cuda.empty_cache()
     return gaps
+
+
+# phase 29: every other family from its FloatSD4 store at small depth, on the
+# kernels against backend="ref": (what, arch, config overrides, reduced, bound
+# on the fp32 logits against the plain path)
+# the RWKV-6 stack's bound is the card tests' model-level one (the reduced
+# RWKV-6 on the kernels against its plain versions within 1e-4 of the logit
+# scale): from FloatSD4 weights with f32 activations the products are not
+# exact, the kernel's fused multiply-adds round apart from the plain
+# version's, and 2 layers at full width moved the logits 2.668e-5 of the
+# scale (an H100 80GB HBM3 at 700 W), past ZOO_X_TOL, which holds the
+# FloatSD8 stack at 3x its measured gap
+ZOO4_X_TOL = 1e-4
+FAMILY4_X = [("ssm", "rwkv6_3b", dict(n_layers=2), False, ZOO4_X_TOL),
+             ("hybrid", "jamba_v01_52b", {}, True, DENSE_X_TOL),
+             ("moe", "dbrx_132b", {}, True, DENSE_X_TOL),
+             ("vlm", "qwen2_vl_2b", dict(n_layers=2), False, DENSE_X_TOL),
+             ("audio", "whisper_large_v3", dict(n_layers=2, enc_layers=2), False, DENSE_X_TOL)]
+
+
+def family4_x_phase(torch, dev, smi):
+    """Phase 29: rwkv6_3b at 2 layers of full width, the reduced Jamba
+    period and DBRX, qwen2_vl_2b at 2 layers (over its stub patches) and
+    whisper_large_v3 at 2 + 2 layers, each from its FloatSD4 store (the
+    stacked leaves packed along the layer axis), on the kernels against
+    backend="ref" on the card: the teacher-forced logits under fp32 (every
+    weight site on floatsd4_matmul, none on the FloatSD8 matmul or the
+    plain path), then greedy tokens over the plain path's margin-decisive
+    prefix: the engine's under floatsd8_table6, Whisper's through
+    prefill_cross and decode_step under fp32 (as audio-x holds them)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import dispatch as kd
+    from repro_torch.models import build
+    from repro_torch.serving import WeightStore, synthetic_prompts
+
+    out = {"launches": {}}
+    fp32 = get_policy("fp32")
+    for what, arch, over, reduced, tol in FAMILY4_X:
+        cfg = get_config(arch).reduced() if reduced else dataclasses.replace(get_config(arch), **over)
+        model = build(cfg)
+        store = WeightStore.pack(model.init(torch.Generator(device=dev).manual_seed(SEED)), fmt="floatsd4")
+        torch.cuda.empty_cache()
+        tree = model.hoist(store.tree)
+        audio = cfg.family == "audio"
+        s = MOE_S if reduced else ZOO_S
+        rng = np.random.default_rng(SEED)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (ZOO_B, AUDIO_DEC if audio else s)), device=dev)
+        g = torch.Generator(device=dev).manual_seed(SEED + 13)
+        batch = {"tokens": toks}
+        if cfg.n_patches:
+            batch["patch_embeds"] = torch.randn((ZOO_B, cfg.n_patches, cfg.d_model), device=dev, generator=g)
+        frames = torch.randn((ZOO_B, cfg.enc_seq, cfg.d_model), device=dev, generator=g) if audio else None
+
+        def logits():
+            if audio:
+                return model.decode_seq(tree, toks, model.encode(tree, frames, fp32), fp32)
+            return model.prefill(tree, batch, fp32)
+
+        kd.STATS.reset()
+        zoo_counters(reset=True, fmt="floatsd4")
+        with torch.no_grad():
+            got = logits()
+            launches, stats = zoo_counters(fmt="floatsd4"), kd.STATS.snapshot()
+            t0 = time.perf_counter()
+            with kd.use_backend("ref"):
+                want = logits()
+            torch.cuda.synchronize()
+            t_ref = time.perf_counter() - t0
+        check(launches["floatsd4_matmul"] > 0 and launches["floatsd_matmul"] == 0
+              and not any(b == "ref" for _, b in stats) and ("floatsd4_matmul", "cuda") in stats,
+              f"family4-x {what}: launches {launches}, dispatch {stats}")
+        if not audio:
+            sites = ZOO_SITES * cfg.n_layers + 1 if cfg.family == "ssm" else mm_sites(model)
+            check(launches["floatsd4_matmul"] == sites, f"family4-x {what}: {launches['floatsd4_matmul']} "
+                                                        f"floatsd4_matmul launches, {sites} sites")
+        gap = positions_gap(torch, got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1]), tol)
+        check(gap["max"] <= tol, f"family4-x {what}: fp32 logits max err {gap['max']:.3e} of the scale "
+                                 f"{gap['scale']:.3f} (bound {tol})")
+        zoo_counters(reset=True, fmt="floatsd4")
+        if audio:
+            frames8 = torch.randn((ZOO_LANES, cfg.enc_seq, cfg.d_model), device=dev, generator=g)
+            reqs, *_ = whisper_greedy(torch, model, tree, frames8, fp32, AUDIO_NEW)
+            refs, *_ = whisper_greedy(torch, model, tree, frames8, fp32, AUDIO_NEW, backend="ref")
+            served = f"{ZOO_LANES} lanes x {AUDIO_NEW} greedy tokens under fp32 (prefill_cross, decode_step)"
+        else:
+            prompts = synthetic_prompts(ZOO_LANES, cfg.vocab, np.random.default_rng(SEED))
+            pol8 = get_policy("floatsd8_table6")
+            cl = None if cfg.family == "ssm" else DENSE_CACHE_LEN
+            _, reqs, _ = zoo_serve(torch, model, store.tree, pol8, prompts, cache_len=cl, weight_format="floatsd4")
+            _, refs, _ = zoo_serve(torch, model, store.tree, pol8, prompts, backend="ref", cache_len=cl,
+                                   weight_format="floatsd4")
+            served = f"engine, {ZOO_LANES} lanes x {ZOO_MAX_NEW} new tokens under floatsd8_table6"
+        served_launches = zoo_counters(fmt="floatsd4")
+        decisive, agree = decisive_tokens(reqs, refs, f"family4-x {what}")
+        for op, n in launches.items():
+            out["launches"][op] = out["launches"].get(op, 0) + n + served_launches[op]
+        print(f"family4-x {what}: {arch} {'reduced' if reduced else f'at full width, {over}'} in FloatSD4 "
+              f"({store.n_packed} leaves, {store.packed_nbytes} B), kernels vs backend='ref' on the card ({smi}): "
+              f"{'encode + decode_seq' if audio else 'prefill'} launches {launches}; logits under fp32 max err "
+              f"{gap['max']:.3e} of the scale {gap['scale']:.3f} (bound {tol}), argmax equal at {gap['argmax']} of "
+              f"{got.reshape(-1, got.shape[-1]).shape[0]}; plain pass {t_ref:.2f} s; {served}: {decisive} tokens "
+              f"margin-decisive and equal, {agree} of {len(refs)} streams equal in full", flush=True)
+        del store, tree, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+# phase 30: the dense configs never served at their published widths before,
+# at full depth: (arch, FloatSD8 resident bytes, FloatSD4 resident bytes,
+# packed leaves, the engine's bf16 KV cache at 8 lanes x 2048 positions). The
+# FloatSD8 bytes are the codes + a 4-byte bias a packed leaf + the f32 1-D
+# leaves; FloatSD4 ceil(k/2) code bytes + ceil(k/32) exponents a column
+DENSE84 = [("stablelm_3b", 2_667_253_820, 1_416_988_160, 15, 5_368_709_120),
+           ("phi4_mini_3p8b", 3_836_424_232, 2_038_106_112, 10, 2_147_483_648),
+           ("granite_20b", 20_014_781_496, 10_775_034_880, 14, 436_207_616)]
+DENSE84_DECODE = 16  # decode steps held against the prefill (64 for h2o_danube3_4b)
+STREAMED = ("granite_20b",)  # its 80 GB f32 tree never exists: the two-pass streamed pack
+
+
+def dense84_phase(torch, dev, smi):
+    """Phase 30: stablelm_3b (head size 80, MHA, layernorm, qkv bias) and
+    phi4_mini_3p8b (a 200,064-token tied head) in FloatSD8, granite_20b (MQA
+    48:1, GELU) in FloatSD8 and FloatSD4, each at its published width and
+    depth through dense_phase: the resident bytes, the peak device memory of
+    the build, a 2 x 1024 prefill on the kernels, decode steps against it
+    and the 8-lane engine. granite_20b's FloatSD8 store is built by the
+    two-pass streamed pack (its f32 tree would be 80 GB), its FloatSD4
+    store converted from it leaf by leaf."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.serving import WeightStore
+
+    out = {}
+    for arch, bytes8, bytes4, leaves, kv in DENSE84:
+        torch.cuda.empty_cache()
+        if arch not in STREAMED:
+            out[arch] = dense_phase(torch, dev, smi, arch, arch, bytes8, leaves, kv, decode_n=DENSE84_DECODE)
+            continue
+        cfg = get_config(arch)
+        model = build(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        store = WeightStore.pack_streamed(model.init, SEED, dev)
+        torch.cuda.synchronize()
+        built = (cfg, model, store, time.perf_counter() - t0, torch.cuda.max_memory_allocated())
+        out[arch] = dense_phase(torch, dev, smi, arch, arch, bytes8, leaves, kv, built=built,
+                                decode_n=DENSE84_DECODE)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        store4 = WeightStore.requantized4(store)
+        del store, built
+        torch.cuda.synchronize()
+        built4 = (cfg, model, store4, time.perf_counter() - t0, torch.cuda.max_memory_allocated())
+        del store4
+        out[f"{arch}/floatsd4"] = dense_phase(torch, dev, smi, arch, f"{arch} floatsd4", bytes4, leaves, kv,
+                                              fmt="floatsd4", built=built4, decode_n=DENSE84_DECODE)
+        del built4
+    torch.cuda.empty_cache()
+    return out
 
 
 # the serving frontend (phase 16): the main path's full-width LM behind the
@@ -3469,8 +3850,7 @@ def hybrid_phase(torch, dev, smi, cfg=None):
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    store = WeightStore.pack_streamed(lambda pack: model.init(gen, each=pack))
+    store = WeightStore.pack_streamed(model.init, SEED, dev)
     torch.cuda.synchronize()
     t_build, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
     torch.cuda.empty_cache()
@@ -4595,6 +4975,9 @@ def main() -> int:
     print(f"kernels: timing floor {floor_ms:.4f} ms (the timer below around a one-element torch.neg)", flush=True)
     mm, cell, dx, dw, cell_bwd = kernel_phase(torch, dev, flush, floor_ms)
     mm4, quant, qsig = kernel_phase4(torch, dev, flush, floor_ms)
+    t0 = time.perf_counter()
+    plane = plane_phase(torch, dev, flush)
+    print(f"kernels: floatsd4_matmul's layer planes in {time.perf_counter() - t0:.1f} s", flush=True)
     wkv = wkv_phase(torch, dev, flush)
     zmm = zoo_matmul_phase(torch, dev, flush)
     dmm = zoo_matmul_phase(torch, dev, flush, DENSE_ARCH, DENSE_MM_SITES, SEED + 5)
@@ -4730,6 +5113,29 @@ def main() -> int:
     zt = zoo_train_phase(torch, dev, smi, fa_train)
     print(f"zoo-train: phase 26 in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # 27-28. FloatSD4 serving of a stacked model: h2o_danube3_4b at full width
+    # and depth from its FloatSD4 store (the layer planes), then 2 layers
+    # against the plain path
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dense4 = dense_phase(torch, dev, smi, DENSE_ARCH, "dense4", DENSE4_BYTES, 10, DENSE_KV_BYTES, fmt="floatsd4",
+                         tol=DENSE4_TOL)
+    print(f"dense4: phase 27 in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    dense_x_phase(torch, dev, smi, DENSE_ARCH, "dense4-x", fmt="floatsd4")
+    print(f"dense4-x: phase 28 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 29. every other family from its FloatSD4 store against the plain path
+    t0 = time.perf_counter()
+    f4x = family4_x_phase(torch, dev, smi)
+    print(f"family4-x: phase 29 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 30. stablelm_3b, phi4_mini_3p8b and granite_20b (both formats) at their
+    # published widths and depths
+    t0 = time.perf_counter()
+    d84 = dense84_phase(torch, dev, smi)
+    print(f"dense84: phase 30 in {time.perf_counter() - t0:.1f} s", flush=True)
+
     # result lines: each kernel's time per decode step (serving), per train
     # step, or per entry-point pass, from the kernel phase's per-launch times
     # and the launch counts of each path
@@ -4756,7 +5162,7 @@ def main() -> int:
          None, None, [(L * S, cell_bwd[(64, 1024)])],
          "train step: 96 x z [64,4096], c_prev/dh/dc [64,1024] -> dz, dc_prev"),
         ("floatsd4_matmul", "floatsd4_matmul/floatsd4_matmul.cu", "floatsd4_matmul/kernel.py:29",
-         mm4.values(), [(2 * L, mm4[("gate", 8)]), (1, mm4[("head", 8)])],
+         [*mm4.values(), *plane.values()], [(2 * L, mm4[("gate", 8)]), (1, mm4[("head", 8)])],
          "FloatSD4 decode step at 8 lanes: 4 x [8,1024]@[1024,4096] + [8,1024]@table[33280,1024]^T "
          "(transposed mode)", None, None),
         ("floatsd_quantize", "floatsd_quantize/floatsd_quantize.cu", "floatsd_quantize/kernel.py:32",
@@ -4779,7 +5185,9 @@ def main() -> int:
              "entry": ent["launches"], "runtime": rt["launches"], "zoo": zoo["launches"],
              "dense": dense["launches"], "frontend": front["launches"], "http": http["launches"],
              "hybrid": hybrid["launches"], "moe": moe["launches"], "audio": audio["launches"],
-             "vlm": vlm["launches"], "zoo_train_x": ztx["launches"], "zoo_train": zt["launches"]}
+             "vlm": vlm["launches"], "zoo_train_x": ztx["launches"], "zoo_train": zt["launches"],
+             "dense4": dense4["launches"], "family4_x": f4x["launches"],
+             **{arch: r["launches"] for arch, r in d84.items()}}
     # the zoo prefill's share of the kernels it shares with the LSTM paths
     zoo_prefill = {
         "floatsd_matmul": ([(6 * ZL, zmm[("dd", ZOO_B * ZOO_S)]), (ZL, zmm[("cmix-k", ZOO_B * ZOO_S)]),
@@ -4828,6 +5236,14 @@ def main() -> int:
                 parts = [(2 * DL, dmm[("wq-wo", m)]), (2 * DL, dmm[("wk-wv", m)]), (2 * DL, dmm[("wi-wg", m)]),
                          (DL, dmm[("ffn-wo", m)]), (1, dmm[("head", m)])]
                 rec[key] = {**composite(parts), "per": f"{what}: {DENSE_SITES * DL + 1} sites at M = {m}"}
+        if name == "floatsd4_matmul":
+            # the layer planes of the dense family's stacked leaves, at its prefill and its 8-lane decode step
+            for key, m, what in (("dense4_prefill", ZOO_B * ZOO_S, f"dense4 prefill at B {ZOO_B} x S {ZOO_S}"),
+                                 ("dense4_decode_step", ZOO_LANES, f"dense4 decode step at {ZOO_LANES} lanes")):
+                parts = [(2 * DL, plane[("wq-wo", m)]), (2 * DL, plane[("wk-wv", m)]),
+                         (2 * DL, plane[("wi-wg", m)]), (DL, plane[("ffn-wo", m)]), (1, plane[("head", m)])]
+                rec[key] = {**composite(parts), "per": f"{what}: {DENSE_SITES * DL} layer-plane sites + the head "
+                                                      f"(the transposed table) at M = {m}"}
         if name == "rwkv_wkv":
             rec["train_backward_plain_ms"] = wkv_train["bwd_plain_ms"]
         if name == "flash_attention":
@@ -4839,7 +5255,8 @@ def main() -> int:
                        "library: SDPA's forward (attn_mask=band)"}
         for key, path in (("zoo_prefill_profiled", zoo), ("dense_prefill_profiled", dense),
                           ("hybrid_prefill_profiled", hybrid), ("audio_prefill_profiled", audio),
-                          ("vlm_prefill_profiled", vlm)):
+                          ("vlm_prefill_profiled", vlm), ("dense4_prefill_profiled", dense4),
+                          *((f"{arch}_prefill_profiled", r) for arch, r in d84.items())):
             ms, n = path["prefill"]["profile"].get(name, (0.0, 0))
             if n:
                 rec[key] = {"device_ms": ms, "kernels": n}

@@ -26,7 +26,7 @@ from .floatsd import exp2i
 __all__ = [
     "MANTISSA_VALUES", "LUT16", "ZERO_CODE", "SPARE_CODE", "GROUP", "TOP",
     "fit_group_exp", "encode", "decode", "pack_nibbles", "unpack_nibbles",
-    "decode_packed", "gather_decode",
+    "decode_packed", "decode_plane", "gather_decode",
 ]
 
 GROUP = 32  # rows of axis 0 sharing one exponent
@@ -133,6 +133,18 @@ def decode_packed(packed: torch.Tensor, exps: torch.Tensor, k: int,
                   dtype=torch.float32) -> torch.Tensor:
     """A nibble-packed code stream -> the dense [k, ...] tensor."""
     return decode(unpack_nibbles(packed, k), exps, dtype=dtype)
+
+
+def decode_plane(codes: torch.Tensor, exps: torch.Tensor, nibble: int,
+                 dtype=torch.float32) -> torch.Tensor:
+    """One layer of a stacked leaf packed along its layer axis: ``codes``
+    is the byte plane ``codes[l >> 1]`` and ``exps`` the exponent plane
+    ``exps[l >> 5]`` of the same shape, ``nibble`` = l & 1. Each element
+    has its own exponent, shared with the same element of up to 31 other
+    layers."""
+    code = (codes >> (4 * nibble)) & 0xF
+    m = _table(LUT16, codes)[code.to(torch.int64)]
+    return (m * exp2i(exps.to(torch.int32))).to(dtype)
 
 
 def gather_decode(packed: torch.Tensor, exps: torch.Tensor, tokens: torch.Tensor,

@@ -2,9 +2,10 @@
 plain PyTorch version.
 
 Counterpart of ``repro.kernels.dispatch``: the serving ops over FloatSD8
-(``PackedTensor``) and FloatSD4 (``PackedTensor4``) weights (an MoE's
-expert products one matmul launch an expert, where the reference's engine
-decodes the packed tree), the backward
+(``PackedTensor``) and FloatSD4 (``PackedTensor4``, and ``LayerTensor4``:
+one layer of a stacked FloatSD4 leaf, which the reference packs along its
+layer axis) weights (an MoE's expert products one matmul launch an expert,
+where the reference's engine decodes the packed tree), the backward
 ops, weight hoists and training wrappers (``train_matmul``,
 ``lstm_cell_train``) of the fused quantized-BPTT training path, and the
 element-wise ``quantize`` and ``qsigmoid`` entry points, the chunked
@@ -72,7 +73,7 @@ __all__ = [
     "DispatchStats", "STATS", "LEDGER", "COST_SPECS", "use_backend", "matmul", "lstm_cell",
     "packed_einsum", "expert_einsum", "hoist_packed", "matmul_dx", "matmul_dw", "lstm_cell_grad",
     "pack_train", "hoist_train", "train_matmul", "lstm_cell_train", "inference_only",
-    "PackedTensor4", "is_packed4", "is_any_packed", "pack4",
+    "PackedTensor4", "is_packed4", "LayerTensor4", "is_layer4", "layer_view4", "is_any_packed", "pack4",
     "unpack4", "matmul4", "quantize", "qsigmoid", "rwkv_wkv", "flash_attention",
 ]
 
@@ -114,8 +115,36 @@ def is_packed4(x: Any) -> bool:
     return isinstance(x, PackedTensor4)
 
 
+class LayerTensor4(NamedTuple):
+    """Layer l of a stacked FloatSD4 leaf [L, ..., K, N], which the
+    reference's store nibble-packs and groups along axis 0, the layer axis
+    (``PackedTensor4`` with k = L): the code-byte plane ``codes[l >> 1]``,
+    the exponent plane ``exps[l >> 5]`` of the same shape, and the nibble
+    ``l & 1``. Element (k, n) of the layer is ``LUT16[(byte >> 4 nibble) &
+    0xF] * 2^exp``: one exponent an element, shared with the same element
+    of up to 31 other layers, so it is not a ``PackedTensor4`` of the layer
+    (whose exponents are shared along K)."""
+
+    codes: torch.Tensor  # uint8 [..., K, N]
+    exps: torch.Tensor  # int8, codes' shape
+    nibble: int  # 0 or 1
+    # f32 decode [..., K, N], set by hoist_packed when the plain version runs
+    dense: torch.Tensor | None = None
+
+
+def is_layer4(x: Any) -> bool:
+    return isinstance(x, LayerTensor4)
+
+
+def layer_view4(w4: PackedTensor4, l: int) -> LayerTensor4:
+    """Layer ``l``'s view of a stacked FloatSD4 leaf (no copy)."""
+    if not 0 <= l < w4.k:
+        raise IndexError(f"layer {l} of a stacked FloatSD4 leaf of {w4.k} layers")
+    return LayerTensor4(w4.codes[l >> 1], w4.exps[l // floatsd4.GROUP], l & 1)
+
+
 def is_any_packed(x: Any) -> bool:
-    return isinstance(x, (PackedTensor, PackedTensor4))
+    return isinstance(x, (PackedTensor, PackedTensor4, LayerTensor4))
 
 
 def pack4(w) -> PackedTensor4:
@@ -358,46 +387,55 @@ def lstm_cell(z: torch.Tensor, c_prev: torch.Tensor, *, quantized: bool = True,
     return h, c
 
 
-def matmul4(x: torch.Tensor, w4: PackedTensor4, *, transposed: bool = False,
+def matmul4(x: torch.Tensor, w4, *, transposed: bool = False,
             backend: str | None = None) -> torch.Tensor:
-    """x [..., K] @ decode4(w4) -> [..., N] f32, w4 packed [K, N] or, when
-    ``transposed``, the [N, K] table read in place (the tied head). x is
-    taken in f32, exactly as ``matmul`` takes it. On the card both layouts
-    run the kernel; the JAX package decodes the table and multiplies
+    """x [..., K] @ decode4(w4) -> [..., N] f32, w4 a PackedTensor4 packed
+    [K, N] or, when ``transposed``, the [N, K] table read in place (the tied
+    head), or a LayerTensor4's [K, N] planes (a stacked leaf's layer). x is
+    taken in f32, exactly as ``matmul`` takes it. On the card every layout
+    runs the kernel; the JAX package decodes the table and multiplies
     densely for the head, because a Pallas block cannot transpose a nibble
-    stream: the same function, and a CUDA thread reads any nibble."""
+    stream, and decodes a stacked tree whole each step: the same function,
+    and a CUDA thread reads any nibble."""
+    plane = is_layer4(w4)
+    if plane and (transposed or w4.codes.dim() != 2):
+        raise NotImplementedError(f"matmul4: a layer's planes {tuple(w4.codes.shape)} are [K, N], "
+                                  f"contracted on K")
     k = x.shape[-1]
+    rows = w4.codes.shape[0] if plane else w4.k
     n = w4.k if transposed else w4.codes.shape[1]
     x2 = x.reshape(-1, k).to(torch.float32).contiguous()
     m = x2.shape[0]
+    nibble = w4.nibble if plane else None
     be, why = _resolve(x2, backend)
     if be == "ref":
-        y = floatsd4_matmul_ref(x2, w4.codes, w4.exps, w4.k, transposed=transposed,
-                                dense=w4.dense)
+        y = floatsd4_matmul_ref(x2, w4.codes, w4.exps, rows, transposed=transposed,
+                                dense=w4.dense, nibble=nibble)
     else:
-        y = fm4_ops.floatsd4_matmul(x2, w4.codes, w4.exps, w4.k, transposed=transposed)
+        y = fm4_ops.floatsd4_matmul(x2, w4.codes, w4.exps, rows, transposed=transposed, nibble=nibble)
     if be == "ref" and w4.dense is not None:  # the plain version reads the hoisted decode
         _record("floatsd4_matmul", be, why, (m, k, n, True), lambda: fm_cost.matmul_like_cost(
             m, k, n, b_bytes=4, decode=False), _nbytes(x2, w4.dense, y))
     else:
         wt = _nbytes(w4.codes, w4.exps)
-        _record("floatsd4_matmul", be, why, (m, k, n, wt), lambda: fm4_cost.matmul4_fwd_cost(
-            m, k, n, backend=be, wt_nbytes=wt), wt + _nbytes(x2, y))
+        _record("floatsd4_matmul", be, why, (m, k, n, wt, plane), lambda: fm4_cost.matmul4_fwd_cost(
+            m, k, n, backend=be, wt_nbytes=None if plane else wt, plane=plane), wt + _nbytes(x2, y))
     return y.reshape(*x.shape[:-1], n)
 
 
 def packed_einsum(eq: str, x: torch.Tensor, packed, *,
                   backend: str | None = None) -> torch.Tensor:
-    """The weight-site einsums over a PackedTensor or PackedTensor4:
-    ``...d,df->...f`` / ``bd,dk->bk`` (contract w's first axis),
-    ``...d,vd->...v`` (contract w's second axis: the tied logits head,
-    whose codes the kernel reads in place), and the experts' products
+    """The weight-site einsums over a PackedTensor, PackedTensor4 or
+    LayerTensor4: ``...d,df->...f`` / ``bd,dk->bk`` (contract w's first
+    axis), ``...d,vd->...v`` (contract w's second axis: the tied logits
+    head, whose codes the kernel reads in place), and the experts' products
     ``gecd,edh->gech`` / ``gech,ehd->gecd`` over FloatSD8 codes [E, K, N]
-    (``expert_einsum``). Returns f32."""
+    or a layer's FloatSD4 planes [E, K, N] (``expert_einsum``). Returns
+    f32."""
     ins, out = eq.replace(" ", "").split("->")
     xl, wl = ins.split(",")
     cl = xl[-1]
-    if len(wl) == 3 and is_packed(packed):
+    if len(wl) == 3 and (is_packed(packed) or is_layer4(packed)):
         return expert_einsum(eq, x, packed, backend=backend)
     if len(wl) != 2 or cl not in wl or packed.codes.dim() != 2:
         raise NotImplementedError(f"packed_einsum does not support {eq!r}")
@@ -405,19 +443,21 @@ def packed_einsum(eq: str, x: torch.Tensor, packed, *,
     wf = wl[0] if transposed else wl[1]
     if out != xl[:-1] + wf:
         raise NotImplementedError(f"packed_einsum does not support {eq!r}")
-    if is_packed4(packed):
+    if is_packed4(packed) or is_layer4(packed):
         return matmul4(x, packed, transposed=transposed, backend=backend)
     return matmul(x, packed.codes, packed.bias, transposed=transposed, dense=packed.dense,
                   backend=backend)
 
 
-def expert_einsum(eq: str, x: torch.Tensor, packed: PackedTensor, *,
+def expert_einsum(eq: str, x: torch.Tensor, packed, *,
                   backend: str | None = None) -> torch.Tensor:
     """The MoE's per-expert products over FloatSD8 codes [E, K, N] with
-    one bias: ``gecd,edh->gech`` (and ``gech,ehd->gecd``). For each expert
-    e, x[:, e] ([g, C, K], g*C rows) times the codes[e] through ``matmul``: E calls,
-    each the kernel on the card (and recorded) or the plain version's
-    decode and product. Returns f32 [g, E, C, N]."""
+    one bias, or over a stacked MoE layer's FloatSD4 planes [E, K, N]
+    (a ``LayerTensor4``): ``gecd,edh->gech`` (and ``gech,ehd->gecd``). For
+    each expert e, x[:, e] ([g, C, K], g*C rows) times the codes[e] through
+    ``matmul`` or ``matmul4``: E calls, each the kernel on the card (and
+    recorded) or the plain version's decode and product. Returns f32 [g,
+    E, C, N]."""
     ins, out = eq.replace(" ", "").split("->")
     xl, wl = ins.split(",")
     el, cl, fl = wl
@@ -426,9 +466,15 @@ def expert_einsum(eq: str, x: torch.Tensor, packed: PackedTensor, *,
         raise NotImplementedError(f"packed_einsum does not support {eq!r} on codes "
                                   f"{tuple(packed.codes.shape)}")
     e = x.shape[1]
-    ys = [matmul(x[:, i], packed.codes[i], packed.bias,
-                 dense=None if packed.dense is None else packed.dense[i], backend=backend)
-          for i in range(e)]
+    if is_layer4(packed):
+        ys = [matmul4(x[:, i], LayerTensor4(packed.codes[i], packed.exps[i], packed.nibble,
+                                            None if packed.dense is None else packed.dense[i]),
+                      backend=backend)
+              for i in range(e)]
+    else:
+        ys = [matmul(x[:, i], packed.codes[i], packed.bias,
+                     dense=None if packed.dense is None else packed.dense[i], backend=backend)
+              for i in range(e)]
     return torch.stack(ys, dim=1)
 
 
@@ -437,9 +483,9 @@ def hoist_packed(w, *, backend: str | None = None):
 
     When the plain version will run the matmuls, decoding the codes once
     outside the loop beats a decode at every step: the returned
-    PackedTensor / PackedTensor4 carries the decode in ``dense``. On the
-    card the codes stay as they are, since decoding in the tile is the
-    kernel's point. Anything else passes through.
+    PackedTensor / PackedTensor4 / LayerTensor4 carries the decode in
+    ``dense``. On the card the codes stay as they are, since decoding in the
+    tile is the kernel's point. Anything else passes through.
     """
     if not is_any_packed(w) or w.dense is not None:
         return w
@@ -447,6 +493,8 @@ def hoist_packed(w, *, backend: str | None = None):
         return w
     if is_packed4(w):
         return w._replace(dense=unpack4(w))
+    if is_layer4(w):
+        return w._replace(dense=floatsd4.decode_plane(w.codes, w.exps, w.nibble))
     return w._replace(dense=floatsd.decode(w.codes, w.bias, dtype=torch.float32))
 
 
@@ -866,6 +914,7 @@ COST_SPECS: dict[str, costmodel.CostSpec] = {spec.op: spec for spec in (
     costmodel.CostSpec(
         "floatsd4_matmul", fm4_cost.matmul4_fwd_cost,
         "sub-byte decode-in-tile GEMM: 2 codes a byte + int8 group exponents (~0.53 byte a weight); "
+        "a stacked leaf's layer reads its code-byte and exponent planes (2 bytes a weight); "
         "cuda: route A at every M, as floatsd_matmul's"),
     costmodel.CostSpec(
         "floatsd_quantize", fq_cost.quantize_cost,

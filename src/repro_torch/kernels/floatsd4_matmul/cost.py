@@ -9,7 +9,11 @@ weight against FloatSD8's 1.
   * **ref**: each operand read once, the output written once; the plain
     version's unpack and decode are intermediates and excluded. ``wt_nbytes``
     gives the stored bytes where the packed axis is not the contraction
-    axis (the tied head's [N, K] table packed along N). A call on the
+    axis (the tied head's [N, K] table packed along N). ``plane``: one
+    layer of a stacked leaf packed along its layer axis, read as its [c, n]
+    code-byte plane and its [c, n] exponent plane, ``2 * c * n`` bytes (the
+    byte holds another layer's nibble too, and every element has its own
+    exponent). A call on the
     hoisted f32 decode reads that instead (``floatsd_matmul.cost``'s
     ``matmul_like_cost`` with ``decode=False, b_bytes=4``).
   * **cuda**: route A of ``routed_gemm.cuh`` at every M (``plan(...,
@@ -34,9 +38,13 @@ STATIC_SMEM = {"floatsd4_matmul_ordered_kernel": 16 * 4, "add_partials": 0}  # l
 
 
 def matmul4_fwd_cost(m: int, c: int, n: int, *, backend: str, x_bytes: int = 4, out_bytes: int = 4,
-                     wt_nbytes: int | None = None) -> Cost:
-    """x [m, c] @ decode4(codes [ceil(c/2), n], exps [ceil(c/32), n])."""
-    wt_bytes = -(-c // 2) * n + -(-c // GROUP) * n if wt_nbytes is None else wt_nbytes
+                     wt_nbytes: int | None = None, plane: bool = False) -> Cost:
+    """x [m, c] @ decode4(codes [ceil(c/2), n], exps [ceil(c/32), n]), or,
+    with ``plane``, of a layer's codes and exps planes, [c, n] each."""
+    if plane:
+        wt_bytes = 2 * c * n
+    else:
+        wt_bytes = -(-c // 2) * n + -(-c // GROUP) * n if wt_nbytes is None else wt_nbytes
     if backend == "ref":
         macs = m * c * n
         return Cost(flops=2 * macs + DECODE4_FLOPS_PER_CODE * c * n, macs=macs,

@@ -8,7 +8,7 @@
 // (exact), not with the Pallas kernel's exp2. Its plain version is
 // src/repro_torch/kernels/floatsd4_matmul/ref.py.
 //
-// `transposed` selects the layout:
+// `layout` selects the layout:
 //   0: codes [ceil(K/2), N], exps [ceil(K/32), N]: a gate weight, packed
 //      along the contraction K;
 //   1: codes [ceil(N/2), K], exps [ceil(N/32), K]: the [N, K] embedding
@@ -17,9 +17,17 @@
 //      The TPU package decodes the whole table and multiplies densely
 //      there, because a Pallas block cannot transpose a nibble stream; a
 //      CUDA thread reads any nibble, so the head runs this kernel too.
+//   2: codes [K, N] and exps [K, N], layer l's planes of a stacked
+//      [L, K, N] weight packed along its layer axis, as the TPU package
+//      stores a scanned stack (codes[l >> 1], exps[l >> 5]): element (k, n)
+//      is nibble `nibble` (l & 1) of codes[k, n], scaled by 2^exps[k, n],
+//      one exponent an element. The TPU package decodes the whole stacked
+//      tree each step and multiplies densely; here each layer's product
+//      reads its two planes in place, 2 bytes a weight.
 //
 // Bound on this card by the bytes of the codes (K x N / 2, plus K x N / 32
-// of exponents; at M = 64 the f32 operations come close). The tile loop is
+// of exponents; layout 2: K x N of each; at M = 64 the f32 operations come
+// close). The tile loop is
 // route A of the FloatSD8 matmul (../routed_gemm.cuh, `ordered_tile`), for
 // every M: ordered split-K on the CUDA cores, K cut into `plan`'s chunks
 // (ordered=True; floatsd_matmul/ref.py), each summed in k order with fmaf,
@@ -31,13 +39,15 @@
 // tile loop's `Loader`: per stage each thread loads 16 code bytes and their
 // 16 exponents (two 16-byte loads, neighbouring threads on neighbouring
 // addresses in both layouts) and decodes both nibbles of each byte through
-// a 16-entry table in shared memory into the f32 tile. A chunk is a multiple
-// of 64 k, and a stage starts at a multiple of 64, so neither splits a
-// nibble byte or a 32-row exponent group.
+// a 16-entry table in shared memory into the f32 tile (layout 2: 32 code
+// bytes and their 32 exponents in four 16-byte loads, one nibble of each
+// byte). A chunk is a multiple of 64 k, and a stage starts at a multiple of
+// 64, so neither splits a nibble byte or a 32-row exponent group.
 //
 // Every edge is bounds-checked: no read past row ceil(K/2) - 1 of the codes
-// or ceil(K/32) - 1 of the exponents, an odd row count's pad nibble is
-// replaced by the zero code, and entries outside the matrix decode to 0.
+// or ceil(K/32) - 1 of the exponents (layout 2: past row K - 1 or column
+// N - 1 of either plane), an odd row count's pad nibble is replaced by the
+// zero code, and entries outside the matrix decode to 0.
 //
 // Plain C interface; the wrapper is src/repro_torch/kernels/floatsd4_matmul/ops.py.
 
@@ -150,54 +160,141 @@ struct Fsd4 {
 
 static_assert(kABK * kABN / 2 == 16 * kThreads, "a stage's code bytes: 16 a thread");
 
-template <bool kT, int MT>
+// Layer l's planes of a stacked FloatSD4 weight (layout 2) as route A's
+// Loader. A stage's [kABK][kABN] tile is 8192 code bytes, a byte a weight:
+// thread t loads 16 of them from each of rows t / 8 and t / 8 + 32 (8
+// threads a row, 16 n each, neighbouring threads on neighbouring addresses)
+// and their exponents, and decodes one nibble of each byte at a fixed shift.
+struct Fsd4Plane {
+  const uint8_t* __restrict__ codes;  // [K, N]
+  const int8_t* __restrict__ exps;    // [K, N]
+  int N, K;
+  bool vec;          // N a multiple of 16 and 16-byte aligned bases
+  const float* lut;  // shared: the 16 mantissas
+  int shift;         // 4 * nibble
+
+  struct RegsA {
+    uint4 c[2];  // 16 code bytes of each of the thread's two rows
+    uint4 e[2];  // their exponents
+  };
+
+  __device__ __forceinline__ static void place(int t, int j, int& k, int& n) {
+    k = (t >> 3) + 32 * j;
+    n = (t & 7) * 16;
+  }
+
+  __device__ __forceinline__ RegsA load_a(int t, int k0, int kend, int n0) const {
+    RegsA r;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      int k, n;
+      place(t, j, k, n);
+      k += k0, n += n0;
+      const size_t at = (size_t)k * N + n;
+      if (vec && k < kend && n + 16 <= N) {
+        r.c[j] = __ldg(reinterpret_cast<const uint4*>(codes + at));
+        r.e[j] = __ldg(reinterpret_cast<const uint4*>(exps + at));
+      } else {
+        uint32_t c[4], e[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          c[q] = e[q] = 0;
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            const int i = 4 * q + b;
+            const bool ok = k < kend && n + i < N;
+            c[q] |= (ok ? uint32_t(codes[at + i]) : kZeroByte) << (8 * b);
+            e[q] |= (ok ? uint32_t(static_cast<uint8_t>(exps[at + i])) : 0u) << (8 * b);
+          }
+        }
+        r.c[j] = make_uint4(c[0], c[1], c[2], c[3]);
+        r.e[j] = make_uint4(e[0], e[1], e[2], e[3]);
+      }
+    }
+    return r;
+  }
+
+  __device__ __forceinline__ void store_a(const RegsA& r, float* ws, int t) const {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      int k, n;
+      place(t, j, k, n);
+      float w[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        // clamped to f32's normal range, as the plain version's exp2i clamps
+        const float scale = pow2i(max(static_cast<int>(static_cast<int8_t>(byte(r.e[j], i))), -126));
+        w[i] = lut[(byte(r.c[j], i) >> shift) & 0xF] * scale;
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        *reinterpret_cast<float4*>(ws + a_slot(k, n + 4 * q)) =
+            make_float4(w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]);
+    }
+  }
+};
+
+static_assert(kABK * kABN == 2 * 16 * kThreads && kABK == 2 * 32 && kABN == 8 * 16,
+              "a stage's plane bytes: two rows of 16 a thread");
+
+// kLayout: 0 packed along K, 1 the transposed table, 2 a layer's planes
+template <int kLayout, int MT>
 __global__ void __launch_bounds__(kThreads)
 floatsd4_matmul_ordered_kernel(const float* __restrict__ x, const uint8_t* __restrict__ codes,
                                const int8_t* __restrict__ exps, float* __restrict__ out, int M, int N, int K,
-                               int splits, int chunk) {
+                               int shift, int splits, int chunk) {
   __shared__ float lut[16];
   extern __shared__ __align__(16) unsigned char smem[];
   if (threadIdx.x < 16) lut[threadIdx.x] = kLut16[threadIdx.x];
-  const int row = kT ? K : N;
+  const int row = kLayout == 1 ? K : N;
   const bool vec = row % 16 == 0 && ((reinterpret_cast<uintptr_t>(codes) | reinterpret_cast<uintptr_t>(exps)) & 15) == 0;
-  ordered_tile<MT>(x, Fsd4<kT>{codes, exps, N, K, vec, lut}, out, M, N, K, splits, chunk,
-                   reinterpret_cast<float*>(smem));
+  float* ws = reinterpret_cast<float*>(smem);
+  if constexpr (kLayout == 2) {
+    ordered_tile<MT>(x, Fsd4Plane{codes, exps, N, K, vec, lut, shift}, out, M, N, K, splits, chunk, ws);
+  } else {
+    ordered_tile<MT>(x, Fsd4<kLayout == 1>{codes, exps, N, K, vec, lut}, out, M, N, K, splits, chunk, ws);
+  }
 }
 
 // `blocks_z`: splits (a block a chunk, into partials) or 1 (a block adds its chunks itself)
-template <bool kT>
+template <int kLayout>
 cudaError_t launch_ordered(const float* x, const uint8_t* codes, const int8_t* exps, float* out, int M, int N,
-                           int K, int splits, int chunk, int blocks_z, cudaStream_t s) {
+                           int K, int shift, int splits, int chunk, int blocks_z, cudaStream_t s) {
   return with_row_tile(M, [&](auto mt) {
     constexpr int MT = decltype(mt)::value;
     const size_t smem = a_smem<MT>();
-    if (cudaError_t e = allow_smem<floatsd4_matmul_ordered_kernel<kT, MT>>(smem)) return e;
+    if (cudaError_t e = allow_smem<floatsd4_matmul_ordered_kernel<kLayout, MT>>(smem)) return e;
     const dim3 grid((N + kABN - 1) / kABN, (M + MT - 1) / MT, blocks_z);
-    floatsd4_matmul_ordered_kernel<kT, MT><<<grid, kThreads, smem, s>>>(x, codes, exps, out, M, N, K, splits,
-                                                                         chunk);
+    floatsd4_matmul_ordered_kernel<kLayout, MT><<<grid, kThreads, smem, s>>>(x, codes, exps, out, M, N, K, shift,
+                                                                              splits, chunk);
     return cudaGetLastError();
   });
 }
 
 }  // namespace
 
-// x [M, K] f32; codes/exps as above (uint8 / int8); y [M, N] f32; all
-// contiguous. K is cut into `splits` chunks of `chunk` consecutive k (a
-// multiple of 64 when splits > 1). With splits > 1 and `part` [splits, M,
-// N] f32 given, a block sums each chunk into it and a second kernel adds
+// x [M, K] f32; codes/exps as above (uint8 / int8) in `layout` 0, 1 or 2
+// (`nibble` 0 or 1 picks layout 2's nibble, ignored otherwise); y [M, N]
+// f32; all contiguous. K is cut into `splits` chunks of `chunk` consecutive
+// k (a multiple of 64 when splits > 1). With splits > 1 and `part` [splits,
+// M, N] f32 given, a block sums each chunk into it and a second kernel adds
 // them in order into y; with `part` null, a block sums all the chunks of its
 // tile and adds them in the same order itself. Launches on `stream`; returns
 // the launches' cudaError_t as an int.
 extern "C" int floatsd4_matmul_launch(const float* x, const uint8_t* codes, const int8_t* exps, float* y,
-                                      float* part, int M, int N, int K, int transposed, int splits, int chunk,
-                                      void* stream) {
+                                      float* part, int M, int N, int K, int layout, int nibble, int splits,
+                                      int chunk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (splits > 1 && chunk % kABK) return static_cast<int>(cudaErrorInvalidValue);
+  if ((splits > 1 && chunk % kABK) || layout < 0 || layout > 2 || nibble < 0 || nibble > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const bool partials = splits > 1 && part != nullptr;
   float* out = partials ? part : y;
   const int blocks_z = partials ? splits : 1;
-  const cudaError_t e = transposed ? launch_ordered<true>(x, codes, exps, out, M, N, K, splits, chunk, blocks_z, s)
-                                   : launch_ordered<false>(x, codes, exps, out, M, N, K, splits, chunk, blocks_z, s);
+  const int shift = 4 * nibble;
+  const cudaError_t e =
+      layout == 2   ? launch_ordered<2>(x, codes, exps, out, M, N, K, shift, splits, chunk, blocks_z, s)
+      : layout == 1 ? launch_ordered<1>(x, codes, exps, out, M, N, K, shift, splits, chunk, blocks_z, s)
+                    : launch_ordered<0>(x, codes, exps, out, M, N, K, shift, splits, chunk, blocks_z, s);
   if (e != cudaSuccess || !partials) return static_cast<int>(e);
   return static_cast<int>(launch_add_partials(part, y, (size_t)M * N, splits, s));
 }

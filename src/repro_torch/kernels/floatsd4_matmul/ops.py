@@ -28,18 +28,21 @@ def _launcher():
     fn = _build.load("floatsd4_matmul").floatsd4_matmul_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
         fn.restype = i
     return fn
 
 
 def floatsd4_matmul(x: torch.Tensor, codes: torch.Tensor, exps: torch.Tensor, rows: int, *,
-                    transposed: bool = False) -> torch.Tensor:
-    """x [M, K] f32 @ decode4(codes, exps) -> y [M, N] f32. Without
-    ``transposed`` codes are [ceil(K/2), N] and ``rows`` = K; with it they
-    are the [N, K] table packed as [ceil(N/2), K] and ``rows`` = N."""
+                    transposed: bool = False, nibble: int | None = None) -> torch.Tensor:
+    """x [M, K] f32 @ decode4(codes, exps) -> y [M, N] f32, in one of three
+    layouts (the kernel's ``layout`` 0, 1, 2). Without ``transposed`` codes
+    are [ceil(K/2), N] and ``rows`` = K; with it they are the [N, K] table
+    packed as [ceil(N/2), K] and ``rows`` = N; with ``nibble`` (0 or 1)
+    codes and exps are a layer's [K, N] planes of a stacked leaf packed
+    along its layer axis, and ``rows`` = K."""
     if x.device.type == "cpu":
-        return floatsd4_matmul_ref(x, codes, exps, rows, transposed=transposed)
+        return floatsd4_matmul_ref(x, codes, exps, rows, transposed=transposed, nibble=nibble)
     if x.device.type != "cuda" or codes.device != x.device or exps.device != x.device:
         raise ValueError(f"floatsd4_matmul: x on {x.device}, codes on {codes.device}, "
                          f"exps on {exps.device}")
@@ -52,10 +55,15 @@ def floatsd4_matmul(x: torch.Tensor, codes: torch.Tensor, exps: torch.Tensor, ro
     m, k = x.shape
     n = rows if transposed else codes.shape[1]
     free = codes.shape[1]  # the unpacked axis: K when transposed, else N
-    want = ((-(-rows // 2), free), (-(-rows // GROUP), free))
-    if (tuple(codes.shape), tuple(exps.shape)) != want or (free if transposed else rows) != k:
+    if nibble is not None:  # a layer's planes: a code byte and an exponent an element
+        want = ((rows, free), (rows, free))
+        bad = transposed or nibble not in (0, 1)
+    else:
+        want = ((-(-rows // 2), free), (-(-rows // GROUP), free))
+        bad = False
+    if bad or (tuple(codes.shape), tuple(exps.shape)) != want or (free if transposed else rows) != k:
         raise ValueError(f"floatsd4_matmul: x {tuple(x.shape)} vs codes {tuple(codes.shape)}, "
-                         f"exps {tuple(exps.shape)}, rows {rows}, transposed={transposed}")
+                         f"exps {tuple(exps.shape)}, rows {rows}, transposed={transposed}, nibble={nibble}")
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return y
@@ -64,8 +72,8 @@ def floatsd4_matmul(x: torch.Tensor, codes: torch.Tensor, exps: torch.Tensor, ro
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _launcher()(x.data_ptr(), codes.data_ptr(), exps.data_ptr(), y.data_ptr(),
-                          None if part is None else part.data_ptr(), m, n, k, int(transposed), p.splits,
-                          p.chunk, stream)
+                          None if part is None else part.data_ptr(), m, n, k,
+                          2 if nibble is not None else int(transposed), nibble or 0, p.splits, p.chunk, stream)
     if err != 0:
         raise RuntimeError(f"floatsd4_matmul launch failed: cudaError {err}")
     floatsd4_matmul.launches += 1

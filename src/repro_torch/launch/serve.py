@@ -3,7 +3,9 @@
 Builds the ``--arch`` model (default: the WikiText-2 FloatSD8 LSTM LM) with
 random weights from ``--seed``, packs them to 1-byte FloatSD8 codes (or, with
 ``--weight-format floatsd4``, re-quantizes those to nibble-packed FloatSD4
-codes), and drains a synthetic workload through ``ServeEngine`` (continuous
+codes; a zoo model's stacked leaves packed along the layer axis, as the
+reference packs them, and served a layer's planes at a time), prints the
+resident bytes, and drains a synthetic workload through ``ServeEngine`` (continuous
 batching, chunked prefill, greedy decoding). On the card every weight site,
 the tied head and the cell run the hand-written CUDA kernels. A model-zoo
 arch (``--arch rwkv6_3b``, ``--arch h2o_danube3_4b`` or another dense
@@ -49,6 +51,7 @@ when a request was rejected because every replica was ejected.
   PYTHONPATH=src python -m repro_torch.launch.serve --full --weight-format floatsd4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_3b --device cpu --requests 4 --batch 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o_danube3_4b --device cpu --requests 4 --batch 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o_danube3_4b --device cpu --weight-format floatsd4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba_v01_52b --device cpu --requests 2 --batch 2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_vl_2b --device cpu --requests 2 --batch 2
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --frontend --replicas 2 --workload zipf-prefix
@@ -239,7 +242,7 @@ def main(argv=None):
             f"weights: {s.dense_nbytes/2**20:.1f} MiB dense -> "
             f"{s.packed_nbytes/2**20:.1f} MiB packed "
             f"{'FloatSD4' if s.fmt == 'floatsd4' else 'FloatSD8'} "
-            f"({s.compression:.2f}x smaller, {s.n_packed} tensors packed)",
+            f"({s.compression:.2f}x smaller, {s.n_packed} tensors packed, {s.packed_nbytes} B resident)",
             flush=True,
         )
     engine.submit_all(prompts, max_new=args.max_new)

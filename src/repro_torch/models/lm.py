@@ -150,11 +150,11 @@ class CausalLM:
     def init(self, generator: torch.Generator, each=None):
         """Random parameters from ``generator``, on its device: the
         embedding, the stack, the final norm, the leading dense blocks.
-        ``each``, where given, takes each of those parts (each of the
-        stack's blocks on its own) as soon as it is drawn and returns what
-        the tree keeps (``WeightStore.pack_streamed`` packs them), so at
-        most one block is live in f32; it needs a one-group stack. A vlm
-        gets its [d, d] ``patch_proj``."""
+        ``each``, where given, takes each of those parts as soon as it is
+        drawn, and each of the stack's blocks group by group (``Stack.init``),
+        and returns what the tree keeps (``WeightStore.pack_streamed`` packs
+        them), so at most one block is live in f32. A vlm gets its [d, d]
+        ``patch_proj``."""
         keep = each or (lambda tree: tree)
         p = {"embed": keep(self._embed().init(generator)),
              "stack": self._stack().init(generator, each),
@@ -177,6 +177,8 @@ class CausalLM:
         w = out.get("patch_proj", {}).get("w")
         if kd.is_packed(w):
             out["patch_proj"] = {"w": floatsd.decode(w.codes, w.bias)}
+        elif kd.is_packed4(w):
+            out["patch_proj"] = {"w": kd.unpack4(w)}
         return out
 
     def _positions(self, batch_dict, b: int, s: int, device):

@@ -19,10 +19,14 @@ the backward, as the reference's scanned stack rematerialises its body
 kernel launches are counted like any other.
 
 A served stack's leaves are FloatSD8 ``PackedTensor``s with one bias per
-stacked leaf. ``hoist`` decodes the small ones (everything but the weight
-sites) to f32 once, for all layers; layer ``l`` then gets ``codes[l]``
-with that bias at each weight site, which runs the matmul kernel on the
-slice (an MoE's [E, d, h] codes: once per expert).
+stacked leaf, or FloatSD4 ``PackedTensor4``s nibble-packed and grouped
+along the layer axis, as the reference's store packs every leaf along its
+axis 0. ``hoist`` decodes the small ones (everything but the weight sites)
+to f32 once, for all layers; layer ``l`` then gets ``codes[l]`` with that
+bias at each FloatSD8 weight site, or the ``LayerTensor4`` view
+(``codes[l >> 1]``, ``exps[l >> 5]``, nibble ``l & 1``) at each FloatSD4
+one, which runs the matmul kernel on the slice or the planes (an MoE's [E,
+d, h] codes: once per expert).
 """
 from __future__ import annotations
 
@@ -59,21 +63,21 @@ def _norm(kind: str, dim: int):
 
 
 def hoist(tree, name: str = ""):
-    """A stacked block tree with every FloatSD8-packed leaf that is not a
-    weight site decoded to f32, all layers at once: norm scales and
-    biases, projection biases, the RWKV token-shift mixes, decay base
-    and LoRA, bonus and output-norm scale (46.5 MB of f32 at rwkv6_3b's
-    full width), the MoE router and Mamba's convolution, dt bias, a_log and
-    d. The weight sites keep their codes for the matmul kernel. A decoded
-    tree passes through unchanged."""
+    """A stacked block tree with every packed leaf (FloatSD8 or FloatSD4)
+    that is not a weight site decoded to f32, all layers at once, exactly:
+    norm scales and biases, projection biases, the RWKV token-shift mixes,
+    decay base and LoRA, bonus and output-norm scale (46.5 MB of f32 at
+    rwkv6_3b's full width), the MoE router and Mamba's convolution, dt
+    bias, a_log and d. The weight sites keep their codes for the matmul
+    kernel. A decoded tree passes through unchanged."""
     if isinstance(tree, dict):
         return {k: hoist(v, k) for k, v in tree.items()}
-    if kd.is_packed4(tree):
-        raise NotImplementedError(
-            "FloatSD4 serving of a stacked model is not ported (this slice serves FloatSD8; "
-            "ROADMAP.md Queue 1 item 8)")
-    if kd.is_packed(tree) and name not in WEIGHT_SITES:
+    if name in WEIGHT_SITES:
+        return tree
+    if kd.is_packed(tree):
         return floatsd.decode(tree.codes, tree.bias)
+    if kd.is_packed4(tree):
+        return kd.unpack4(tree)
     return tree
 
 
@@ -87,11 +91,19 @@ def remat(fn, *args):
     return fn(*args)
 
 
+def _layer_of(x, l: int):
+    if kd.is_packed(x):
+        return kd.PackedTensor(x.codes[l], x.bias)
+    if kd.is_packed4(x):
+        return kd.layer_view4(x, l)
+    return x[l]
+
+
 def _layer(tree, l: int):
     """Layer ``l`` of a stacked parameter (or cache) tree: ``x[l]`` of every
-    tensor, ``PackedTensor(codes[l], bias)`` of every packed leaf."""
-    return tree_map(lambda x: kd.PackedTensor(x.codes[l], x.bias) if kd.is_packed(x) else x[l],
-                    tree, is_leaf=kd.is_packed)
+    tensor, ``PackedTensor(codes[l], bias)`` of every FloatSD8 leaf, the
+    ``LayerTensor4`` planes of every FloatSD4 one."""
+    return tree_map(lambda x: _layer_of(x, l), tree, is_leaf=kd.is_any_packed)
 
 
 _MIXERS = (("attn", "attn"), ("mamba", "mamba_mod"), ("rwkv", "rwkv_mod"))
@@ -216,19 +228,20 @@ class Stack:
     def init(self, generator: torch.Generator, each=None):
         """Random parameters, group by group, each group's blocks in order.
         ``each``, where given, takes each block's tree as soon as it is
-        drawn (with its group axis of 1) and returns what the stack keeps,
-        e.g. its packed codes, so at most one block is live in f32: a
-        one-group stack only, since a stacked leaf's one FloatSD8 bias spans
-        every group."""
+        drawn, ``each(tree, (f"b{i}", group, n_groups))``, and returns what
+        the stack keeps under ``b{i}`` (after the last group, its stacked
+        packed codes: ``WeightStore.pack_streamed``), so at most one block
+        is live in f32. The same draws in the same order either way."""
         def group(g):
             return {f"b{i}": b.init(g) for i, b in enumerate(self.blocks)}
 
         if each is None:
             return stack_init(group, self.n_groups)(generator)
-        if self.n_groups != 1:
-            raise ValueError(f"a block-by-block init needs a one-group stack, got {self.n_groups} groups")
-        return {f"b{i}": each(tree_map(lambda t: t.unsqueeze(0), b.init(generator)))
-                for i, b in enumerate(self.blocks)}
+        out = {}
+        for g in range(self.n_groups):
+            for i, b in enumerate(self.blocks):
+                out[f"b{i}"] = each(b.init(generator), (f"b{i}", g, self.n_groups))
+        return out
 
     def apply(self, p, x: torch.Tensor, policy: Policy, positions=None, prefix: int = 0):
         """x [B, S, d] -> (x, the summed load-balancing loss). Trained, each

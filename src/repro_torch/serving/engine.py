@@ -21,7 +21,10 @@ All B lanes advance in one batched step per iteration:
 
 The weights are packed at construction, to 1-byte FloatSD8 codes or (with
 ``weight_format="floatsd4"``) to nibble-packed FloatSD4 codes and group
-exponents. On the card every gate matmul, the tied head and the cell run
+exponents (a zoo model's stacked leaves along the layer axis, as the
+reference packs them; each layer's weight sites then read their code and
+exponent planes in place, where the reference's engine decodes the whole
+tree every step). On the card every gate matmul, the tied head and the cell run
 the hand-written kernels; ``backend="ref"`` runs the plain versions
 instead (the cross-check). ``packed=False`` serves the dense weights
 through the model's fake-quant-at-use path, as the reference does (f32

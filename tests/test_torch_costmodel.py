@@ -126,6 +126,14 @@ def _mm4_transposed():
     kd.packed_einsum("...d,vd->...v", t((5, 37), 0.5), kd.pack4(t((41, 37), 0.05)))
 
 
+def _mm4_plane():  # layer 2 of a stacked [3, 37, 19] leaf: its code-byte and exponent planes
+    kd.matmul4(t((5, 37), 0.5), kd.layer_view4(kd.pack4(t((3, 37, 19), 0.05)), 2))
+
+
+def _mm4_plane_experts():  # a stacked MoE layer's planes [E, K, N], one call an expert
+    kd.packed_einsum("gecd,edh->gech", t((1, 2, 3, 37), 0.5), kd.layer_view4(kd.pack4(t((3, 2, 37, 19), 0.05)), 1))
+
+
 def _mm4_dense():
     kd.packed_einsum("...d,df->...f", t((5, 37), 0.5), kd.hoist_packed(kd.pack4(t((37, 19), 0.05))))
 
@@ -213,6 +221,8 @@ CASES = {
     "floatsd4_matmul": (_mm4, ["floatsd4_matmul"]),
     "floatsd4_matmul-transposed": (_mm4_transposed, ["floatsd4_matmul"]),
     "floatsd4_matmul-dense": (_mm4_dense, ["floatsd4_matmul"]),
+    "floatsd4_matmul-plane": (_mm4_plane, ["floatsd4_matmul"]),
+    "floatsd4_matmul-plane-experts": (_mm4_plane_experts, ["floatsd4_matmul"]),
     "floatsd_matmul_dx": (_dx, ["floatsd_matmul_dx"]),
     "floatsd_matmul_dx-dense": (_dx_dense, ["floatsd_matmul_dx"]),
     "floatsd_matmul_dw": (_dw, ["floatsd_matmul_dw"]),
@@ -485,6 +495,12 @@ def test_floatsd4_and_dw_tiles():
     assert c.hbm_read_bytes == 32 * 8 * 1024 * 4 + w + 8 * 8 * 4096 * 4
     assert c.smem_bytes == 64 + (64 * 128 + 64 * 12) * 4
     assert c.flops == 2 * 8 * 1024 * 4096 + 5 * 1024 * 4096
+    # a stacked leaf's layer: its code-byte and exponent planes, K x N bytes each
+    p = fm4.matmul4_fwd_cost(8, 1024, 4096, backend="cuda", plane=True)
+    assert p.hbm_read_bytes == 32 * 8 * 1024 * 4 + 2 * 1024 * 4096 + 8 * 8 * 4096 * 4
+    assert p.smem_bytes == c.smem_bytes and p.flops == c.flops
+    r = fm4.matmul4_fwd_cost(8, 1024, 4096, backend="ref", plane=True)
+    assert r.hbm_read_bytes == 8 * 1024 * 4 + 2 * 1024 * 4096 and r.hbm_write_bytes == 8 * 4096 * 4
     # route A at M 128 too (FloatSD4 has no route B)
     assert fm4.matmul4_fwd_cost(128, 1024, 4096, backend="cuda").smem_bytes == 64 + (64 * 128 + 64 * 68) * 4
     d = fm.matmul_dw_cost(1024, 3072, 4096, backend="cuda")

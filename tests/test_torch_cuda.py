@@ -571,6 +571,124 @@ def test_floatsd4_matmul_keeps_subnormal_weights(dev):
     assert int(((got != 0) & (got.abs() < torch.finfo(torch.float32).tiny)).sum()) == 16
 
 
+# a stacked FloatSD4 leaf's layer (the reference packs a scanned stack along
+# its layer axis): the kernel's layout 2 on a layer's code-byte and exponent
+# planes, [K, N] each. (K, N): h2o_danube3_4b's seven weight sites (wq and
+# wo, wk and wv, wi and wg, the FFN's wo)
+PLANE_SITES = [(3840, 3840), (3840, 960), (3840, 10240), (10240, 3840)]
+
+
+def _planes(dev, k, n, seed, lo=-12):
+    """Random [K, N] planes: any code byte (the spare code decodes to 0),
+    exponents in [lo, 4] with a share at the clamp (-128 .. -126)."""
+    g = _gen(dev, seed)
+    codes = torch.randint(0, 256, (k, n), device=dev, generator=g, dtype=torch.uint8)
+    exps = torch.randint(lo, 5, (k, n), device=dev, generator=g, dtype=torch.int8)
+    low = torch.randint(0, 16, (k, n), device=dev, generator=g) == 0
+    exps[low] = torch.randint(-128, -125, (int(low.sum()),), device=dev, generator=g, dtype=torch.int8)
+    return codes, exps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 2048])
+@pytest.mark.parametrize("k,n", PLANE_SITES)
+def test_floatsd4_plane_layout_bit_for_bit_at_the_dense_sites(dev, m, k, n):
+    """Layout 2 at the dense family's site shapes, both nibbles, on FP8 and
+    FP16 activations (every product exact, the ordered split at every M):
+    bit for bit with the plain version; on f32 ones within the matmul
+    bound."""
+    codes, exps = _planes(dev, k, n, k + n + m)
+    x = torch.randn((m, k), device=dev, generator=_gen(dev, m))
+    n0 = floatsd4_matmul.launches
+    for nibble in (0, 1):
+        for xq in (quantize_fp8(x), quantize_fp8(x, FP16)) if m < 2048 else (quantize_fp8(x),):
+            got = floatsd4_matmul(xq, codes, exps, k, nibble=nibble)
+            want = floatsd4_matmul_ref(xq, codes, exps, k, nibble=nibble)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+    if m < 2048:
+        got = floatsd4_matmul(x, codes, exps, k, nibble=1)
+        w = floatsd4.decode_plane(codes, exps, 1).double().abs()
+        bound = 1e-5 * (x.double().abs() @ w)
+        assert bool(((got.double() - floatsd4_matmul_ref(x, codes, exps, k, nibble=1).double()).abs()
+                     <= bound + 1e-30).all())
+    assert floatsd4_matmul.launches == n0 + (5 if m < 2048 else 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layers,k,n", [(3, 100, 130), (33, 96, 40), (40, 64, 48), (1, 257, 1000)])
+def test_floatsd4_layer_views_of_a_stacked_leaf_on_the_kernel(dev, layers, k, n):
+    """Every layer of a stacked [L, K, N] leaf packed as the reference
+    packs it: an odd L (the last layer's byte carries the pad nibble), L
+    past 32 (layers 32.. read the second exponent plane), an N that is not a
+    multiple of 16 (the bytewise edge, unaligned planes); past 32 layers and
+    at L = 1 the last 32-layer group scaled to the subnormal exponents.
+    Through dispatch.matmul4 on the kernel, bit for bit with the plain
+    version on FP8 activations."""
+    w = torch.randn((layers, k, n), device=dev, generator=_gen(dev, layers)) * 0.05
+    if layers == 1 or layers > 32:
+        w[32 * ((layers - 1) // 32):] *= 2.0 ** -126
+    w4 = kd.pack4(w)
+    dense = kd.unpack4(w4)
+    if layers == 1 or layers > 32:
+        assert int(((dense != 0) & (dense.abs() < torch.finfo(torch.float32).tiny)).sum()) > 0
+    x = quantize_fp8(torch.randn((5, k), device=dev, generator=_gen(dev, k)))
+    kd.STATS.reset()
+    for l in range(layers):
+        view = kd.layer_view4(w4, l)
+        assert torch.equal(floatsd4.decode_plane(view.codes, view.exps, view.nibble), dense[l])
+        got = kd.matmul4(x, view)
+        want = kd.matmul4(x, view, backend="ref")
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), l
+    assert kd.STATS.snapshot() == {("floatsd4_matmul", "cuda"): layers, ("floatsd4_matmul", "ref"): layers}
+
+
+@pytest.mark.cuda
+def test_floatsd4_plane_layout_raises_on_what_it_cannot_take(dev):
+    codes, exps = _planes(dev, 64, 32, 3)
+    x = torch.randn((4, 64), device=dev)
+    n0 = floatsd4_matmul.launches
+    with pytest.raises(ValueError):
+        floatsd4_matmul(x, codes, exps, 63, nibble=0)  # K disagrees with x's
+    with pytest.raises(ValueError):
+        floatsd4_matmul(x, codes, exps[:32].contiguous(), 64, nibble=0)  # planes of two shapes
+    with pytest.raises(ValueError):
+        floatsd4_matmul(x, codes, exps, 64, nibble=2)
+    with pytest.raises(ValueError):
+        floatsd4_matmul(x[:, :32].contiguous(), codes, exps, 64, transposed=True, nibble=0)
+    assert floatsd4_matmul.launches == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["h2o_danube3_4b", "rwkv6_3b", "dbrx_132b", "jamba_v01_52b", "qwen2_vl_2b"])
+def test_reduced_floatsd4_stacks_on_the_kernels_match_their_plain_versions(dev, arch):
+    """Each family's reduced model served from its FloatSD4 store (the
+    stacked leaves packed along the layer axis): the prefill on the kernels
+    against backend="ref" on the card with no activation quantizer, within
+    one bf16 step (2^-8) of the logit scale; every weight site on
+    floatsd4_matmul, none on the FloatSD8 matmul."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import CausalLM
+    from repro_torch.serving import WeightStore
+
+    cfg = get_config(arch).reduced()
+    model = CausalLM(cfg)
+    pol = get_policy("fp32")
+    tree = model.hoist(WeightStore.pack(model.init(_gen(dev, 5)), fmt="floatsd4").tree)
+    toks = torch.randint(0, cfg.vocab, (2, 64), device=dev, generator=_gen(dev, 6))
+    kd.STATS.reset()
+    with torch.no_grad():
+        got = model.prefill(tree, {"tokens": toks}, pol)
+        counts = kd.STATS.snapshot()
+        with kd.use_backend("ref"):
+            want = model.prefill(tree, {"tokens": toks}, pol)
+    assert counts.get(("floatsd4_matmul", "cuda"), 0) > 0 and not any(
+        b == "ref" or op == "floatsd_matmul" for op, b in counts)
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, rtol=0, atol=2.0 ** -8 * scale)
+
+
 def _quantize_edge_values(dev, bias, dtype):
     grid = torch.as_tensor(floatsd._GRID_POS, dtype=torch.float32, device=dev)
     mids = torch.as_tensor(floatsd._GRID_MID, dtype=torch.float32, device=dev)

@@ -276,11 +276,9 @@ def test_port_serves_the_jax_store_with_the_jax_engine_tokens(jax_side):
 def test_block_by_block_store_is_the_packed_init(arch):
     tm = CausalLM(get_config(arch).reduced())
     whole = WeightStore.pack(tm.init(torch.Generator().manual_seed(4)))
-    if tm._stack().n_groups != 1:
-        with pytest.raises(ValueError, match="one-group stack"):
-            WeightStore.pack_streamed(lambda pack: tm.init(torch.Generator().manual_seed(4), each=pack))
-        return
-    streamed = WeightStore.pack_streamed(lambda pack: tm.init(torch.Generator().manual_seed(4), each=pack))
+    # dbrx's stack has two groups: drawn twice, its bias from the first pass
+    assert tm._stack().n_groups == (1 if arch == "jamba_v01_52b" else 2)
+    streamed = WeightStore.pack_streamed(tm.init, 4, "cpu")
     a, b = _flat(whole.tree), _flat(streamed.tree)
     assert list(a) == list(b)
     for key, w in a.items():
