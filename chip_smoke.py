@@ -276,6 +276,21 @@ Phases, in order; the first failure exits non-zero:
                 granite_20b's FloatSD8 store built by the two-pass streamed
                 pack (its f32 tree would be 80 GB), its FloatSD4 store
                 converted from it leaf by leaf.
+ 31. mesh       the training CLI on its device mesh: ("data", "model") of
+                (world, 1) over an NCCL world of one rank (every collective
+                an identity; every earlier phase's CLI runs go through it
+                too). The full-width LM (phase 7's args) trains 5 steps:
+                its losses and final fp16 masters bit for bit those of the
+                unsharded step from the same seed and batches, the four
+                LSTM kernels and floatsd_quantize counted (all cuda), the
+                collectives counted (the masters' all-gathers, matmul_dw's
+                and the head's row gathers, one f32 all-reduce a step) and
+                one step profiled (the NCCL and copy kernels' device time
+                beside the step's); --arch dbrx_132b (reduced) 2 steps
+                through the CLI under fp32 (as phase 25 holds its losses)
+                on the kernels and on backend="ref": every MoE call routes
+                one group, the losses within 1e-4 relative; fp8_psum over the world's group bit for bit the
+                saturating e5m2 round trip at the exact power-of-two scale.
 
 The kernel phase's floatsd4_matmul layer-plane rows: a [24, K, N] leaf of
 each dense site shape, layers 22 and 23 bit for bit against the plain
@@ -1351,10 +1366,11 @@ TRAIN_GROUPS = ("floatsd_matmul", "floatsd_matmul_dx", "floatsd_matmul_dw", "lst
 TRAIN_OPS = (*TRAIN_GROUPS, "floatsd_quantize")
 
 
-def profile_step(torch, step_fn, state, batch, gemm="library GEMM (tied head)", require=None):
+def profile_step(torch, step_fn, state, batch, gemm="library GEMM (tied head)", require=None, extra=()):
     """One train step under torch.profiler: device time (ms) and launches
     by kernel group, and the step's wall time (ms) in the same window.
-    ``require``: the groups that must have run (default: all of them)."""
+    ``require``: the groups that must have run (default: all of them);
+    ``extra``: (name substring, group) pairs matched before the others."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1368,7 +1384,7 @@ def profile_step(torch, step_fn, state, batch, gemm="library GEMM (tied head)", 
     # floatsd_matmul.cu's kernels take the codes as [K, N] (<false: the
     # forward) or [N, K] (<true: matmul_dx); its second pass, which adds the
     # chunks' sums of a split K, serves both
-    names = [("floatsd_matmul_ordered_kernel<false", "floatsd_matmul"),
+    names = [*extra, ("floatsd_matmul_ordered_kernel<false", "floatsd_matmul"),
              ("floatsd_matmul_mma_kernel<false", "floatsd_matmul"),
              ("floatsd_matmul_ordered_kernel<true", "floatsd_matmul_dx"),
              ("floatsd_matmul_mma_kernel<true", "floatsd_matmul_dx"),
@@ -4927,6 +4943,154 @@ def ledger_host_cost(torch, dev, step_ms: float) -> float:
 
 
 
+MESH_STEPS = 5  # phase 31: the LM's steps through the CLI's mesh (as phase 7's)
+MESH_ARCH, MESH_ARCH_STEPS = "dbrx_132b", 2
+MESH_PSUM_AMAX = (1e-3, 0.02, 3.5, 7.0, 1000.0)
+MESH_PAIRS = 8  # warm steps of the meshed and the unsharded step, in turns
+
+
+def mesh_phase(torch, dev, smi):
+    """Phase 31 (module docstring)."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from repro_torch._tree import tree_leaves
+    from repro_torch.core.fp8 import cast_fp8
+    from repro_torch.core.policy import get_policy
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import dispatch as kd
+    from repro_torch.kernels.floatsd_matmul.ops import floatsd_matmul, matmul_dw, matmul_dx
+    from repro_torch.kernels.floatsd_quantize.ops import floatsd_quantize
+    from repro_torch.kernels.lstm_cell.ops import lstm_cell, lstm_cell_grad
+    from repro_torch.launch import train
+    from repro_torch.models.task_zoo import make_task
+    from repro_torch.nn.moe import record_routes
+    from repro_torch.optim.grad_compress import fp8_psum
+    from repro_torch.optim.train_state import batch_to_device, init_state, make_train_step, state_shardings
+
+    t_phase = time.perf_counter()
+    wrappers = dict(zip(TRAIN_OPS, (floatsd_matmul, matmul_dx, matmul_dw, lstm_cell, lstm_cell_grad,
+                                      floatsd_quantize)))
+    # the LM through the CLI on its world-1 NCCL mesh
+    kd.STATS.reset()
+    shd.COLLECTIVES.clear()
+    for w in wrappers.values():
+        w.launches = 0
+    out = train.main([*TRAIN_ARGS, "--steps", str(MESH_STEPS), "--log-every", str(MESH_STEPS)])
+    launches = {op: w.launches for op, w in wrappers.items()}
+    stats, coll = kd.STATS.snapshot(), dict(shd.COLLECTIVES)
+    model, data, opt, lr, _ = make_task("wikitext2", full=True)
+    L, S = model.n_layers, next(data.batches)["tokens"].shape[1]
+    mats = sum(p.ndim >= 2 for p in tree_leaves(out["state"].params))
+    want = {op: MESH_STEPS * n for op, n in train_counts(L, S).items()}
+    want["floatsd_quantize"] = MESH_STEPS * 2 * mats
+    check(launches == want, f"mesh: train launches {launches} != expected {want}")
+    check(stats == {(op, "cuda"): n for op, n in want.items()}, f"mesh: dispatch records {stats}")
+    # a step: each master leaf gathered over every mesh axis its spec names (and
+    # again for telemetry's update statistics), matmul_dw's x and g rows (2 a
+    # layer), the tied head's x and g rows, and one f32 all-reduce
+    axes = sum(len(ax) if isinstance(ax, tuple) else 1
+               for s in tree_leaves(out["shardings"].params) for ax in s.spec if ax is not None)
+    per_step = {"all_gather": 2 * axes + 2 * 2 * L + 2, "all_reduce": 1}
+    check(coll == {k: MESH_STEPS * n for k, n in per_step.items()}, f"mesh: collectives {coll}, a step {per_step}")
+    # the unsharded step from the same seed and batches, on the kernels
+    policy = get_policy("floatsd8_table6")
+    state = init_state(model.init(torch.Generator(device=dev).manual_seed(SEED)), opt, policy)
+    step = make_train_step(model.loss, opt, policy, lr=lr, telemetry=True)
+    _, data, _, _, _ = make_task("wikitext2", full=True)
+    losses = []
+    for _ in range(MESH_STEPS):
+        state, m = step(state, batch_to_device(next(data.batches), dev))
+        losses.append(float(m["loss"]))
+    same = [torch.equal(a, b) for a, b in zip(tree_leaves(out["state"].params), tree_leaves(state.params))]
+    check(losses == out["losses"] and all(same),
+          f"mesh: the world-1 mesh step is not the unsharded one: losses {out['losses']} vs {losses}, "
+          f"masters equal {same}")
+    # one step of each profiled, on the same state and batch
+    batch = batch_to_device(next(data.batches), dev)
+    extra = (("nccl", "NCCL kernels"), ("memcpy", "device copies (Memcpy)"))
+
+    def step_ms(fn, st):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(fn(st, batch)[1]["loss"])  # a device->host copy: synchronised
+        return (time.perf_counter() - t0) * 1e3
+
+    t0 = time.perf_counter()
+    with train.process_group("cuda"):
+        mesh = train.make_mesh_for_host()
+        sh = state_shardings(model.specs(), state, mesh)
+        mstep = make_train_step(model.loss, opt, policy, lr=lr, telemetry=True, shardings=sh)
+        mstate = shd.shard_tree(state, sh)
+        first_ms = step_ms(mstep, mstate)  # the new group's communicators start here
+        open_s = time.perf_counter() - t0
+        # warm steps of the two, in alternating order (mesh first in even pairs)
+        pairs = []
+        for i in range(MESH_PAIRS):
+            if i % 2 == 0:
+                pairs.append((step_ms(mstep, mstate), step_ms(step, state)))
+            else:
+                u = step_ms(step, state)
+                pairs.append((step_ms(mstep, mstate), u))
+        shd.COLLECTIVES.clear()
+        mgroups, mwall = profile_step(torch, mstep, mstate, batch, require=TRAIN_GROUPS, extra=extra)
+        one_step = dict(shd.COLLECTIVES)
+        # fp8_psum over the world's group against the exact formula on the CPU
+        psum = []
+        for amax in MESH_PSUM_AMAX:
+            x = torch.randn(1 << 16, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED + 41))
+            x = x / x.abs().max() * amax
+            got = fp8_psum(x).cpu()
+            xc = x.cpu()
+            s = float(np.float32(2.0 ** np.floor(np.log2(np.float64(np.float32(28672.0)
+                                                                    / np.float32(float(xc.abs().max())))))))
+            psum.append((amax, s, torch.equal(got.view(torch.int32),
+                                              (cast_fp8(xc * s).to(torch.float32) / s).view(torch.int32))))
+    check(one_step == per_step, f"mesh: a profiled step's collectives {one_step} != {per_step}")
+    check(all(ok for *_, ok in psum), f"mesh: fp8_psum over the world of one rank {psum}")
+    groups, wall = profile_step(torch, step, state, batch, require=TRAIN_GROUPS, extra=extra)
+    busy, mbusy = (sum(ms for ms, _ in g.values()) for g in (groups, mgroups))
+    comm = {k: mgroups[k] for _, k in extra}
+    m_ms, u_ms = (statistics.median(p[i] for p in pairs) for i in (0, 1))
+    diff_ms = statistics.median(a - b for a, b in pairs)
+    # --arch dbrx_132b through the CLI on the mesh, under fp32 as phase 25
+    # holds its losses (under floatsd8_table6 an FP8 flip moves them): one
+    # routing group a rank
+    zoo_train_counters(reset=True)
+    runs = {}
+    for backend in (None, "ref"):
+        with kd.use_backend(backend), record_routes() as routes, contextlib.redirect_stdout(io.StringIO()):
+            r = train.main(["--arch", MESH_ARCH, "--steps", str(MESH_ARCH_STEPS), "--log-every", "1",
+                            "--policy", "fp32"])
+        runs[backend] = (r["losses"], sorted({int(x.expert_idx.shape[0]) for x in routes}), len(routes))
+        if backend is None:
+            flash = zoo_train_counters()["flash_attention"]
+    (lk, gk, nk), (lr_, gr, nr) = runs[None], runs["ref"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lr_))
+    check(gk == gr == [1] and nk == nr > 0, f"mesh: --arch {MESH_ARCH} routing groups {gk} / {gr} in {nk} / {nr} calls")
+    check(rel <= ZOO_LOSS_RTOL, f"mesh: --arch {MESH_ARCH} losses {lk} vs plain {lr_} ({rel:.3e} relative)")
+    check(flash > 0, f"mesh: --arch {MESH_ARCH} ran no flash_attention launch")
+    dt = time.perf_counter() - t_phase
+    print(f"mesh: the LM through the CLI on an NCCL world of 1 (mesh data 1 x model 1), {MESH_STEPS} steps: losses "
+          f"{out['losses']} bit for bit the unsharded step's, every master leaf equal; launches {launches} (all "
+          f"cuda); collectives a step {per_step}; warm steps in {MESH_PAIRS} alternating pairs: mesh median "
+          f"{m_ms:.2f} ms, unsharded {u_ms:.2f} ms, median pair difference {diff_ms:+.2f} ms (pairs "
+          + ", ".join(f"{a:.1f}/{b:.1f}" for a, b in pairs)
+          + f"); the group's opening, the mesh and its first step {open_s:.2f} s (first step {first_ms:.1f} ms); "
+          f"a profiled step: mesh {mbusy:.3f} ms busy of {mwall:.2f} ms wall "
+          f"(NCCL kernels {comm['NCCL kernels'][0]:.3f} ms in {comm['NCCL kernels'][1]}, device copies "
+          f"{comm['device copies (Memcpy)'][0]:.3f} ms in {comm['device copies (Memcpy)'][1]}), unsharded "
+          f"{busy:.3f} ms busy of {wall:.2f} ms wall; by group (mesh) "
+          + ", ".join(f"{k} {ms:.3f} ms ({n})" for k, (ms, n) in mgroups.items())
+          + f"; --arch {MESH_ARCH} reduced {MESH_ARCH_STEPS} steps under fp32: losses {lk} vs plain {lr_} ({rel:.3e} "
+          f"relative, bound {ZOO_LOSS_RTOL}), {nk} MoE calls each of {gk[0]} group, {flash} flash_attention "
+          f"launches; fp8_psum (amax, scale, bit for bit) {psum}; {smi}; phase {dt:.1f} s", flush=True)
+    return {"launches": {**launches, "flash_attention": flash}, "collectives": per_step, "mesh_busy_ms": mbusy,
+            "busy_ms": busy, "comm": comm, "step_ms": (m_ms, u_ms, diff_ms), "seconds": dt}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5136,6 +5300,10 @@ def main() -> int:
     d84 = dense84_phase(torch, dev, smi)
     print(f"dense84: phase 30 in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # 31. the training CLI on its device mesh (an NCCL world of one rank)
+    torch.cuda.empty_cache()
+    mesh = mesh_phase(torch, dev, smi)
+
     # result lines: each kernel's time per decode step (serving), per train
     # step, or per entry-point pass, from the kernel phase's per-launch times
     # and the launch counts of each path
@@ -5186,7 +5354,7 @@ def main() -> int:
              "dense": dense["launches"], "frontend": front["launches"], "http": http["launches"],
              "hybrid": hybrid["launches"], "moe": moe["launches"], "audio": audio["launches"],
              "vlm": vlm["launches"], "zoo_train_x": ztx["launches"], "zoo_train": zt["launches"],
-             "dense4": dense4["launches"], "family4_x": f4x["launches"],
+             "dense4": dense4["launches"], "family4_x": f4x["launches"], "mesh": mesh["launches"],
              **{arch: r["launches"] for arch, r in d84.items()}}
     # the zoo prefill's share of the kernels it shares with the LSTM paths
     zoo_prefill = {

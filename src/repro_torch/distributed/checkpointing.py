@@ -17,9 +17,12 @@ aside first and removed after); ``latest_step`` ignores ``.tmp``, ``.old``
 and manifest-less dirs; ``restore`` checks the content hash. A kill at any
 byte of a save leaves the previous checkpoint the newest valid one.
 
-The reference device_puts each leaf with a target sharding (an elastic
-reshard); the port has one device, so ``restore`` puts each leaf on the
-template leaf's device instead. The ``ckpt_torn_write`` fault point
+A checkpoint holds every leaf whole. ``restore(shardings=)`` cuts each
+rank's piece out of it (``sharding.NamedSharding.shard``) onto the
+template leaf's device: the reference's elastic reshard, so a state
+written at one world size (or by the JAX package) restores at another.
+On a mesh, ``fault_tolerance.RestartableLoop`` gathers the pieces and the
+first rank alone writes. The ``ckpt_torn_write`` fault point
 (``faults.py``) fires between the arrays and the manifest, as the
 reference's does.
 """
@@ -186,16 +189,27 @@ def read_arrays(path: str, step: int | None = None) -> tuple[dict, int]:
         return {k: data[k] for k in manifest["keys"]}, int(manifest["step"])
 
 
-def restore(path: str, target: Any, step: int | None = None) -> tuple[Any, int]:
+def restore(path: str, target: Any, step: int | None = None,
+            shardings: Any | None = None) -> tuple[Any, int]:
     """Load step ``step`` (default the newest) into the structure of
     ``target``: every leaf in its stored dtype, on the device of the
-    template's leaf. Returns (tree, step)."""
+    template's leaf. ``shardings`` (a ``NamedSharding`` tree shaped as
+    ``target``): each leaf is this rank's piece of the stored array.
+    Returns (tree, step)."""
     flat, step = read_arrays(path, step)
+    keyed = {}
+    if shardings is not None:
+        _map_keyed(keyed.__setitem__, shardings)
 
     def leaf(key, v):
         if key not in flat:
             raise KeyError(f"checkpoint under {path} has no array {key!r}")
         t = torch.from_numpy(np.array(flat[key]))  # a copy, 0-d kept 0-d
+        if key in keyed:
+            t = keyed[key].shard(t)
+            if isinstance(v, torch.Tensor) and t.shape != v.shape:
+                raise ValueError(f"checkpoint array {key!r}: this rank's piece {tuple(t.shape)} "
+                                 f"is not the template's {tuple(v.shape)}")
         return t.to(v.device) if isinstance(v, torch.Tensor) else t
 
     return _map_keyed(leaf, target), step
@@ -245,9 +259,10 @@ class CheckpointManager:
             err, self._error = self._error, None
             raise err
 
-    def restore(self, target: Any, step: int | None = None) -> tuple[Any, int]:
+    def restore(self, target: Any, step: int | None = None,
+                shardings: Any | None = None) -> tuple[Any, int]:
         self.wait()
-        return restore(self.path, target, step)
+        return restore(self.path, target, step, shardings)
 
     def latest_step(self) -> int | None:
         self.wait()

@@ -15,6 +15,11 @@ training CLI builds a fresh batch stream at every launch, so a resumed run
 feeds batches 0, 1, ... again from the restored step (``ROADMAP.md`` Queue
 3, "Reference caveats").
 
+On a mesh (``shardings=``, the state's ``NamedSharding`` tree), a resume
+puts each rank's piece of the stored state on it (the elastic reshard),
+and a save gathers the whole state on every rank and lets the first rank
+of the default process group alone write it.
+
 One difference of timing, not of semantics: a step's time runs to the end
 of ``on_metrics``, where a caller reads the loss. On the card ``step_fn``
 returns before the device has run the step, so the call alone would time
@@ -28,8 +33,10 @@ from dataclasses import dataclass, field
 from typing import Any, Callable
 
 import numpy as np
+import torch.distributed as dist
 
 from .checkpointing import CheckpointManager
+from .sharding import gather_tree
 
 __all__ = ["SimulatedFailure", "PreemptionSignal", "StragglerMonitor", "RestartableLoop"]
 
@@ -90,20 +97,23 @@ class RestartableLoop:
     ``ckpt`` (with ``resume="auto"``) into the structure of
     ``init_state_fn()``, so a crashed process relaunched with the same
     arguments continues where it stopped. ``ckpt=None``: no checkpoints
-    and no resume."""
+    and no resume. ``shardings``: the state lives sharded on a mesh
+    (module docstring); every rank gets the same ``ckpt`` path."""
 
     def __init__(self, ckpt: CheckpointManager | None, init_state_fn: Callable[[], Any],
                  save_every: int = 50, preemption: PreemptionSignal | None = None,
-                 straggler: StragglerMonitor | None = None, resume: str = "auto"):
+                 straggler: StragglerMonitor | None = None, resume: str = "auto",
+                 shardings: Any | None = None):
         if resume not in ("auto", "never"):
             raise ValueError(f"resume must be 'auto' or 'never', got {resume!r}")
         self.ckpt = ckpt
+        self.shardings = shardings
         self.save_every = save_every
         self.preemption = preemption or PreemptionSignal()
         self.straggler = straggler or StragglerMonitor()
         latest = ckpt.latest_step() if ckpt is not None and resume == "auto" else None
         if latest is not None:
-            self.state, self.start_step = ckpt.restore(init_state_fn(), latest)
+            self.state, self.start_step = ckpt.restore(init_state_fn(), latest, shardings)
             self.resumed = True
         else:
             self.state = init_state_fn()
@@ -111,8 +121,11 @@ class RestartableLoop:
             self.resumed = False
 
     def _save(self, step: int) -> None:
-        if self.ckpt is not None:
-            self.ckpt.save(self.state, step)
+        if self.ckpt is None:
+            return
+        tree = self.state if self.shardings is None else gather_tree(self.state, self.shardings)
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            self.ckpt.save(tree, step)
 
     def run(self, step_fn, batches, n_steps: int, fail_at: int | None = None,
             on_metrics: Callable | None = None):

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ..core import floatsd, floatsd4
+from ..distributed import sharding as shd
 from ..obs import costmodel
 from ..obs import telemetry as obs_telemetry
 from .flash_attention import cost as fa_cost
@@ -527,12 +528,25 @@ def matmul_dx(g: torch.Tensor, codes: torch.Tensor, bias, *, dense: torch.Tensor
 
 
 def matmul_dw(x: torch.Tensor, g: torch.Tensor, *, quant: bool = True,
-              backend: str | None = None) -> torch.Tensor:
+              backend: str | None = None, mesh=None, batch_dim: int = 0) -> torch.Tensor:
     """Weight gradient of the FloatSD8 matmul: x [..., K]^T @ g [..., N] ->
     [K, N] f32, f32 accumulation over all leading rows, snapped to the FP8
     e5m2 grid at the flush (``quant=False``: the raw sum, for parity
-    oracles)."""
+    oracles).
+
+    ``mesh``: x and g hold this rank's share of a batch split along
+    ``batch_dim`` over the mesh's batch axes (the caller captures the mesh
+    in its forward: autograd may run the backward on another thread). Both
+    are all-gathered, so the one chain runs over the global rows in their
+    order and the snap sees the global sum; the batch's first rank returns
+    that dW and every other rank zeros, so the train step's sum of the
+    ranks' shares is the global dW exactly."""
     k, n = x.shape[-1], g.shape[-1]
+    if mesh is not None:
+        axes = shd.batch_axes(mesh)
+        x, g = shd.all_gather(x, batch_dim, axes, mesh), shd.all_gather(g, batch_dim, axes, mesh)
+        if shd.batch_rank(mesh):
+            return torch.zeros((k, n), dtype=torch.float32, device=x.device)
     x2 = x.reshape(-1, k).to(torch.float32).contiguous()
     g2 = g.reshape(-1, n).to(torch.float32).contiguous()
     if x2.shape[0] != g2.shape[0]:
@@ -625,7 +639,7 @@ class _TrainMatmulPacked(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, wq, backend):
         ctx.save_for_backward(x)
-        ctx.wq, ctx.w_dtype, ctx.backend = wq, w.dtype, backend
+        ctx.wq, ctx.w_dtype, ctx.backend, ctx.mesh = wq, w.dtype, backend, shd.active_mesh()
         return matmul(x, wq.codes, wq.bias, dense=wq.dense, backend=backend)
 
     @staticmethod
@@ -633,7 +647,7 @@ class _TrainMatmulPacked(torch.autograd.Function):
         (x,) = ctx.saved_tensors
         wq, backend = ctx.wq, ctx.backend
         dx = matmul_dx(g, wq.codes, wq.bias, dense=wq.dense, backend=backend).to(x.dtype)
-        dw = matmul_dw(x, g, backend=backend).to(ctx.w_dtype)
+        dw = matmul_dw(x, g, backend=backend, mesh=ctx.mesh).to(ctx.w_dtype)
         return dx, dw, None, None
 
 

@@ -34,6 +34,19 @@ step N`` on a resume, a closing ``trained N steps in ...`` line with the
 warm steps/s and tokens/s (the first step left out), the stragglers flagged
 and the steps skipped, and the dispatch record.
 
+Like the reference, it trains on a ("data", "model") device mesh of every
+rank (``make_mesh_for_host``: (world, 1)), under ``use_mesh``: the state
+stored sharded by the model's logical specs, each rank on its rows of the
+global batch, the gradients summed over the ranks (``optim.train_state``).
+Launched plainly it opens a world of one rank on an in-memory store (no
+files, no network); under ``torchrun --nproc-per-node N`` it joins
+torchrun's world, one rank a device (``cuda:LOCAL_RANK``). NCCL on
+``--device cuda``, gloo on ``--device cpu``. Rank 0 alone prints, writes
+checkpoints and writes telemetry:
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --steps 20       # 4 GPUs
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --device cpu --steps 3
+
 Two recorded deviations from the reference's flags: ``--ckpt-dir`` has no
 default (no checkpoints and no resume without one, where the reference
 writes to and resumes from a shared ``/tmp`` directory), and the telemetry
@@ -53,12 +66,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs import get_config
 from ..core.policy import get_policy
 from ..data import synthetic
 from ..data.pipeline import ShardedPipeline
 from ..device import resolve_device
+from ..distributed import sharding as shd
 from ..distributed.checkpointing import CheckpointManager
 from ..distributed.fault_tolerance import PreemptionSignal, RestartableLoop, StragglerMonitor
 from ..kernels import dispatch as kd
@@ -67,7 +82,8 @@ from ..models.task_zoo import TASKS, make_task
 from ..nn import lstm
 from ..obs.telemetry import TelemetryLogger
 from ..optim import adam
-from ..optim.train_state import init_state, make_train_step
+from ..optim.train_state import init_state, make_train_step, state_shardings
+from .mesh import make_host_mesh
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -117,6 +133,38 @@ def describe(model) -> str:
     return ", ".join(f"{f.name} {getattr(model, f.name)}" for f in dataclasses.fields(model))
 
 
+def make_mesh_for_host():
+    """Every rank of the default process group as a ("data", "model") mesh
+    of (world, 1), as the reference's ``make_mesh_for_host``."""
+    return make_host_mesh((dist.get_world_size(), 1), ("data", "model"))
+
+
+@contextlib.contextmanager
+def process_group(device_arg: str):
+    """The default process group the CLI trains in, and this rank's device:
+    the group already initialised (its caller's), torchrun's (``RANK`` and
+    ``WORLD_SIZE`` in the environment), or else a world of one rank on an
+    in-memory ``HashStore``. NCCL for ``cuda`` (device ``cuda:LOCAL_RANK``),
+    gloo for ``cpu``. A group this opened is destroyed on exit."""
+    cuda = device_arg == "cuda"
+    device = resolve_device(f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}" if cuda else "cpu")
+    if cuda:
+        torch.cuda.set_device(device)
+    opened = not dist.is_initialized()
+    if opened:
+        backend = "nccl" if cuda else "gloo"
+        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+            dist.init_process_group(backend, device_id=device if cuda else None)
+        else:
+            dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1,
+                                    device_id=device if cuda else None)
+    try:
+        yield device
+    finally:
+        if opened:
+            dist.destroy_process_group()
+
+
 def build_task(args):
     """(name, model, data, optimizer, lr): the zoo config ``--arch``
     reduced, on ``synthetic.wikitext2`` batches of ``--batch`` x ``--seq``,
@@ -143,11 +191,12 @@ def _remat(on: bool):
         lstm.BPTT_REMAT = old
 
 
-def metrics_sink(out: dict, telemetry: TelemetryLogger | None, log_every: int, n_steps: int):
+def metrics_sink(out: dict, telemetry: TelemetryLogger | None, log_every: int, n_steps: int,
+                 say=print):
     """The CLI's ``on_metrics``: after each step, read its loss (the step has
     finished), append it and its finite flag to ``out["losses"]`` and
-    ``out["finite"]``, feed ``telemetry``, and print the step line (and the
-    telemetry line) every ``log_every`` steps and at step ``n_steps``."""
+    ``out["finite"]``, feed ``telemetry``, and ``say`` the step line (and
+    the telemetry line) every ``log_every`` steps and at step ``n_steps``."""
     hist = collections.deque(maxlen=max(log_every, 1))
 
     def on_metrics(step, m):
@@ -158,51 +207,68 @@ def metrics_sink(out: dict, telemetry: TelemetryLogger | None, log_every: int, n
         if telemetry is not None:
             telemetry.update(step, m)
         if step % log_every == 0 or step == n_steps:
-            print(f"step {step:5d}  loss {np.mean(hist):.4f}  scale {float(m['loss_scale']):.0f}  "
-                  f"finite {out['finite'][-1]}", flush=True)
+            say(f"step {step:5d}  loss {np.mean(hist):.4f}  scale {float(m['loss_scale']):.0f}  "
+                f"finite {out['finite'][-1]}", flush=True)
             if telemetry is not None:
-                print(telemetry.format(telemetry.emit(step)), flush=True)
+                say(telemetry.format(telemetry.emit(step)), flush=True)
 
     return on_metrics
 
 
 def main(argv=None) -> dict:
     """Train; returns the per-step losses, finite flags and step times (s)
-    of this launch, the step it started from and the final state."""
+    of this launch, the step it started from, the final state (this
+    rank's pieces) and its ``shardings``."""
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    with process_group(args.device) as device:
+        mesh = make_mesh_for_host()
+        with shd.use_mesh(mesh):
+            return _train(args, device, mesh)
+
+
+def _train(args, device, mesh) -> dict:
+    lead = dist.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
     policy = get_policy(args.policy)
     name, model, data, opt, lr = build_task(args)
+    # the state is drawn whole on every rank from the seed, then cut
+    full = [init_state(model.init(torch.Generator(device=device).manual_seed(args.seed)), opt, policy,
+                       dynamic_scale=args.dynamic_scale)]
+    shardings = state_shardings(model.specs(), full[0], mesh)
     step_fn = make_train_step(model.loss, opt, policy, lr=lr, fused=False if args.no_fused else None,
-                              telemetry=not args.no_telemetry)
+                              telemetry=not args.no_telemetry, shardings=shardings)
 
     def init_fn():
-        params = model.init(torch.Generator(device=device).manual_seed(args.seed))
-        return init_state(params, opt, policy, dynamic_scale=args.dynamic_scale)
+        state = full.pop() if full else init_state(
+            model.init(torch.Generator(device=device).manual_seed(args.seed)), opt, policy,
+            dynamic_scale=args.dynamic_scale)
+        return shd.shard_tree(state, shardings)
 
     first = next(data.batches)
     keys = data.token_keys
     tokens = sum(first[k].size for k in keys)
     shape = " + ".join(f"{k} {first[k].shape[0]} x {first[k].shape[1]}" for k in keys)
-    print(f"model: {name} {type(model).__name__} ({describe(model)}) | policy {policy.name} | "
-          f"{opt.name} lr {lr} | batch {shape} | {device}", flush=True)
+    say(f"model: {name} {type(model).__name__} ({describe(model)}) | policy {policy.name} | "
+        f"{opt.name} lr {lr} | batch {shape} | {device} | mesh {dict(shd.axis_sizes(mesh))} "
+        f"{dist.get_backend()}", flush=True)
 
     ckpt = CheckpointManager(args.ckpt_dir, keep=3) if args.ckpt_dir else None
     preemption = PreemptionSignal(install_sigterm=True)
     loop = RestartableLoop(ckpt, init_fn, save_every=args.save_every, preemption=preemption,
-                           straggler=StragglerMonitor(), resume=args.resume)
+                           straggler=StragglerMonitor(), resume=args.resume, shardings=shardings)
+    full.clear()
     if loop.resumed:
-        print(f"resumed from step {loop.start_step}", flush=True)
+        say(f"resumed from step {loop.start_step}", flush=True)
     telemetry = None
-    if not args.no_telemetry:
+    if not args.no_telemetry and lead:
         if args.telemetry_out:
             os.makedirs(os.path.dirname(args.telemetry_out) or ".", exist_ok=True)
             print(f"telemetry -> {args.telemetry_out}", flush=True)
         telemetry = TelemetryLogger(path=args.telemetry_out)
 
     out = {"losses": [], "finite": [], "tokens_per_step": tokens, "start_step": loop.start_step}
-    on_metrics = metrics_sink(out, telemetry, args.log_every, args.steps)
-    pipeline = ShardedPipeline(itertools.chain([first], data.batches), device)
+    on_metrics = metrics_sink(out, telemetry, args.log_every, args.steps, say)
+    pipeline = ShardedPipeline(itertools.chain([first], data.batches), device, mesh=mesh)
     t_start = time.perf_counter()
     try:
         with _remat(not args.save_z):
@@ -219,12 +285,12 @@ def main(argv=None) -> dict:
     rate = (f"first step {out['step_s'][0]:.2f}s + {np.mean(warm):.4f}s/step warm "
             f"({len(warm) / sum(warm):.2f} steps/s, {tokens * len(warm) / sum(warm):.0f} tok/s)"
             if warm else f"{dt / max(done, 1):.2f}s/step")
-    print(f"trained {done} steps in {dt:.1f}s ({rate}); stragglers flagged: "
-          f"{len(loop.straggler.flagged)}; nonfinite steps skipped: {out['finite'].count(False)}",
-          flush=True)
-    print("dispatch: " + ", ".join(f"{o}/{b}={n}" for (o, b), n in sorted(kd.STATS.snapshot().items())),
-          flush=True)
-    out["state"] = state
+    say(f"trained {done} steps in {dt:.1f}s ({rate}); stragglers flagged: "
+        f"{len(loop.straggler.flagged)}; nonfinite steps skipped: {out['finite'].count(False)}",
+        flush=True)
+    say("dispatch: " + ", ".join(f"{o}/{b}={n}" for (o, b), n in sorted(kd.STATS.snapshot().items())),
+        flush=True)
+    out["state"], out["shardings"] = state, shardings
     return out
 
 

@@ -32,6 +32,8 @@ from ..configs.base import ArchConfig
 from ..core import floatsd
 from ..core.policy import Policy
 from ..device import resolve_device
+from ..distributed import sharding as shd
+from ..distributed.sharding import constrain
 from ..kernels import dispatch as kd
 from ..kernels.floatsd_matmul.ref import no_tf32
 from ..nn.attention import Attention
@@ -61,16 +63,25 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Mean token cross entropy with f32 reductions: a max-shifted
     log-sum-exp (the shift carries no gradient) minus the label's logit.
     The reference picks that logit by a one-hot sum; a gather gives the
-    same value and gradient."""
+    same value and gradient.
+
+    Under a mesh (``distributed.sharding``) the rows are this rank's share
+    of the batch and the result is its share of the global mean: the mean
+    over its rows over the number of shares, or its masked sum over the
+    mask's global sum (one all-reduce), so the shares sum to the global
+    mean."""
     lf = logits.to(torch.float32)
     m = lf.max(dim=-1, keepdim=True).values.detach()
     lse = torch.log(torch.exp(lf - m).sum(dim=-1)) + m[..., 0]
     ll = lf.gather(-1, labels.long()[..., None])[..., 0]
     nll = lse - ll
     if mask is None:
-        return nll.mean()
+        return nll.mean() / shd.batch_ranks()
     mk = mask.to(torch.float32)
-    return (nll * mk).sum() / torch.clamp(mk.sum(), min=1.0)
+    count = mk.sum()
+    if shd.active_mesh() is not None:
+        count = shd.all_reduce(count, shd.batch_axes())
+    return (nll * mk).sum() / torch.clamp(count, min=1.0)
 
 
 #: dtype of the decode cache (the KV cache, the RWKV shift tokens; the wkv
@@ -166,6 +177,23 @@ class CausalLM:
             p["patch_proj"] = keep({"w": truncated_normal_init(generator, (d, d), 0.02)})
         return p
 
+    def specs(self):
+        """The logical-axis tree of ``init``'s parameters (the reference's)."""
+        s = {"embed": self._embed().specs(), "stack": self._stack().specs(),
+             "final_norm": self._final_norm().specs()}
+        for i, hb in enumerate(self._head_blocks()):
+            s[f"head_block{i}"] = hb.specs()
+        if self.cfg.n_patches:
+            s["patch_proj"] = {"w": ("embed", "embed2")}
+        return s
+
+    def cache_specs(self):
+        """The logical-axis tree of ``init_cache``'s state."""
+        s = {"stack": self._stack().cache_specs()}
+        for i, hb in enumerate(self._head_blocks()):
+            s[f"head_block{i}"] = hb.cache_specs()
+        return s
+
     def hoist(self, p):
         """A served tree with the small packed leaves of the stack and the
         leading blocks decoded to f32 once (``nn.transformer.hoist``), and
@@ -223,7 +251,7 @@ class CausalLM:
         families without)."""
         p = self.hoist(p)
         emb = self._embed()
-        x = self._embed_inputs(p, batch_dict, policy)
+        x = constrain(self._embed_inputs(p, batch_dict, policy), ("batch", "seq", "act_embed"))
         pos, prefix = self._positions(batch_dict, *x.shape[:2], x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, hb in enumerate(self._head_blocks()):
@@ -231,7 +259,7 @@ class CausalLM:
             aux = aux + a
         x, a = self._stack().apply(p["stack"], x, policy, pos, prefix)
         x = self._final_norm().apply(p["final_norm"], x)
-        return emb.attend(p["embed"], x, policy), aux + a
+        return constrain(emb.attend(p["embed"], x, policy), ("batch", "seq", "vocab")), aux + a
 
     def loss(self, p, batch_dict, policy: Policy) -> torch.Tensor:
         """Mean next-token cross entropy, the padded vocab tail masked, plus

@@ -44,6 +44,10 @@ class UDPOSTagger:
         return {"embed": emb.init(generator), "bilstm1": l1.init(generator),
                 "bilstm2": l2.init(generator), "out": out.init(generator)}
 
+    def specs(self):
+        emb, l1, l2, out = self._mods()
+        return {"embed": emb.specs(), "bilstm1": l1.specs(), "bilstm2": l2.specs(), "out": out.specs()}
+
     def logits(self, p, tokens: torch.Tensor, policy: Policy) -> torch.Tensor:
         emb, l1, l2, out = self._mods()
         x = emb.apply(p["embed"], tokens, policy)
@@ -100,6 +104,10 @@ class SNLIClassifier:
         names = ("embed", "proj", "bilstm", "fc1", "fc2", "fc3", "fc4")
         return {n: m.init(generator) for n, m in zip(names, self._mods())}
 
+    def specs(self):
+        names = ("embed", "proj", "bilstm", "fc1", "fc2", "fc3", "fc4")
+        return {n: m.specs() for n, m in zip(names, self._mods())}
+
     def _encode(self, p, tokens: torch.Tensor, policy: Policy) -> torch.Tensor:
         emb, proj, lstm, *_ = self._mods()
         x = emb.apply(p["embed"], tokens, policy)
@@ -145,6 +153,10 @@ class Multi30KSeq2Seq:
     def init(self, generator: torch.Generator):
         names = ("src_embed", "enc", "tgt_embed", "dec", "out")
         return {n: m.init(generator) for n, m in zip(names, self._mods())}
+
+    def specs(self):
+        names = ("src_embed", "enc", "tgt_embed", "dec", "out")
+        return {n: m.specs() for n, m in zip(names, self._mods())}
 
     def logits(self, p, batch, policy: Policy) -> torch.Tensor:
         """The encoder's final (h, c) starts the decoder; its gradient flows
@@ -195,6 +207,13 @@ class WikiText2LM:
         if proj is not None:
             p["proj"] = proj.init(generator)
         return p
+
+    def specs(self):
+        emb, layers, proj = self._mods()
+        s = {"embed": emb.specs(), **{f"lstm{i}": layer.specs() for i, layer in enumerate(layers)}}
+        if proj is not None:
+            s["proj"] = proj.specs()
+        return s
 
     def logits(self, p, tokens: torch.Tensor, policy: Policy, states=None, lengths=None):
         """tokens [B, S] -> (logits [B, S, vocab padded], new states).

@@ -32,10 +32,11 @@ import torch
 from ..configs.base import ArchConfig
 from ..core.policy import Policy
 from ..device import resolve_device
+from ..distributed.sharding import constrain
 from ..nn.attention import Attention, KVCache
 from ..nn.ffn import FFN
 from ..nn.linear import QuantEmbedding
-from ..nn.module import stack_init, truncated_normal_init
+from ..nn.module import stack_init, stack_specs, truncated_normal_init
 from ..nn.norms import LayerNorm
 from ..nn.transformer import _layer, hoist, remat
 from .lm import CACHE_DTYPE, cross_entropy, mask_padded_vocab
@@ -82,6 +83,22 @@ class Whisper:
                 "dec": stack_init(dec_layer, c.n_layers)(generator),
                 "ln_enc": ln.init(generator), "ln_dec": ln.init(generator)}
 
+    def specs(self):
+        """The logical-axis tree of ``init``'s parameters (the reference's)."""
+        ln, ffn = self._ln().specs(), self._ffn().specs()
+        enc = {"ln1": ln, "attn": self._attn(False).specs(), "ln2": ln, "ffn": ffn}
+        dec = {"ln1": ln, "self_attn": self._attn(True).specs(), "ln_x": ln,
+               "cross_attn": self._attn(False).specs(), "ln2": ln, "ffn": ffn}
+        return {"embed": self._embed().specs(), "pos_dec": (None, "act_embed"),
+                "pos_enc": (None, "act_embed"), "enc": stack_specs(enc), "dec": stack_specs(dec),
+                "ln_enc": ln, "ln_dec": ln}
+
+    def cache_specs(self):
+        """The logical-axis tree of ``init_cache``'s state."""
+        kv = ("layers", "batch", "seq", "act_kv_heads", None)
+        cross = ("layers", "batch", None, "act_kv_heads", None)
+        return {"self": KVCache(kv, kv, ("layers",)), "cross_k": cross, "cross_v": cross}
+
     def hoist(self, p):
         """A served tree with the stacks' small packed leaves (LayerNorm
         scales and biases, q/k/v biases) and both position tables decoded to
@@ -114,7 +131,7 @@ class Whisper:
         s, table = tokens.shape[1], p["pos_dec"]
         if s > table.shape[0]:
             table = table.repeat(-(-s // table.shape[0]), 1)
-        x = x + table[:s].to(x.dtype)[None]
+        x = constrain(x + table[:s].to(x.dtype)[None], ("batch", "seq", "act_embed"))
 
         def layer_fn(lp, x, enc_states):
             x = x + sattn.apply(lp["self_attn"], ln.apply(lp["ln1"], x), policy)

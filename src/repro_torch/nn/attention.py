@@ -99,6 +99,13 @@ class Attention:
         return {"wq": self._proj(h * d).init(generator), "wk": self._proj(kh * d).init(generator),
                 "wv": self._proj(kh * d).init(generator), "wo": self._out().init(generator)}
 
+    def specs(self):
+        def proj(axis):
+            return QuantDense(self.dim, 1, use_bias=self.qkv_bias, out_axis=axis).specs()
+
+        return {"wq": proj("heads"), "wk": proj("kv_heads"), "wv": proj("kv_heads"),
+                "wo": {"w": ("heads", "embed")}}
+
     def _qkv(self, p, x: torch.Tensor, policy: Policy, positions: torch.Tensor):
         b, s, _ = x.shape
         h, kh, d = self.heads, self.kv_heads, self.hd

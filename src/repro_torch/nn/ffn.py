@@ -39,16 +39,22 @@ class FFN:
             raise ValueError(f"FFN kind must be swiglu, gelu or geglu, got {self.kind!r}")
 
     def _in(self) -> QuantDense:
-        return QuantDense(self.dim, self.hidden, use_bias=False)
+        return QuantDense(self.dim, self.hidden, use_bias=False, in_axis="embed", out_axis="mlp")
 
     def _out(self) -> QuantDense:
-        return QuantDense(self.hidden, self.dim, use_bias=False)
+        return QuantDense(self.hidden, self.dim, use_bias=False, in_axis="mlp", out_axis="embed")
 
     def init(self, generator: torch.Generator):
         p = {"wi": self._in().init(generator), "wo": self._out().init(generator)}
         if self.kind != "gelu":
             p["wg"] = self._in().init(generator)
         return p
+
+    def specs(self):
+        s = {"wi": self._in().specs(), "wo": self._out().specs()}
+        if self.kind != "gelu":
+            s["wg"] = self._in().specs()
+        return s
 
     def apply(self, p, x: torch.Tensor, policy: Policy) -> torch.Tensor:
         h = self._in().apply(p["wi"], x, policy)

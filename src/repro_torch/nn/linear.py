@@ -20,6 +20,7 @@ import torch
 from ..core import floatsd, floatsd4
 from ..core.fp8 import act_quant
 from ..core.policy import Policy
+from ..distributed import sharding as shd
 from ..kernels import dispatch as kd
 from ..kernels.floatsd_matmul.ref import no_tf32
 from .module import truncated_normal_init
@@ -59,11 +60,19 @@ def _einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 class _EinsumGC(torch.autograd.Function):
     """einsum with an explicit-transpose backward: dx keeps f32; dW is
     computed in f32 and rounded once to bf16 (the gradient-compression
-    point), then returned in w's dtype."""
+    point), then returned in w's dtype.
+
+    Under a mesh (active at the forward) x and the incoming gradient hold
+    this rank's share of the batch (dim 0). They are all-gathered, so dW is
+    the global rows' one product, rounded once; the batch's first rank
+    returns it and every other rank zeros, so the train step's sum of the
+    ranks' shares is that dW exactly (the reference reduces before it
+    quantizes)."""
 
     @staticmethod
     def forward(ctx, eq, x, w):
         ctx.eq = eq
+        ctx.mesh = shd.active_mesh()  # the backward may run on autograd's device thread
         ctx.save_for_backward(x, w)
         return _einsum_f32(eq, x, w)
 
@@ -73,7 +82,13 @@ class _EinsumGC(torch.autograd.Function):
         ins, out = ctx.eq.split("->")
         in1, in2 = ins.split(",")
         dx = _einsum_f32(f"{in2},{out}->{in1}", w, g).to(x.dtype)
-        dw = _einsum_f32(f"{in1},{out}->{in2}", x, g).to(torch.bfloat16).to(w.dtype)
+        xs, gs = x, g
+        if ctx.mesh is not None:
+            axes = shd.batch_axes(ctx.mesh)
+            xs, gs = shd.all_gather(x, 0, axes, ctx.mesh), shd.all_gather(g, 0, axes, ctx.mesh)
+            if shd.batch_rank(ctx.mesh):
+                return None, dx, torch.zeros_like(w)
+        dw = _einsum_f32(f"{in1},{out}->{in2}", xs, gs).to(torch.bfloat16).to(w.dtype)
         return None, dx, dw
 
 
@@ -104,17 +119,26 @@ def quant_einsum(eq: str, x: torch.Tensor, w, policy: Policy, site: str = "hidde
 class QuantDense:
     """A weight site with an optional bias: x [..., in] @ w [in, out] (+ b),
     both operands quantized per policy, f32 accumulation. A packed ``w``
-    runs the matmul kernel."""
+    runs the matmul kernel. ``in_axis`` and ``out_axis`` name w's dims
+    (``specs``)."""
 
     in_dim: int
     out_dim: int
     use_bias: bool = True
+    in_axis: str = "embed"
+    out_axis: str = "mlp"
 
     def init(self, generator: torch.Generator):
         p = {"w": truncated_normal_init(generator, (self.in_dim, self.out_dim))}
         if self.use_bias:
             p["b"] = torch.zeros((self.out_dim,), dtype=torch.float32, device=generator.device)
         return p
+
+    def specs(self):
+        s = {"w": (self.in_axis, self.out_axis)}
+        if self.use_bias:
+            s["b"] = (self.out_axis,)
+        return s
 
     def apply(self, p, x: torch.Tensor, policy: Policy, site: str = "hidden") -> torch.Tensor:
         y = quant_einsum("...d,df->...f", x, p["w"], policy, site)
@@ -152,6 +176,9 @@ class QuantEmbedding:
 
     def init(self, generator: torch.Generator):
         return {"table": truncated_normal_init(generator, (self.vocab, self.dim), 0.02)}
+
+    def specs(self):
+        return {"table": ("vocab", "embed")}
 
     def apply(self, p, tokens: torch.Tensor, policy: Policy) -> torch.Tensor:
         """tokens -> embeddings (the 'first layer activation' site). A

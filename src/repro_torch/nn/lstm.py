@@ -29,6 +29,7 @@ import torch
 from ..core.fp8 import quantize_fp8
 from ..core.policy import Policy
 from ..core.qsigmoid import qsigmoid, qtanh_fp8
+from ..distributed import sharding as shd
 from ..kernels import dispatch as kd
 from .linear import policy_einsum, quant_act, quant_weight
 from .module import uniform_init
@@ -66,6 +67,9 @@ class LSTMCell:
             "wh": uniform_init(generator, (h, 4 * h), scale),
             "b": b,
         }
+
+    def specs(self):
+        return {"wx": ("embed", "hidden4"), "wh": ("hidden", "hidden4"), "b": ("hidden4",)}
 
     def step(self, p, x_t: torch.Tensor, state: LSTMState, policy: Policy,
              inference: bool = True):
@@ -134,7 +138,9 @@ class _LSTMBPTT(torch.autograd.Function):
     bit for bit at every batch size, and the kernel path trains bit for bit
     as the plain path does. dWx and dWh leave on the FP8 grid and go
     straight through to the dense masters (FP8 values are exact in fp16);
-    the dc chain stays f32, as in the reference."""
+    the dc chain stays f32, as in the reference. Under a mesh (active at
+    the forward) dWx and dWh run over every rank's rows (``matmul_dw``'s
+    ``mesh``), so they snap the global sum."""
 
     @staticmethod
     def forward(ctx, xs, h0, c0, wx, wh, b, lens, wqx, wqh, quantized, c_dtype, afwd, abwd, reverse,
@@ -162,6 +168,7 @@ class _LSTMBPTT(torch.autograd.Function):
             saved += [lens, torch.stack(hs_prev)]
         ctx.save_for_backward(*saved)
         ctx.packed = (wqx, wqh)
+        ctx.mesh = shd.active_mesh()  # the backward may run on autograd's device thread
         ctx.cfg = (quantized, c_dtype, afwd, abwd, reverse, wx.dtype, wh.dtype, remat)
         return hs_t, h_prev, c_prev
 
@@ -203,9 +210,10 @@ class _LSTMBPTT(torch.autograd.Function):
             dh = quantize_fp8(kd.matmul_dx(dz, wqh.codes, wqh.bias, dense=wqh.dense, ordered=True), abwd)
             if lens is not None:
                 dh, dc = dh_pass + dh, dc_pass + dc
-        dzs_f = torch.stack(dzs).reshape(s * bsz, 4 * h)
-        dwx = kd.matmul_dw(xs.reshape(s * bsz, d), dzs_f)
-        dwh = kd.matmul_dw(hqs.reshape(s * bsz, h), dzs_f)
+        dzs = torch.stack(dzs)
+        dzs_f = dzs.reshape(s * bsz, 4 * h)
+        dwx = kd.matmul_dw(xs, dzs, mesh=ctx.mesh, batch_dim=1)
+        dwh = kd.matmul_dw(hqs, dzs, mesh=ctx.mesh, batch_dim=1)
         dxs = kd.matmul_dx(dzs_f, wqx.codes, wqx.bias, dense=wqx.dense, ordered=True)
         return (dxs.reshape(s, bsz, d).to(xs.dtype), dh.to(h0.dtype), dc.to(c0.dtype),
                 dwx.to(wx_dtype), dwh.to(wh_dtype), dzs_f.sum(0).to(b.dtype),
@@ -220,6 +228,9 @@ class LSTMLayer:
 
     def init(self, generator: torch.Generator):
         return LSTMCell(self.in_dim, self.hidden).init(generator)
+
+    def specs(self):
+        return LSTMCell(self.in_dim, self.hidden).specs()
 
     def apply(self, p, xs: torch.Tensor, policy: Policy, state: LSTMState | None = None,
               lengths: torch.Tensor | None = None):
@@ -304,6 +315,10 @@ class BiLSTM:
             "fwd": LSTMLayer(self.in_dim, self.hidden).init(generator),
             "bwd": LSTMLayer(self.in_dim, self.hidden, reverse=True).init(generator),
         }
+
+    def specs(self):
+        s = LSTMLayer(self.in_dim, self.hidden).specs()
+        return {"fwd": s, "bwd": s}
 
     def apply(self, p, xs: torch.Tensor, policy: Policy) -> torch.Tensor:
         """xs [B, S, in_dim] -> [B, S, 2H]: the forward layer's h beside the

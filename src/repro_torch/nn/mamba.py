@@ -78,6 +78,19 @@ class Mamba:
             "out_proj": truncated_normal_init(generator, (di, self.dim)),
         }
 
+    def specs(self):
+        return {
+            "in_proj": ("embed", "mlp"),
+            "conv_w": (None, "mlp"),
+            "conv_b": ("mlp",),
+            "x_proj": ("mlp", None),
+            "dt_proj": (None, "mlp"),
+            "dt_bias": ("mlp",),
+            "a_log": ("mlp", None),
+            "d": ("mlp",),
+            "out_proj": ("mlp", "embed"),
+        }
+
     def _gate(self, x: torch.Tensor, policy: Policy) -> torch.Tensor:
         return _silu(x, self.quant_silu and policy.sigmoid_quant)
 

@@ -6,6 +6,11 @@ generator's device. The port draws from a ``torch.Generator``, so the same
 seed gives other numbers than ``jax.random``; the tests hand both packages
 one set of numpy parameters instead. Stacked (scanned) parameters get a
 leading layer axis (``stack_init``), as the reference's ``Stack`` has them.
+
+``specs()`` gives a module's logical-axis tree, the reference's: the same
+structure as ``init``'s, a tuple of logical names per leaf, one a dim
+(``distributed.sharding`` maps them to mesh axes); ``stack_specs`` puts
+the layer axis in front of every leaf.
 """
 from __future__ import annotations
 
@@ -16,7 +21,7 @@ import torch
 
 from .._tree import tree_map
 
-__all__ = ["truncated_normal_init", "uniform_init", "stack_init"]
+__all__ = ["truncated_normal_init", "uniform_init", "stack_init", "stack_specs"]
 
 
 def truncated_normal_init(generator: torch.Generator, shape, stddev: float | None = None) -> torch.Tensor:
@@ -50,3 +55,8 @@ def stack_init(layer_init: Callable, n: int) -> Callable:
         return out
 
     return init
+
+
+def stack_specs(specs):
+    """Prepend the scan axis name ("layers") to every leaf spec."""
+    return tree_map(lambda s: ("layers",) + tuple(s), specs, is_leaf=lambda s: type(s) is tuple)

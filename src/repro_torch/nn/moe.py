@@ -1,8 +1,10 @@
 """Mixture of experts with grouped, capacity-based sort/scatter dispatch.
 
-Counterpart of ``repro.nn.moe`` with no device mesh: the tokens are split
-into g = gcd(tokens, ``dispatch_groups``) groups (the reference's
-``_groups()`` with no active mesh), and each group is routed on its own:
+Counterpart of ``repro.nn.moe``: the tokens are split into routing groups
+(``_groups``, the reference's: without an active mesh g = gcd(tokens,
+``dispatch_groups``); under one, the mesh's pod x data groups of the
+global batch, of which each rank holds one), and each group is routed on
+its own:
 
   * the router's logits in f32, softmax, the top-k experts (ties to the
     lower index, as ``jax.lax.top_k`` breaks them: a stable descending
@@ -22,7 +24,8 @@ into g = gcd(tokens, ``dispatch_groups``) groups (the reference's
     rows in slot order (serially on the CPU, through a sort on the card),
     not by atomics, so two runs are bit-identical;
   * the Switch-style load-balancing loss E sum(mean probs x top-1 share),
-    averaged over the groups.
+    averaged over the groups (under a mesh, this rank's share of that
+    mean).
 
 The reference's gather-based combine switch (``REPRO_MOE_GATHER_COMBINE``)
 is not ported. The router is not a weight site: a served tree hands it
@@ -40,6 +43,7 @@ import math
 import torch
 
 from ..core.policy import Policy
+from ..distributed import sharding as shd
 from ..kernels.floatsd_matmul.ref import no_tf32
 from .ffn import _silu
 from .linear import quant_act, quant_einsum
@@ -127,6 +131,14 @@ class MoE:
             "wo": truncated_normal_init(generator, (e, h, d), 1.0 / h**0.5),
         }
 
+    def specs(self):
+        return {
+            "router": ("embed", None),
+            "wi": ("expert", "embed", "expert_inner"),
+            "wg": ("expert", "embed", "expert_inner"),
+            "wo": ("expert", "expert_inner", "embed"),
+        }
+
     def capacity(self, n_tokens: int) -> int:
         """Slots an expert has in a group of ``n_tokens``: capacity_factor
         x k x tokens / E rounded up to a multiple of 8, within [8, tokens
@@ -165,11 +177,11 @@ class MoE:
         """x [B, S, d] -> ([B, S, d], the load-balancing loss)."""
         b, s, d = x.shape
         t = b * s
-        g = math.gcd(t, self.dispatch_groups)
+        g = self._groups(t)
         tg = t // g
         cap = self.capacity(tg)
         e, k = self.n_experts, self.top_k
-        xf = x.reshape(g, tg, d)
+        xf = shd.constrain(x.reshape(g, tg, d), ("batch", None, None))
         route, auxs = self.route(p["router"], xf, cap)
         for out in _ROUTES:
             out.append(route)
@@ -187,9 +199,23 @@ class MoE:
         hi = quant_einsum("gecd,edh->gech", be, p["wi"], policy)
         hg = quant_einsum("gecd,edh->gech", be, p["wg"], policy)
         act = _silu(hg, self.quant_silu and policy.sigmoid_quant) * hi
-        out_e = quant_einsum("gech,ehd->gecd", act, p["wo"], policy)
+        out_e = shd.constrain(quant_einsum("gech,ehd->gecd", act, p["wo"], policy),
+                              ("batch", "expert", None, None))
         y = self._combine(out_e, route, gi, tg)
-        return y.reshape(b, s, d).to(x.dtype), auxs.mean()
+        y = shd.constrain(y.reshape(b, s, d), ("batch", None, None))
+        return y.to(x.dtype), auxs.mean() / shd.batch_ranks()
+
+    def _groups(self, t: int) -> int:
+        """Routing groups of this call's t tokens. Without an active mesh,
+        gcd(t, ``dispatch_groups``). Under one, the reference routes the
+        global batch's T tokens in gcd(T, P) groups, P the mesh's pod x
+        data size; the batch is split over those P ranks (``t = T / P``,
+        whole rows), so each rank holds gcd(T, P) / P = 1 group."""
+        mesh = shd.active_mesh()
+        if mesh is None:
+            return math.gcd(t, self.dispatch_groups)
+        n = shd.batch_ranks(mesh)
+        return math.gcd(t * n, n) // n
 
     def _combine(self, out_e: torch.Tensor, route: Route, gi: torch.Tensor, t: int) -> torch.Tensor:
         """Scale each slot's output by its gate and add it into its token's

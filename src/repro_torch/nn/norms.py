@@ -22,6 +22,9 @@ class RMSNorm:
     def init(self, generator: torch.Generator):
         return {"scale": torch.ones((self.dim,), dtype=torch.float32, device=generator.device)}
 
+    def specs(self):
+        return {"scale": ("embed",)}
+
     def apply(self, p, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.float32)
         var = torch.mean(xf * xf, dim=-1, keepdim=True)
@@ -38,6 +41,9 @@ class LayerNorm:
         dev = generator.device
         return {"scale": torch.ones((self.dim,), dtype=torch.float32, device=dev),
                 "bias": torch.zeros((self.dim,), dtype=torch.float32, device=dev)}
+
+    def specs(self):
+        return {"scale": ("embed",), "bias": ("embed",)}
 
     def apply(self, p, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.float32)

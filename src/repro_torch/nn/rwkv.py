@@ -92,6 +92,21 @@ class RWKV6TimeMix:
             "ln_scale": torch.ones((d,), dtype=torch.float32, device=dev),
         }
 
+    def specs(self):
+        return {
+            "mix": (None, "embed"),
+            "wr": ("embed", "heads"),
+            "wk": ("embed", "heads"),
+            "wv": ("embed", "heads"),
+            "wg": ("embed", "heads"),
+            "wo": ("heads", "embed"),
+            "w0": ("heads",),
+            "w_lora_a": ("embed", None),
+            "w_lora_b": (None, "heads"),
+            "u": ("kv_heads", None),
+            "ln_scale": ("heads",),
+        }
+
     def _proj(self, p, x, xprev, policy: Policy):
         """Token-shift lerps and the five projections; x, xprev [B, S, d]."""
         mix = p["mix"]
@@ -157,6 +172,10 @@ class RWKV6ChannelMix:
             "wv": truncated_normal_init(g, (self.hidden, self.dim)),
             "wr": truncated_normal_init(g, (self.dim, self.dim)),
         }
+
+    def specs(self):
+        return {"mix": (None, "embed"), "wk": ("embed", "mlp"), "wv": ("mlp", "embed"),
+                "wr": ("embed", "embed2")}
 
     def apply(self, p, x: torch.Tensor, policy: Policy, x_prev_last=None):
         """x [B, S, d] -> (out [B, S, d], last shifted token)."""

@@ -38,11 +38,13 @@ import torch.utils.checkpoint
 from .._tree import tree_leaves, tree_map
 from ..core import floatsd
 from ..core.policy import Policy
+from ..distributed import sharding as shd
+from ..distributed.sharding import constrain
 from ..kernels import dispatch as kd
 from .attention import Attention, KVCache
 from .ffn import FFN
 from .mamba import Mamba, MambaCache
-from .module import stack_init
+from .module import stack_init, stack_specs
 from .moe import MoE
 from .norms import LayerNorm, RMSNorm
 from .rwkv import WEIGHT_SITES as RWKV_SITES
@@ -85,9 +87,11 @@ def remat(fn, *args):
     """``fn(*args)``, under ``torch.utils.checkpoint`` (non-reentrant) when
     grad is on and a tensor among ``args`` (nested in dicts, tuples and
     lists) requires it: the backward recomputes ``fn`` instead of keeping
-    its activations. Otherwise a plain call."""
+    its activations. Otherwise a plain call. The recompute runs under the
+    mesh active at the forward (``sharding.bind``): on the card autograd
+    runs it on its device thread."""
     if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad for t in tree_leaves(args)):
-        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+        return torch.utils.checkpoint.checkpoint(shd.bind(fn), *args, use_reentrant=False)
     return fn(*args)
 
 
@@ -153,6 +157,10 @@ class Block:
         return {"norm1": n.init(generator), "mixer": self._mixer_mod().init(generator),
                 "norm2": n.init(generator), "mlp": self._mlp_mod().init(generator)}
 
+    def specs(self):
+        n = _norm(self.norm, self.dim).specs()
+        return {"norm1": n, "mixer": self._mixer_mod().specs(), "norm2": n, "mlp": self._mlp_mod().specs()}
+
     def apply(self, p, x: torch.Tensor, policy: Policy, positions=None, prefix: int = 0):
         """Full-sequence path (forward / prefill): x [B, S, d] -> (x, the
         MoE's load-balancing loss, or 0). ``positions`` and the causal
@@ -165,7 +173,7 @@ class Block:
             mix = self.attn.apply(p["mixer"], h, policy, positions=positions, prefix=prefix)
         else:
             mix = self.mamba_mod.apply(p["mixer"], h, policy)
-        x = x + mix
+        x = constrain(x + mix, ("batch", "seq", "act_embed"))
         h2 = n.apply(p["norm2"], x)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if self.mlp == "moe":
@@ -174,7 +182,7 @@ class Block:
             y = self.ffn_mod.apply(p["mlp"], h2, policy)
         else:
             y, _ = self.cmix_mod.apply(p["mlp"], h2, policy)
-        return x + y, aux
+        return constrain(x + y, ("batch", "seq", "act_embed")), aux
 
     def init_cache(self, batch: int, s_max: int | None, dtype, device):
         """Zero decode state: a KV cache of min(s_max, window) slots, the
@@ -195,6 +203,15 @@ class Block:
             torch.zeros((batch, self.dim), dtype=dtype, device=device),
             torch.zeros((batch, self.dim), dtype=dtype, device=device),
         )
+
+    def cache_specs(self):
+        """Logical-axis tuples mirroring ``init_cache``."""
+        if self.mixer == "attn":
+            kv = ("batch", "seq", "act_kv_heads", None)
+            return KVCache(kv, kv, ())
+        if self.mixer == "mamba":
+            return MambaCache(("batch", "act_mlp", None), ("batch", None, "act_mlp"))
+        return RWKVState(("batch", "act_heads", None, None), ("batch", None), ("batch", None))
 
     def decode(self, p, x: torch.Tensor, cache, policy: Policy):
         """One token: x [B, 1, d] -> (x, new cache)."""
@@ -242,6 +259,12 @@ class Stack:
             for i, b in enumerate(self.blocks):
                 out[f"b{i}"] = each(b.init(generator), (f"b{i}", g, self.n_groups))
         return out
+
+    def specs(self):
+        return stack_specs({f"b{i}": b.specs() for i, b in enumerate(self.blocks)})
+
+    def cache_specs(self):
+        return stack_specs({f"b{i}": b.cache_specs() for i, b in enumerate(self.blocks)})
 
     def apply(self, p, x: torch.Tensor, policy: Policy, positions=None, prefix: int = 0):
         """x [B, S, d] -> (x, the summed load-balancing loss). Trained, each

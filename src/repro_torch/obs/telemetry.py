@@ -25,6 +25,13 @@ One deviation, the same function: ``floatsd_update_stats`` quantizes with
 its plain version on the CPU) and compares the codes, where the reference
 compares the quantized values in ``jnp``: two codes at one bias differ
 exactly where their values do (``tests/test_torch_telemetry.py``).
+
+On a device mesh the train step hands these functions global tensors, so
+each statistic describes the global step, as the reference's SPMD step
+does: the gradients after their sum over the batch ranks, the masters
+gathered whole (so ``fit_bias`` sees every weight). ``KERNEL_STATS`` sees
+each global dW once: the batch's first rank alone runs ``matmul_dw``'s
+chain. On the training CLI rank 0 alone keeps a ``TelemetryLogger``.
 """
 from __future__ import annotations
 

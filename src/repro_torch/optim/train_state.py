@@ -20,9 +20,25 @@ Every cast is the reference's. A nonfinite step keeps the old parameters
 and optimizer state (its step count included) through ``torch.where`` on
 the device, and the loss scale is adjusted there too, so nothing in the
 step waits on the host.
+
+**On a mesh** (``shardings=``, the state's ``NamedSharding`` tree from
+``state_shardings``): the state is stored sharded, each rank holding its
+piece of every master and moment (FSDP over "data" on the "embed" dims,
+by the model's ``specs()``), and the batch is this rank's rows. A step
+all-gathers the full masters (the kernels take plain tensors), runs the
+loss under the mesh (this rank's share of the global loss; the LSTM
+engine's ``matmul_dw`` gathers the global rows, so its FP8 snap sees the
+global sum), sums the loss and every gradient over the batch ranks in one
+f32 all-reduce, then runs the FP8 sweep, the unscale and finite check, the
+clip norm and telemetry on the full summed gradients, the same on every
+rank (so every rank skips together and the loss scale stays equal), and
+the optimizer and the master add on this rank's pieces. At a world of one
+rank every collective is an identity and the step equals the unsharded
+one bit for bit.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -32,10 +48,11 @@ from .._tree import tree_leaves, tree_map
 from ..core import loss_scaling as ls
 from ..core.fp8 import grad_quant
 from ..core.policy import Policy
+from ..distributed import sharding as shd
 from ..obs import telemetry as obs_telemetry
 from .optimizers import Optimizer
 
-__all__ = ["TrainState", "init_state", "make_train_step", "batch_to_device"]
+__all__ = ["TrainState", "init_state", "make_train_step", "batch_to_device", "state_shardings"]
 
 
 class TrainState(NamedTuple):
@@ -56,6 +73,53 @@ def init_state(params, opt: Optimizer, policy: Policy, dynamic_scale: bool = Fal
                       opt.init(master), st)
 
 
+def state_shardings(param_specs, state: TrainState, mesh=None) -> TrainState:
+    """The ``NamedSharding`` tree of a TrainState on ``mesh`` (default: the
+    active one): the masters by the model's logical specs and their
+    shapes; every optimizer-state part shaped as the parameters alike (the
+    Adam moments, SGD's momentum); scalars (step, counts, loss scale)
+    replicated."""
+    mesh = mesh or shd.active_mesh()
+    psh = shd.tree_shardings(param_specs, state.params, mesh)
+    structure = _structure(state.params)
+
+    def replicated(x):
+        return shd.NamedSharding(mesh, (None,) * x.dim())
+
+    def like_params(sub):
+        if _structure(sub) == structure:
+            return psh
+        if hasattr(sub, "_fields"):
+            return type(sub)(*(like_params(getattr(sub, f)) for f in sub._fields))
+        return tree_map(replicated, sub)
+
+    return TrainState(replicated(state.step), psh, like_params(state.opt_state),
+                      tree_map(replicated, state.scale))
+
+
+def _structure(tree):
+    """A tree's nesting and leaf shapes (a hashable summary)."""
+    if isinstance(tree, dict):
+        return ("dict", tuple((k, _structure(v)) for k, v in tree.items()))
+    if isinstance(tree, (list, tuple)):
+        return (type(tree).__name__, tuple(_structure(v) for v in tree))
+    return tuple(getattr(tree, "shape", ()))
+
+
+def _sum_shares(loss: torch.Tensor, grads, mesh):
+    """The loss and every gradient summed over the batch ranks in one f32
+    all-reduce (each leaf back in its dtype)."""
+    leaves = tree_leaves(grads)
+    flat = shd.all_reduce(torch.cat([loss.detach().to(torch.float32).reshape(1)]
+                                    + [g.to(torch.float32).reshape(-1) for g in leaves]),
+                          shd.batch_axes(mesh), mesh)
+    sizes = [1] + [g.numel() for g in leaves]
+    parts = iter(torch.split(flat, sizes))
+    loss = next(parts)[0]
+    summed = iter([p.view(g.shape).to(g.dtype) for p, g in zip(parts, leaves)])
+    return loss, tree_map(lambda _: next(summed), grads)
+
+
 def batch_to_device(batch: dict, device) -> dict:
     """A numpy batch of token ids -> int64 tensors on ``device``."""
     return {k: torch.from_numpy(np.asarray(v, np.int64)).to(device) for k, v in batch.items()}
@@ -63,7 +127,7 @@ def batch_to_device(batch: dict, device) -> dict:
 
 def make_train_step(loss_fn, opt: Optimizer, policy: Policy, lr: float = 1e-3,
                     grad_clip: float | None = 1.0, fused: bool | None = None,
-                    telemetry: bool = False):
+                    telemetry: bool = False, shardings: TrainState | None = None):
     """loss_fn(params, batch, policy) -> scalar loss. Returns
     ``step(state, batch) -> (state, metrics)``, metrics holding the raw
     loss, ``grads_finite`` and the new ``loss_scale`` as device scalars.
@@ -77,20 +141,35 @@ def make_train_step(loss_fn, opt: Optimizer, policy: Policy, lr: float = 1e-3,
     ``grad_quant`` sweep point, each parameter group's gradient norm after
     unscaling (``"grad_norm"``), and the FloatSD carry and clamp fractions
     of the applied update (after the skip-select, so a skipped step
-    reports no carries). All are device tensors; no host read is added."""
+    reports no carries). All are device tensors; no host read is added.
+
+    ``shardings`` (``state_shardings``) runs the step on their mesh, on a
+    state sharded by them (module docstring); telemetry then describes the
+    global step, its update statistics read from the gathered masters."""
+    mesh = psh = None
+    if shardings is not None:
+        psh = shardings.params
+        mesh = shardings.step.mesh
+        if opt.name == "adafactor" and shd.batch_ranks(mesh) > 1:
+            raise NotImplementedError("adafactor's factored moments span the sharded dims: "
+                                      "shard its state on no mesh of more than one batch rank")
     if fused is None:
         fused = policy.grad_quant == "fp8"
     run_policy = (policy.replace(grad_quant="fp8_kernel")
                   if fused and policy.grad_quant == "fp8" else policy)
 
     def step(state: TrainState, batch):
-        params = tree_map(lambda p: p.detach().requires_grad_(), state.params)
-        raw_loss = loss_fn(params, batch, run_policy)
-        scaled = ls.scale_loss(raw_loss.to(torch.float32), state.scale)
-        flat = iter(torch.autograd.grad(scaled, tree_leaves(params), allow_unused=True))
+        full = state.params if psh is None else shd.gather_tree(state.params, psh)
+        params = tree_map(lambda p: p.detach().requires_grad_(), full)
+        with shd.use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+            raw_loss = loss_fn(params, batch, run_policy)
+            scaled = ls.scale_loss(raw_loss.to(torch.float32), state.scale)
+            flat = iter(torch.autograd.grad(scaled, tree_leaves(params), allow_unused=True))
         # a leaf the loss does not read (a vlm's patch_proj without patches) gets zeros, as from jax.grad
         grads = tree_map(lambda _: next(flat), params)
         grads = tree_map(lambda g, p: torch.zeros_like(p) if g is None else g, grads, params)
+        if mesh is not None:
+            raw_loss, grads = _sum_shares(raw_loss, grads, mesh)
         # the loss-scaled values the FP8 quantizer is about to see
         tel = obs_telemetry.fp8_grad_stats(grads) if telemetry else None
         if run_policy.grad_quant in ("fp8", "fp8_kernel"):
@@ -103,6 +182,8 @@ def make_train_step(loss_fn, opt: Optimizer, policy: Policy, lr: float = 1e-3,
                                    for g in tree_leaves(grads)))
             coef = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
             grads = tree_map(lambda g: g * coef.to(g.dtype), grads)
+        if psh is not None:
+            grads = shd.shard_tree(grads, psh)
         updates, new_opt = opt.update(grads, state.opt_state, state.params, lr)
         # FP16 master + update: an f32 add, stored back in the master dtype
         new_params = tree_map(lambda p, u: (p.to(torch.float32) + u.to(torch.float32)).to(p.dtype),
@@ -114,7 +195,8 @@ def make_train_step(loss_fn, opt: Optimizer, policy: Policy, lr: float = 1e-3,
         metrics = {"loss": raw_loss.detach(), "grads_finite": finite,
                    "loss_scale": new_scale.scale}
         if telemetry:
-            tel.update(obs_telemetry.floatsd_update_stats(state.params, new_params))
+            new_full = new_params if psh is None else shd.gather_tree(new_params, psh)
+            tel.update(obs_telemetry.floatsd_update_stats(full, new_full))
             metrics["tel"] = tel
         return TrainState(state.step + 1, new_params, new_opt, new_scale), metrics
 

@@ -1892,3 +1892,63 @@ def test_dispatch_gradients_with_the_kernel_forward_match_the_plain_forward(dev,
             torch.testing.assert_close(a, b, rtol=2e-2, atol=6e-3 * scale)
         else:
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_world_one_nccl_mesh_step_equals_the_unsharded_step(dev):
+    """The train step on the training CLI's mesh over an NCCL world of one
+    rank (every collective an identity) against the unsharded step from
+    the same init and batches: losses and fp16 masters bit for bit, every
+    LSTM kernel on the card, and one f32 all-reduce a step."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import train
+    from repro_torch.optim.train_state import state_shardings
+
+    model = WikiText2LM(vocab=256, emb=64, hidden=64, n_layers=2)
+    pol, opt = get_policy("floatsd8_table6"), sgd(0.9)
+    batches = [batch_to_device(b, dev) for _, b in zip(range(3), synthetic.wikitext2(batch=8, seq=16, vocab=256).batches)]
+    state = init_state(model.init(_gen(dev, 0)), opt, pol)
+    step = make_train_step(model.loss, opt, pol, lr=0.5, telemetry=True)
+    losses = []
+    for b in batches:
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+    with train.process_group("cuda"):
+        mesh = train.make_mesh_for_host()
+        assert torch.distributed.get_backend() == "nccl" and shd.batch_ranks(mesh) == 1
+        full = init_state(model.init(_gen(dev, 0)), opt, pol)
+        sh = state_shardings(model.specs(), full, mesh)
+        mstate = shd.shard_tree(full, sh)
+        mstep = make_train_step(model.loss, opt, pol, lr=0.5, telemetry=True, shardings=sh)
+        kd.STATS.reset()
+        shd.COLLECTIVES.clear()
+        mlosses = []
+        for b in batches:
+            mstate, m = mstep(mstate, b)
+            mlosses.append(float(m["loss"]))
+        stats, coll = kd.STATS.snapshot(), dict(shd.COLLECTIVES)
+    assert mlosses == losses
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(mstate.params), tree_leaves(state.params)))
+    assert stats and all(b == "cuda" for _, b in stats)
+    assert coll["all_reduce"] == len(batches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("amax", [1e-3, 0.02, 3.5, 7.0, 1000.0])
+def test_fp8_psum_over_a_world_of_one_is_the_saturating_round_trip(dev, amax):
+    """fp8_psum over the NCCL world of one rank equals, bit for bit, x's
+    saturating e5m2 round trip at the exact power-of-two scale (computed
+    on the CPU from float64 log2)."""
+    from repro_torch.core.fp8 import cast_fp8
+    from repro_torch.launch import train
+    from repro_torch.optim.grad_compress import fp8_psum
+
+    x = torch.randn(4096, device=dev, generator=_gen(dev, 3))
+    x = x / x.abs().max() * amax
+    with train.process_group("cuda"):
+        got = fp8_psum(x).cpu()
+    xc = x.cpu()
+    q = np.float32(28672.0) / np.float32(float(xc.abs().max()))
+    s = float(np.float32(2.0 ** np.floor(np.log2(np.float64(q)))))
+    want = cast_fp8(xc * s).to(torch.float32) / s
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
