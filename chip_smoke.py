@@ -291,6 +291,30 @@ Phases, in order; the first failure exits non-zero:
                 on the kernels and on backend="ref": every MoE call routes
                 one group, the losses within 1e-4 relative; fp8_psum over the world's group bit for bit the
                 saturating e5m2 round trip at the exact power-of-two scale.
+ 32. dryrun     the production-mesh dry run (launch/dryrun.py) and one
+                rank's share of it on the card. In child processes on the
+                host's CPU (no device): run_cell for the four dense archs'
+                train_4k on the 16 x 16 ("data", "model") mesh over a fake
+                group of 256 ranks, and h2o_danube3_4b's prefill_32k, each
+                traced at full depth; each record's per-rank memory
+                and roofline terms printed. Meanwhile on the card:
+                flash_attention at the tensor-parallel local shapes (2 query
+                heads over 1 KV head of 120, window 4096: B 16 x S 4096 of
+                train_4k and B 2 x S 8192 for prefill_32k's S 32768, which
+                the oracle cannot hold) against the oracle and the chunked
+                plain version, timed; then rank 0 of the 16 x 16 fake group
+                runs h2o_danube3_4b's rank-local programs at full width and
+                depth, through build_cell: train_4k (B 16 x S 4096 a rank,
+                2 of 32 query heads, a vocab piece of 2000; one cold step
+                and 3 warm ones) and prefill_32k (B 2 x S 32768 a rank). A
+                fake group's collectives leave their outputs as they were,
+                so these runs check shapes, launches and memory, never
+                values: every flash_attention launch on the kernel at the
+                local shapes (its Decision's cost that of q [B, S, 2, 120]
+                over one KV head), the warm step time, and
+                max_memory_allocated (less what was allocated before)
+                beside the dry run's argument + temp bytes for the same
+                cell, with the ratio.
 
 The kernel phase's floatsd4_matmul layer-plane rows: a [24, K, N] leaf of
 each dense site shape, layers 22 and 23 bit for bit against the plain
@@ -2747,7 +2771,7 @@ def flash_oracle(torch, q, k, v, causal, window, prefix=0, heads_per_call=4):
     return out
 
 
-def flash_phase(torch, dev, flush):
+def flash_phase(torch, dev, flush, cases=None):
     """Phase 3, continued: the flash_attention kernel against its plain
     versions (the oracle and the model's chunked online softmax) at the
     dense prefill's shape, where the window bites, at a ragged S, without
@@ -2764,7 +2788,7 @@ def flash_phase(torch, dev, flush):
     rows = {}
     print(f"kernels: flash_attention vs the oracle and the chunked plain version (|err| <= atol + rtol |want|: "
           f"f32 {FLASH_TOL['float32']}, bf16 {FLASH_TOL['bfloat16']}; q ~ N(0, {FLASH_Q_SCALE ** 2:g}))")
-    for name, b, s, skv, h, kh, d, causal, window, dt, prefix in FLASH_CASES:
+    for name, b, s, skv, h, kh, d, causal, window, dt, prefix in cases or FLASH_CASES:
         dt = getattr(torch, dt)
         q = (torch.randn((b, s, h, d), device=dev, generator=g) * FLASH_Q_SCALE).to(dt)
         k, v = (torch.randn((b, skv, kh, d), device=dev, generator=g).to(dt) for _ in range(2))
@@ -5091,6 +5115,168 @@ def mesh_phase(torch, dev, smi):
             "busy_ms": busy, "comm": comm, "step_ms": (m_ms, u_ms, diff_ms), "seconds": dt}
 
 
+DRYRUN_ARCH = "h2o_danube3_4b"
+DRYRUN_ARCHS = ("h2o_danube3_4b", "stablelm_3b", "phi4_mini_3p8b", "granite_20b")
+DRYRUN_WARM = 3  # warm steps of the rank-local train_4k after its cold one
+# the card's peak over the dry run's argument + temp bytes, each cell's
+# band around the H100 readings of this phase (1.129 and 1.001): the trace
+# misses some 13% of train_4k's peak, so a drift of the analyzer's memory
+# accounting shows here
+DRYRUN_PEAK_BANDS = {"train_4k": (1.10, 1.16), "prefill_32k": (0.98, 1.02)}
+# (name, B, Sq, Skv, H, Kh, D, causal, window, dtype, prefix): flash_attention
+# at h2o_danube3_4b's tensor-parallel local shapes on the 16 x 16 mesh
+DRYRUN_FLASH_CASES = [("tp-train", 16, 4096, 4096, 2, 1, 120, True, 4096, "bfloat16", 0),
+                      ("tp-prefill", 2, 8192, 8192, 2, 1, 120, True, 4096, "bfloat16", 0)]
+# one dry-run record in a child process: python -c DRYRUN_CHILD arch shape
+# out; the fake group of 256 ranks needs a process of its own
+DRYRUN_CHILD = (
+    "import json, sys, torch; torch.set_num_threads(1); "
+    "from repro_torch.launch.dryrun import run_cell; "
+    "arch, shape, out = sys.argv[1:4]; "
+    "json.dump(run_cell(arch, shape, verbose=False), open(out, 'w'))")
+
+
+class _FlashShapes:
+    """A dispatch observer: the Decision of every flash_attention call."""
+
+    def __init__(self):
+        self.decisions = []
+
+    def enter(self):
+        pass
+
+    def exit(self):
+        pass
+
+    def record(self, d):
+        if d.op == "flash_attention":
+            self.decisions.append(d)
+
+
+def dryrun_phase(torch, dev, smi):
+    """Phase 32 (module docstring)."""
+    import os
+    import tempfile
+
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import dispatch as kd
+    from repro_torch.kernels.flash_attention import cost as fa_cost
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.mesh import fake_group, make_production_mesh
+    from repro_torch.launch.specs import build_cell, piece_shape
+    from repro_torch.optim import adam
+    from repro_torch.optim.train_state import init_state
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="dryrun_"))
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
+    jobs = [(a, "train_4k") for a in DRYRUN_ARCHS] + [(DRYRUN_ARCH, "prefill_32k")]
+    children = [(a, sh, tmp / f"{a}__{sh}.json",
+                 subprocess.Popen([sys.executable, "-c", DRYRUN_CHILD, a, sh, str(tmp / f"{a}__{sh}.json")],
+                                  env=env, cwd=str(ROOT)))
+                for a, sh in jobs]
+    try:
+        # flash_attention at the local shapes, against its plain versions
+        flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev)
+        rows = flash_phase(torch, dev, flush, DRYRUN_FLASH_CASES)
+        del flush
+        torch.cuda.empty_cache()
+        # rank 0's programs under the fake 16 x 16 group, at full width and depth
+        seen = _FlashShapes()
+        out = {}
+        g = torch.Generator(device=dev).manual_seed(SEED + 61)
+        kd.STATS.reset()
+        flash_attention.launches = 0
+        kd.OBSERVERS.append(seen)
+        try:
+            with fake_group(256):
+                mesh = make_production_mesh()
+                for shape in ("train_4k", "prefill_32k"):
+                    cell = build_cell(DRYRUN_ARCH, shape, mesh)
+                    psh, pmeta = ((cell.in_shardings[0].params, cell.args[0].params) if cell.kind == "train"
+                                  else (cell.in_shardings[0], cell.args[0]))
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                    params = tree_map(lambda sh, x: torch.randn(piece_shape(sh, x.shape), generator=g, device=dev)
+                                      * 0.02, psh, pmeta, is_leaf=lambda v: isinstance(v, shd.NamedSharding))
+                    bshape = piece_shape(cell.in_shardings[1]["tokens"], cell.args[1]["tokens"].shape)
+                    batch = {k: torch.randint(0, cell.cfg.vocab, bshape, generator=g, device=dev)
+                             for k in ("tokens", "labels")}
+                    first = init_state(params, adam(), cell.policy) if cell.kind == "train" else params
+                    del params
+                    times = []
+                    for i in range(1 + DRYRUN_WARM if cell.kind == "train" else 2):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        res = cell.fn(first, batch)
+                        torch.cuda.synchronize()
+                        times.append(time.perf_counter() - t0)
+                        if cell.kind == "train":
+                            first = res[0]
+                        del res
+                    out[shape] = {"s": times, "peak": torch.cuda.max_memory_allocated() - base,
+                                  "b": bshape[0], "seq": bshape[1]}
+                    del first, batch, cell
+                    torch.cuda.empty_cache()
+        finally:
+            kd.OBSERVERS.remove(seen)
+        launches = {"flash_attention": flash_attention.launches}
+        stats = kd.STATS.snapshot()
+    finally:
+        for *_, proc in children:
+            try:
+                proc.wait(timeout=600)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    recs = {}
+    for a, sh, path, proc in children:
+        check(proc.returncode == 0, f"dryrun: the {a} {sh} record's child exited {proc.returncode}")
+        recs[(a, sh)] = json.loads(path.read_text())
+        check(recs[(a, sh)]["status"] == "ok", f"dryrun: {a} {sh}: {recs[(a, sh)].get('error')}")
+    # every flash launch on the kernel at the local shapes: 2 query heads over 1 KV head of 120
+    L = recs[(DRYRUN_ARCH, "train_4k")]["kernel_sites"]["flash_attention/ref"] // 2
+    want = {"train_4k": 2 * L * (1 + DRYRUN_WARM), "prefill_32k": 2 * L}
+    check(launches["flash_attention"] == sum(want.values()) and stats == {("flash_attention", "cuda"): sum(want.values())},
+          f"dryrun: flash_attention launches {launches}, dispatch {stats}, want {want}")
+    costs = {fa_cost.flash_attention_cost(out[sh]["b"], out[sh]["seq"], out[sh]["seq"], 2, 1, 120, backend="cuda",
+                                          causal=True, window=4096, elem_bytes=2, lse=lse)
+             for sh, lse in (("train_4k", True), ("prefill_32k", False))}
+    check(all(d.backend == "cuda" and d.cost in costs for d in seen.decisions) and len(seen.decisions) == sum(want.values()),
+          f"dryrun: a flash_attention Decision not at the local shapes: {set(seen.decisions)}")
+    print(f"dryrun: records from child processes on the host (a fake group of 256 ranks each, 16 x 16 mesh):")
+    for (a, sh), r in recs.items():
+        m, rf = r["memory"], r["roofline"]
+        print(f"  {a} {sh} (traced in {r['compile_s']:.1f} s): per rank argument {m['argument_size_in_bytes']:,} B, "
+              f"output {m['output_size_in_bytes']:,} B, temp {m['temp_size_in_bytes']:,} B; roofline (H100 datasheet "
+              f"constants) compute {rf['compute_s'] * 1e3:.2f} ms, memory {rf['memory_s'] * 1e3:.2f} ms, collective "
+              f"{rf['collective_s'] * 1e3:.2f} ms, dominant {rf['dominant']}; useful FLOP ratio "
+              f"{r['useful_flops_ratio']}; {r['collective_count']} collectives, {r['collective_wire_bytes']:,.0f} wire B",
+              flush=True)
+    mem = {}
+    for sh in ("train_4k", "prefill_32k"):
+        m = recs[(DRYRUN_ARCH, sh)]["memory"]
+        pred = m["argument_size_in_bytes"] + m["temp_size_in_bytes"]
+        mem[sh] = (out[sh]["peak"], pred, out[sh]["peak"] / pred)
+        lo, hi = DRYRUN_PEAK_BANDS[sh]
+        check(lo <= mem[sh][2] <= hi, f"dryrun: {sh} peak {out[sh]['peak']:,} B over the dry run's argument + temp "
+                                      f"{pred:,} B is {mem[sh][2]:.3f}, outside [{lo}, {hi}]")
+    warm = statistics.median(out["train_4k"]["s"][1:])
+    dt = time.perf_counter() - t_phase
+    print(f"dryrun: rank 0 of the fake 16 x 16 group on the card, {DRYRUN_ARCH} at full width and depth: train_4k "
+          f"B {out['train_4k']['b']} x S {out['train_4k']['seq']} a rank, cold step {out['train_4k']['s'][0]:.2f} s, "
+          f"warm steps {', '.join(f'{t:.2f}' for t in out['train_4k']['s'][1:])} s (median {warm:.3f} s); "
+          f"prefill_32k B {out['prefill_32k']['b']} x S {out['prefill_32k']['seq']} a rank: "
+          f"{', '.join(f'{t:.2f}' for t in out['prefill_32k']['s'])} s; max_memory_allocated vs the dry run's "
+          f"argument + temp: " + "; ".join(f"{sh} {p:,} B vs {q:,} B (ratio {r:.3f})" for sh, (p, q, r) in mem.items())
+          + f"; flash_attention launches {launches['flash_attention']} (all cuda, q [B, S, 2, 120] over 1 KV head; "
+          f"want {want}); {smi}; phase {dt:.1f} s (children {max(r.get('compile_s', 0) for r in recs.values()):.1f} s "
+          f"of trace at most)", flush=True)
+    return {"launches": launches, "rows": rows, "records": recs, "memory": mem, "warm_s": warm, "seconds": dt}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5304,6 +5490,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     mesh = mesh_phase(torch, dev, smi)
 
+    # 32. the production-mesh dry run, and rank 0's share of it on the card
+    torch.cuda.empty_cache()
+    dry = dryrun_phase(torch, dev, smi)
+
     # result lines: each kernel's time per decode step (serving), per train
     # step, or per entry-point pass, from the kernel phase's per-launch times
     # and the launch counts of each path
@@ -5344,7 +5534,7 @@ def main() -> int:
          [(ZL, wkv[(ZOO_S, -2.0)])], f"zoo prefill at B {ZOO_B} x S {ZOO_S}: {ZL} x r, k, w [2,1024,40,64], "
          "v [2,1024,40,64] -> y, final state; library call: none", None, None),
         ("flash_attention", "flash_attention/flash_attention.cu", "flash_attention/kernel.py:27",
-         [*fa.values(), *fa_train.values()],
+         [*fa.values(), *fa_train.values(), *dry["rows"].values()],
          [(DL, fa["prefill"])], f"dense prefill at B {ZOO_B} x S {ZOO_S}: {DL} x q [2,1024,32,120], k, v "
          "[2,1024,8,120] f32, causal (window 4096 inactive); library: scaled_dot_product_attention(is_causal=True, "
          "enable_gqa=True)", None, None),
@@ -5355,6 +5545,7 @@ def main() -> int:
              "hybrid": hybrid["launches"], "moe": moe["launches"], "audio": audio["launches"],
              "vlm": vlm["launches"], "zoo_train_x": ztx["launches"], "zoo_train": zt["launches"],
              "dense4": dense4["launches"], "family4_x": f4x["launches"], "mesh": mesh["launches"],
+             "dryrun": dry["launches"],
              **{arch: r["launches"] for arch, r in d84.items()}}
     # the zoo prefill's share of the kernels it shares with the LSTM paths
     zoo_prefill = {

@@ -5,13 +5,42 @@ the paper's LSTM (``lstm``), the model zoo's RWKV-6 family (``ssm``), its
 dense decoders (``dense``), its mixtures of experts (``moe``), the
 Mamba/attention hybrid (``hybrid``), Whisper's encoder-decoder (``audio``)
 and Qwen2-VL's M-RoPE decoder with stub patch embeddings (``vlm``). The
-fields are the reference's that those families read."""
+fields are the reference's that those families read. ``ARCH_IDS``,
+``SHAPES`` (the assigned input shapes: name -> (seq_len, global_batch,
+kind)), ``shape_spec`` and ``ArchConfig.skips`` are the reference's, for
+the dry run (``launch/dryrun.py``)."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
 
-__all__ = ["ArchConfig", "get_config"]
+__all__ = ["ArchConfig", "get_config", "ARCH_IDS", "SHAPES", "shape_spec"]
+
+ARCH_IDS = [
+    "h2o_danube3_4b",
+    "granite_20b",
+    "stablelm_3b",
+    "phi4_mini_3p8b",
+    "kimi_k2_1t_a32b",
+    "dbrx_132b",
+    "jamba_v01_52b",
+    "rwkv6_3b",
+    "whisper_large_v3",
+    "qwen2_vl_2b",
+    "lstm_wikitext2",  # the paper's own largest model, as an arch config
+]
+
+# the assigned input-shape set: name -> (seq_len, global_batch, kind)
+SHAPES = {
+    "train_4k": (4096, 256, "train"),
+    "prefill_32k": (32768, 32, "prefill"),
+    "decode_32k": (32768, 128, "decode"),
+    "long_500k": (524288, 1, "decode"),
+}
+
+
+def shape_spec(name: str):
+    return SHAPES[name]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +78,7 @@ class ArchConfig:
     # --- vlm ---
     n_patches: int = 0  # stub patch embeddings in the first positions of the sequence
     mrope_sections: tuple = (16, 24, 24)  # M-RoPE's (t, h, w) shares of the D/2 frequencies
+    supports_long: bool = False  # a sub-quadratic path for long_500k
     source: str = ""
     notes: str = ""
 
@@ -82,6 +112,13 @@ class ArchConfig:
             enc_layers=2 if self.enc_layers else 0, enc_seq=16 if self.enc_seq else 0,
             n_patches=16 if self.n_patches else 0,
             mrope_sections=(8, 4, 4) if self.rope == "mrope" else self.mrope_sections)
+
+
+    def skips(self, shape: str) -> str | None:
+        """The reason this (arch, shape) cell is skipped, or None."""
+        if shape == "long_500k" and not self.supports_long:
+            return "full quadratic attention at 524288 — sub-quadratic required (DESIGN.md §5)"
+        return None
 
 
 def get_config(name: str) -> ArchConfig:

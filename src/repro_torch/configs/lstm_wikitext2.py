@@ -10,6 +10,7 @@ from .base import ArchConfig
 CONFIG = ArchConfig(
     name="lstm_wikitext2", family="lstm",
     n_layers=2, d_model=1024, vocab=33278, rope="none", tie_embeddings=True,
+    supports_long=True,
     source="paper Table III (WikiText-2, 84.98M params)",
     notes="2-layer LSTM hidden 1024, tied embeddings: 33278*1024*2 + 2*8*1024^2 ~= 85M.",
 )

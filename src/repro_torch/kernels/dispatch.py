@@ -42,6 +42,7 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from ..core import floatsd, floatsd4
 from ..distributed import sharding as shd
@@ -71,7 +72,7 @@ from .rwkv_wkv.ref import wkv_chunked_scan, wkv_ref
 
 __all__ = [
     "BACKENDS", "ZERO_CODE", "PackedTensor", "is_packed", "Decision",
-    "DispatchStats", "STATS", "LEDGER", "COST_SPECS", "use_backend", "matmul", "lstm_cell",
+    "DispatchStats", "STATS", "LEDGER", "COST_SPECS", "OBSERVERS", "use_backend", "matmul", "lstm_cell",
     "packed_einsum", "expert_einsum", "hoist_packed", "matmul_dx", "matmul_dw", "lstm_cell_grad",
     "pack_train", "hoist_train", "train_matmul", "lstm_cell_train", "inference_only",
     "PackedTensor4", "is_packed4", "LayerTensor4", "is_layer4", "layer_view4", "is_any_packed", "pack4",
@@ -288,6 +289,12 @@ LEDGER = costmodel.CostLedger(STATS)
 
 _OVERRIDE: list[str] = []  # use_backend() stack
 
+#: observers of the dispatched calls (``launch/step_analysis.py``): each
+#: one's ``enter()`` runs before a kernel site's backend and ``exit()``
+#: after it, however the call ends (``_site``); ``record(decision)`` runs
+#: for every recorded call, inside that bracket for a site's own record
+OBSERVERS: list = []
+
 
 def _check(backend: str | None) -> None:
     if backend not in (None, "ref"):
@@ -316,6 +323,22 @@ def _resolve(t: torch.Tensor, backend: str | None) -> tuple[str, str]:
     return "ref", f"{t.device.type} tensor"
 
 
+@contextlib.contextmanager
+def _site(t: torch.Tensor, backend: str | None):
+    """A kernel site's call: yields ``_resolve``'s (backend, reason); the
+    site runs its backend and its ``_record`` inside, bracketed by every
+    observer's ``enter()`` and ``exit()``."""
+    resolved = _resolve(t, backend)
+    observers = list(OBSERVERS)
+    for o in observers:
+        o.enter()
+    try:
+        yield resolved
+    finally:
+        for o in reversed(observers):
+            o.exit()
+
+
 _DECISIONS: dict[tuple, Decision] = {}  # (op, backend, reason, shape key) -> its Decision and Cost
 _DECISIONS_MAX = 1 << 16
 
@@ -331,6 +354,8 @@ def _record(op: str, be: str, reason: str, shape: tuple, cost_fn, touched: int) 
             _DECISIONS.clear()
         d = _DECISIONS[key] = Decision(op, be, reason, cost_fn())
     STATS.record(d, touched)
+    for o in OBSERVERS:
+        o.record(d)
 
 
 def _nbytes(*ts) -> int:
@@ -357,34 +382,34 @@ def matmul(x: torch.Tensor, codes: torch.Tensor, bias, *, transposed: bool = Fal
     k = x.shape[-1]
     n = codes.shape[0] if transposed else codes.shape[1]
     x2 = x.reshape(-1, k).to(torch.float32).contiguous()
-    be, why = _resolve(x2, backend)
-    if be == "ref":
-        w = floatsd.decode(codes, bias, dtype=torch.float32) if dense is None else dense
-        y = split_matmul(x2, w.t() if transposed else w, ordered)
-        touched = _nbytes(x2, codes if dense is None else dense, y)
-    else:
-        y = fm_ops.floatsd_matmul(x2, codes, bias, transposed=transposed, ordered=ordered)
-        touched = _nbytes(x2, codes, y)
-    m, hoisted = x2.shape[0], dense is not None
-    _record("floatsd_matmul", be, why, (m, k, n, ordered, hoisted), lambda: fm_cost.matmul_fwd_cost(
-        m, k, n, backend=be, ordered=ordered, dense=hoisted), touched)
+    with _site(x2, backend) as (be, why):
+        if be == "ref":
+            w = floatsd.decode(codes, bias, dtype=torch.float32) if dense is None else dense
+            y = split_matmul(x2, w.t() if transposed else w, ordered)
+            touched = _nbytes(x2, codes if dense is None else dense, y)
+        else:
+            y = fm_ops.floatsd_matmul(x2, codes, bias, transposed=transposed, ordered=ordered)
+            touched = _nbytes(x2, codes, y)
+        m, hoisted = x2.shape[0], dense is not None
+        _record("floatsd_matmul", be, why, (m, k, n, ordered, hoisted), lambda: fm_cost.matmul_fwd_cost(
+            m, k, n, backend=be, ordered=ordered, dense=hoisted), touched)
     return y.reshape(*x.shape[:-1], n)
 
 
 def lstm_cell(z: torch.Tensor, c_prev: torch.Tensor, *, quantized: bool = True,
               c_dtype=torch.float16, backend: str | None = None):
     """Fused gates -> (h, c). z: [B, 4H] (i|f|g|o), c_prev: [B, H]."""
-    be, why = _resolve(z, backend)
-    if be == "cuda":
-        z, c_prev = z.contiguous(), c_prev.contiguous()
-        h, c = lc_ops.lstm_cell(z, c_prev, quantized=quantized, c_dtype=c_dtype)
-    else:
-        h, c = lstm_cell_ref(z, c_prev, quantized, c_dtype=c_dtype)
-    shape = (z.numel() // z.shape[-1], z.shape[-1] // 4, z.element_size(), c_prev.element_size(),
-             h.element_size(), c.element_size(), quantized)
-    _record("lstm_cell", be, why, shape, lambda: lc_cost.lstm_cell_cost(
-        *shape[:2], backend=be, z_bytes=shape[2], c_in_bytes=shape[3], h_out_bytes=shape[4], c_out_bytes=shape[5],
-        quantized=quantized), _nbytes(z, c_prev, h, c))
+    with _site(z, backend) as (be, why):
+        if be == "cuda":
+            z, c_prev = z.contiguous(), c_prev.contiguous()
+            h, c = lc_ops.lstm_cell(z, c_prev, quantized=quantized, c_dtype=c_dtype)
+        else:
+            h, c = lstm_cell_ref(z, c_prev, quantized, c_dtype=c_dtype)
+        shape = (z.numel() // z.shape[-1], z.shape[-1] // 4, z.element_size(), c_prev.element_size(),
+                 h.element_size(), c.element_size(), quantized)
+        _record("lstm_cell", be, why, shape, lambda: lc_cost.lstm_cell_cost(
+            *shape[:2], backend=be, z_bytes=shape[2], c_in_bytes=shape[3], h_out_bytes=shape[4], c_out_bytes=shape[5],
+            quantized=quantized), _nbytes(z, c_prev, h, c))
     return h, c
 
 
@@ -408,19 +433,19 @@ def matmul4(x: torch.Tensor, w4, *, transposed: bool = False,
     x2 = x.reshape(-1, k).to(torch.float32).contiguous()
     m = x2.shape[0]
     nibble = w4.nibble if plane else None
-    be, why = _resolve(x2, backend)
-    if be == "ref":
-        y = floatsd4_matmul_ref(x2, w4.codes, w4.exps, rows, transposed=transposed,
-                                dense=w4.dense, nibble=nibble)
-    else:
-        y = fm4_ops.floatsd4_matmul(x2, w4.codes, w4.exps, rows, transposed=transposed, nibble=nibble)
-    if be == "ref" and w4.dense is not None:  # the plain version reads the hoisted decode
-        _record("floatsd4_matmul", be, why, (m, k, n, True), lambda: fm_cost.matmul_like_cost(
-            m, k, n, b_bytes=4, decode=False), _nbytes(x2, w4.dense, y))
-    else:
-        wt = _nbytes(w4.codes, w4.exps)
-        _record("floatsd4_matmul", be, why, (m, k, n, wt, plane), lambda: fm4_cost.matmul4_fwd_cost(
-            m, k, n, backend=be, wt_nbytes=None if plane else wt, plane=plane), wt + _nbytes(x2, y))
+    with _site(x2, backend) as (be, why):
+        if be == "ref":
+            y = floatsd4_matmul_ref(x2, w4.codes, w4.exps, rows, transposed=transposed,
+                                    dense=w4.dense, nibble=nibble)
+        else:
+            y = fm4_ops.floatsd4_matmul(x2, w4.codes, w4.exps, rows, transposed=transposed, nibble=nibble)
+        if be == "ref" and w4.dense is not None:  # the plain version reads the hoisted decode
+            _record("floatsd4_matmul", be, why, (m, k, n, True), lambda: fm_cost.matmul_like_cost(
+                m, k, n, b_bytes=4, decode=False), _nbytes(x2, w4.dense, y))
+        else:
+            wt = _nbytes(w4.codes, w4.exps)
+            _record("floatsd4_matmul", be, why, (m, k, n, wt, plane), lambda: fm4_cost.matmul4_fwd_cost(
+                m, k, n, backend=be, wt_nbytes=None if plane else wt, plane=plane), wt + _nbytes(x2, y))
     return y.reshape(*x.shape[:-1], n)
 
 
@@ -513,17 +538,17 @@ def matmul_dx(g: torch.Tensor, codes: torch.Tensor, bias, *, dense: torch.Tensor
     [out, contraction]; ``dense`` is the codes' decode from ``hoist_train``."""
     k, n = codes.shape
     g2 = g.reshape(-1, n).to(torch.float32).contiguous()
-    be, why = _resolve(g2, backend)
-    if be == "ref":
-        w = floatsd.decode(codes, bias, dtype=torch.float32) if dense is None else dense
-        y = split_matmul(g2, w.t(), ordered)
-        touched = _nbytes(g2, codes if dense is None else dense, y)
-    else:
-        y = fm_ops.matmul_dx(g2, codes, bias, ordered=ordered)
-        touched = _nbytes(g2, codes, y)
-    m, hoisted = g2.shape[0], dense is not None
-    _record("floatsd_matmul_dx", be, why, (m, n, k, ordered, hoisted), lambda: fm_cost.matmul_dx_cost(
-        m, n, k, backend=be, ordered=ordered, dense=hoisted), touched)
+    with _site(g2, backend) as (be, why):
+        if be == "ref":
+            w = floatsd.decode(codes, bias, dtype=torch.float32) if dense is None else dense
+            y = split_matmul(g2, w.t(), ordered)
+            touched = _nbytes(g2, codes if dense is None else dense, y)
+        else:
+            y = fm_ops.matmul_dx(g2, codes, bias, ordered=ordered)
+            touched = _nbytes(g2, codes, y)
+        m, hoisted = g2.shape[0], dense is not None
+        _record("floatsd_matmul_dx", be, why, (m, n, k, ordered, hoisted), lambda: fm_cost.matmul_dx_cost(
+            m, n, k, backend=be, ordered=ordered, dense=hoisted), touched)
     return y.reshape(*g.shape[:-1], k)
 
 
@@ -551,14 +576,14 @@ def matmul_dw(x: torch.Tensor, g: torch.Tensor, *, quant: bool = True,
     g2 = g.reshape(-1, n).to(torch.float32).contiguous()
     if x2.shape[0] != g2.shape[0]:
         raise ValueError(f"matmul_dw: x {tuple(x.shape)} vs g {tuple(g.shape)}")
-    be, why = _resolve(x2, backend)
-    if be == "ref":
-        dw = matmul_dw_ref(x2, g2, quant)
-    else:
-        dw = fm_ops.matmul_dw(x2, g2, quant=quant)
-    m = x2.shape[0]
-    _record("floatsd_matmul_dw", be, why, (k, m, n, quant), lambda: fm_cost.matmul_dw_cost(
-        k, m, n, backend=be, quant=quant), _nbytes(x2, g2, dw))
+    with _site(x2, backend) as (be, why):
+        if be == "ref":
+            dw = matmul_dw_ref(x2, g2, quant)
+        else:
+            dw = fm_ops.matmul_dw(x2, g2, quant=quant)
+        m = x2.shape[0]
+        _record("floatsd_matmul_dw", be, why, (k, m, n, quant), lambda: fm_cost.matmul_dw_cost(
+            k, m, n, backend=be, quant=quant), _nbytes(x2, g2, dw))
     return _dw_flush_telemetry(dw, quant)
 
 
@@ -581,19 +606,19 @@ def lstm_cell_grad(z: torch.Tensor, c_prev: torch.Tensor, dh: torch.Tensor, dc: 
     """Recompute-gates backward of the fused cell. z: [B, 4H], c_prev: [B, H]
     in ``c_dtype`` (as the forward stored it), dh, dc: [B, H] -> (dz [B, 4H]
     f32, dc_prev [B, H] f32). Its only residuals are (z, c_prev)."""
-    be, why = _resolve(z, backend)
-    if be == "ref":
-        c_prev = c_prev.to(torch.float32)  # the plain version takes the f32 cell state
-        dz, dcp = lstm_cell_bwd_ref(z, c_prev, dh, dc, quantized, c_dtype=c_dtype)
-    else:
-        z, c_prev = z.contiguous(), c_prev.contiguous()
-        dh, dc = dh.to(torch.float32).contiguous(), dc.to(torch.float32).contiguous()
-        dz, dcp = lc_ops.lstm_cell_grad(z, c_prev, dh, dc, quantized=quantized, c_dtype=c_dtype)
-    shape = (z.numel() // z.shape[-1], z.shape[-1] // 4, z.element_size(), c_prev.element_size(),
-             dh.element_size(), dc.element_size(), dz.element_size(), dcp.element_size(), quantized)
-    _record("lstm_cell_grad", be, why, shape, lambda: lc_cost.lstm_cell_grad_cost(
-        *shape[:2], backend=be, z_bytes=shape[2], c_in_bytes=shape[3], dh_bytes=shape[4], dc_bytes=shape[5],
-        dz_bytes=shape[6], dcp_bytes=shape[7], quantized=quantized), _nbytes(z, c_prev, dh, dc, dz, dcp))
+    with _site(z, backend) as (be, why):
+        if be == "ref":
+            c_prev = c_prev.to(torch.float32)  # the plain version takes the f32 cell state
+            dz, dcp = lstm_cell_bwd_ref(z, c_prev, dh, dc, quantized, c_dtype=c_dtype)
+        else:
+            z, c_prev = z.contiguous(), c_prev.contiguous()
+            dh, dc = dh.to(torch.float32).contiguous(), dc.to(torch.float32).contiguous()
+            dz, dcp = lc_ops.lstm_cell_grad(z, c_prev, dh, dc, quantized=quantized, c_dtype=c_dtype)
+        shape = (z.numel() // z.shape[-1], z.shape[-1] // 4, z.element_size(), c_prev.element_size(),
+                 dh.element_size(), dc.element_size(), dz.element_size(), dcp.element_size(), quantized)
+        _record("lstm_cell_grad", be, why, shape, lambda: lc_cost.lstm_cell_grad_cost(
+            *shape[:2], backend=be, z_bytes=shape[2], c_in_bytes=shape[3], dh_bytes=shape[4], dc_bytes=shape[5],
+            dz_bytes=shape[6], dcp_bytes=shape[7], quantized=quantized), _nbytes(z, c_prev, dh, dc, dz, dcp))
     return dz, dcp
 
 
@@ -730,17 +755,17 @@ def quantize(x: torch.Tensor, bias=None, *, backend: str | None = None):
     as ``floatsd.encode`` clamps it."""
     bias = floatsd.fit_bias(x) if bias is None else torch.as_tensor(
         bias, dtype=torch.int32, device=x.device)
-    be, why = _resolve(x, backend)
-    if be == "ref":
-        codes = quantize_ref(x, bias)
-        x_bytes = x.element_size()
-    else:
-        codes = fq_ops.floatsd_quantize(x, bias)
-        # the kernel reads f32 and fp16 as they are, any other dtype cast to f32
-        x_bytes = x.element_size() if x.dtype in (torch.float32, torch.float16) else 4
-    shape = (x.numel(), x_bytes, bias.element_size())
-    _record("floatsd_quantize", be, why, shape, lambda: fq_cost.quantize_cost(
-        shape[0], backend=be, x_bytes=x_bytes, bias_bytes=shape[2]), _nbytes(x, bias, codes))
+    with _site(x, backend) as (be, why):
+        if be == "ref":
+            codes = quantize_ref(x, bias)
+            x_bytes = x.element_size()
+        else:
+            codes = fq_ops.floatsd_quantize(x, bias)
+            # the kernel reads f32 and fp16 as they are, any other dtype cast to f32
+            x_bytes = x.element_size() if x.dtype in (torch.float32, torch.float16) else 4
+        shape = (x.numel(), x_bytes, bias.element_size())
+        _record("floatsd_quantize", be, why, shape, lambda: fq_cost.quantize_cost(
+            shape[0], backend=be, x_bytes=x_bytes, bias_bytes=shape[2]), _nbytes(x, bias, codes))
     return codes, bias
 
 
@@ -751,11 +776,11 @@ def _grad_wanted(*ts: torch.Tensor) -> bool:
 
 
 def _qsigmoid(x: torch.Tensor, backend: str | None) -> torch.Tensor:
-    be, why = _resolve(x, backend)
-    y = qsigmoid_ref(x) if be == "ref" else qs_ops.qsigmoid(x)
-    shape = (x.numel(), x.element_size(), y.element_size())
-    _record("qsigmoid", be, why, shape, lambda: qs_cost.qsigmoid_cost(
-        shape[0], backend=be, x_bytes=shape[1], y_bytes=shape[2]), _nbytes(x, y))
+    with _site(x, backend) as (be, why):
+        y = qsigmoid_ref(x) if be == "ref" else qs_ops.qsigmoid(x)
+        shape = (x.numel(), x.element_size(), y.element_size())
+        _record("qsigmoid", be, why, shape, lambda: qs_cost.qsigmoid_cost(
+            shape[0], backend=be, x_bytes=shape[1], y_bytes=shape[2]), _nbytes(x, y))
     return y
 
 
@@ -833,12 +858,12 @@ def rwkv_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
 
 
 def _rwkv_wkv(r, k, v, w, u, backend):
-    be, why = _resolve(r, backend)
-    y, state = wkv_ref(r, k, v, w, u) if be == "ref" else rw_ops.rwkv_wkv(r, k, v, w, u)
-    b, s, h, kk = r.shape
-    shape = (b, s, h, kk, v.shape[-1], u.dim() == 3, r.element_size())
-    _record("rwkv_wkv", be, why, shape, lambda: rw_cost.wkv_cost(
-        *shape[:5], backend=be, u_batched=shape[5], elem_bytes=shape[6]), _nbytes(r, k, v, w, u, y, state))
+    with _site(r, backend) as (be, why):
+        y, state = wkv_ref(r, k, v, w, u) if be == "ref" else rw_ops.rwkv_wkv(r, k, v, w, u)
+        b, s, h, kk = r.shape
+        shape = (b, s, h, kk, v.shape[-1], u.dim() == 3, r.element_size())
+        _record("rwkv_wkv", be, why, shape, lambda: rw_cost.wkv_cost(
+            *shape[:5], backend=be, u_batched=shape[5], elem_bytes=shape[6]), _nbytes(r, k, v, w, u, y, state))
     return y, state
 
 
@@ -885,17 +910,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
 
 def _flash_attention(q, k, v, causal, window, prefix, backend, lse: bool):
     """(o, each row's log-sum-exp or None) from the resolved backend."""
-    be, why = _resolve(q, backend)
-    if be == "ref":
-        out = flash_attention_gqa(q, k, v, causal=causal, window=window, prefix=prefix, return_lse=lse)
-    else:
-        out = fa_ops.flash_attention(q, k, v, causal=causal, window=window, prefix=prefix, return_lse=lse)
-    o, row_lse = out if lse else (out, None)
-    b, sq, h, d = q.shape
-    shape = (b, sq, k.shape[1], h, k.shape[2], d, causal, window, q.element_size(), prefix, lse)
-    _record("flash_attention", be, why, shape, lambda: fa_cost.flash_attention_cost(
-        *shape[:6], backend=be, causal=causal, window=window, elem_bytes=shape[8], prefix=prefix, lse=lse),
-        _nbytes(q, k, v, o, *([row_lse] if lse else [])))
+    with _site(q, backend) as (be, why):
+        if isinstance(q, FakeTensor):  # a trace's (launch.step_analysis): no values, the outputs' shapes alone
+            o = torch.empty_like(q)
+            out = (o, q.new_empty((q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32)) if lse else o
+        elif be == "ref":
+            out = flash_attention_gqa(q, k, v, causal=causal, window=window, prefix=prefix, return_lse=lse)
+        else:
+            out = fa_ops.flash_attention(q, k, v, causal=causal, window=window, prefix=prefix, return_lse=lse)
+        o, row_lse = out if lse else (out, None)
+        b, sq, h, d = q.shape
+        shape = (b, sq, k.shape[1], h, k.shape[2], d, causal, window, q.element_size(), prefix, lse)
+        _record("flash_attention", be, why, shape, lambda: fa_cost.flash_attention_cost(
+            *shape[:6], backend=be, causal=causal, window=window, elem_bytes=shape[8], prefix=prefix, lse=lse),
+            _nbytes(q, k, v, o, *([row_lse] if lse else [])))
     return o, row_lse
 
 

@@ -15,7 +15,9 @@ reference's parameter names (``embed/table``, ``head_block{i}/<leaf>``,
 packed store across unchanged. The ``audio`` family is ``Whisper``
 (``models/whisper.py``). Entry points: forward, loss (trained through
 ``optim.make_train_step``, every family; the stack rematerialises its
-groups), prefill and decode.
+groups), prefill and decode. Under tensor parallelism (the dense family on
+a "model" axis above one) the logits are this rank's vocab columns and the
+loss reduces over "model" (``cross_entropy``).
 
 A vlm prefill with patches attends as the reference does on its M-RoPE t
 ids: the patches see one another whole, text sees every patch and the text
@@ -49,17 +51,24 @@ from ..nn.transformer import Block, Stack, hoist
 __all__ = ["CausalLM", "FAMILIES", "cross_entropy", "mask_padded_vocab"]
 
 
-def mask_padded_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:
-    """Set the padded vocab tail of the logits to -1e30."""
-    if logits.shape[-1] == vocab:
+def _vocab_offset(logits: torch.Tensor, vocab_pieces: bool) -> int:
+    """The first vocab column of ``logits``: this rank's piece's under
+    tensor parallelism, else 0."""
+    return shd.model_rank() * logits.shape[-1] if vocab_pieces else 0
+
+
+def mask_padded_vocab(logits: torch.Tensor, vocab: int, vocab_pieces: bool = False) -> torch.Tensor:
+    """Set the padded vocab tail of the logits to -1e30. ``vocab_pieces``:
+    the logits are this rank's vocab columns (tensor parallelism)."""
+    if logits.shape[-1] == vocab and not vocab_pieces:
         return logits
-    iota = torch.arange(logits.shape[-1], device=logits.device)
+    iota = torch.arange(logits.shape[-1], device=logits.device) + _vocab_offset(logits, vocab_pieces)
     return torch.where(iota >= vocab, torch.full((), -1e30, dtype=logits.dtype,
                                                  device=logits.device), logits)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: torch.Tensor | None = None) -> torch.Tensor:
+                  mask: torch.Tensor | None = None, vocab_pieces: bool = False) -> torch.Tensor:
     """Mean token cross entropy with f32 reductions: a max-shifted
     log-sum-exp (the shift carries no gradient) minus the label's logit.
     The reference picks that logit by a one-hot sum; a gather gives the
@@ -69,11 +78,22 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     of the batch and the result is its share of the global mean: the mean
     over its rows over the number of shares, or its masked sum over the
     mask's global sum (one all-reduce), so the shares sum to the global
-    mean."""
+    mean. With ``vocab_pieces`` the logits are this rank's vocab columns:
+    the row max is reduced by max over "model", the sum of exponentials
+    and the label's logit (from the rank that holds it) by sum."""
     lf = logits.to(torch.float32)
     m = lf.max(dim=-1, keepdim=True).values.detach()
-    lse = torch.log(torch.exp(lf - m).sum(dim=-1)) + m[..., 0]
-    ll = lf.gather(-1, labels.long()[..., None])[..., 0]
+    if vocab_pieces:
+        m = shd.all_reduce(m, ("model",), op="max")
+        se = shd.reduce_from_model(torch.exp(lf - m).sum(dim=-1))
+        local = labels.long() - _vocab_offset(lf, True)
+        inside = (local >= 0) & (local < lf.shape[-1])
+        ll = lf.gather(-1, torch.where(inside, local, 0)[..., None])[..., 0]
+        ll = shd.reduce_from_model(torch.where(inside, ll, 0.0))
+        lse = torch.log(se) + m[..., 0]
+    else:
+        lse = torch.log(torch.exp(lf - m).sum(dim=-1)) + m[..., 0]
+        ll = lf.gather(-1, labels.long()[..., None])[..., 0]
     nll = lse - ll
     if mask is None:
         return nll.mean() / shd.batch_ranks()
@@ -249,7 +269,11 @@ class CausalLM:
         with "patch_embeds" [B, n_patches, d]) -> (logits [B, S, vocab
         padded], aux: the MoE layers' summed load-balancing loss, 0 for the
         families without)."""
-        p = self.hoist(p)
+        with shd.tp_scope(self.cfg.family):
+            shd.check_tp()
+            return self._forward(self.hoist(p), batch_dict, policy)
+
+    def _forward(self, p, batch_dict, policy: Policy):
         emb = self._embed()
         x = constrain(self._embed_inputs(p, batch_dict, policy), ("batch", "seq", "act_embed"))
         pos, prefix = self._positions(batch_dict, *x.shape[:2], x.device)
@@ -265,8 +289,10 @@ class CausalLM:
         """Mean next-token cross entropy, the padded vocab tail masked, plus
         0.01 x aux."""
         logits, aux = self.forward(p, batch_dict, policy)
-        logits = mask_padded_vocab(logits, self.cfg.vocab)
-        return cross_entropy(logits, batch_dict["labels"], batch_dict.get("mask")) + 0.01 * aux
+        with shd.tp_scope(self.cfg.family):
+            pieces = self._embed().tp()
+        logits = mask_padded_vocab(logits, self.cfg.vocab, pieces)
+        return cross_entropy(logits, batch_dict["labels"], batch_dict.get("mask"), pieces) + 0.01 * aux
 
     def prefill(self, p, batch_dict, policy: Policy) -> torch.Tensor:
         """The teacher-forced pass over a whole prompt: its logits."""
@@ -292,7 +318,11 @@ class CausalLM:
 
     def decode_step(self, p, tokens: torch.Tensor, caches, policy: Policy):
         """tokens [B, 1] -> (logits [B, 1, vocab padded], new caches)."""
-        p = self.hoist(p)
+        with shd.tp_scope(self.cfg.family):
+            shd.check_tp()
+            return self._decode_step(self.hoist(p), tokens, caches, policy)
+
+    def _decode_step(self, p, tokens: torch.Tensor, caches, policy: Policy):
         emb = self._embed()
         x = emb.apply(p["embed"], tokens, policy)
         new = dict(caches)

@@ -32,6 +32,19 @@ in plain torch ops, as in the reference; M-RoPE turns the new token by t
 = h = w = its position, which is what every caller of the reference's
 decode passes. ``Attention.cross_decode`` is Whisper's cross-attention
 step over the cached encoder keys and values.
+
+Under tensor parallelism (``distributed.sharding``: a "model" axis of m >
+1) wq, wk and wv hold column pieces of their flattened [dim, heads x D]
+weights and wo the matching row piece, as the specs shard them; a rank
+attends with the heads its columns cover (``_TPHeads``). Where m divides
+the head count those are whole heads of its own; where it does not (the
+activation rules drop "act_heads" / "act_kv_heads" to replicated), the
+pieces are gathered over "model" (counted collectives) and the rank takes
+the whole heads that cover its columns, and of K and V the heads those
+query heads read. The attention output's columns of the rank's wo rows
+then go through wo, whose partial products are summed over "model". The
+decode cache holds the rank's KV heads where m divides their count, else
+all of them (``Block.cache_specs``).
 """
 from __future__ import annotations
 
@@ -41,6 +54,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.policy import Policy
+from ..distributed import sharding as shd
 from ..kernels import dispatch as kd
 from ..kernels.flash_attention.ref import NEG_INF, softmax_scale
 from ..kernels.flash_attention.ref import flash_attention_chunked as flash_attention
@@ -49,6 +63,31 @@ from . import rotary
 from .linear import QuantDense
 
 __all__ = ["Attention", "KVCache", "flash_attention"]
+
+
+class _TPHeads(NamedTuple):
+    """One rank's heads under tensor parallelism: query heads [h0, h1) of
+    the model, KV heads [k0, k1); whether the q and the K/V pieces are
+    gathered whole first; and the rank's columns [c0, c0 + cols) of the
+    attention output (wo's rows), counted from head h0."""
+
+    h0: int
+    h1: int
+    k0: int
+    k1: int
+    gather_q: bool
+    gather_kv: bool
+    c0: int
+    cols: int
+
+    @staticmethod
+    def plan(heads: int, kv_heads: int, hd: int, m: int, r: int) -> "_TPHeads":
+        cols = heads * hd // m
+        h0, h1 = r * cols // hd, -(-(r + 1) * cols // hd)
+        g = heads // kv_heads
+        local = heads % m == 0 and kv_heads % m == 0
+        return _TPHeads(h0, h1, h0 // g, (h1 - 1) // g + 1, heads % m != 0, not local, r * cols - h0 * hd,
+                        cols)
 
 
 class KVCache(NamedTuple):
@@ -88,11 +127,44 @@ class Attention:
         if self.rope not in ("rope", "mrope", "none"):
             raise ValueError(f"rope must be rope, mrope or none, got {self.rope!r}")
 
-    def _proj(self, out_dim: int) -> QuantDense:
-        return QuantDense(self.dim, out_dim, use_bias=self.qkv_bias)
+    def _proj(self, out_dim: int, axis: str = "heads") -> QuantDense:
+        return QuantDense(self.dim, out_dim, use_bias=self.qkv_bias, out_axis=axis)
 
     def _out(self) -> QuantDense:
-        return QuantDense(self.heads * self.hd, self.dim, use_bias=False)
+        return QuantDense(self.heads * self.hd, self.dim, use_bias=False, in_axis="heads", out_axis="embed")
+
+    def _tp(self) -> _TPHeads | None:
+        """This rank's heads under tensor parallelism, or None off it.
+        Raises where the specs leave a projection whole on a "model" axis
+        above one (its flattened dim not divisible)."""
+        m = shd.model_size()
+        if m == 1:
+            return None
+        h, kh, d = self.heads, self.kv_heads, self.hd
+        if shd.tp_pieces("heads", h * d) == 1 or shd.tp_pieces("kv_heads", kh * d) == 1:
+            raise NotImplementedError(f"attention over {h}:{kh} heads of {d}: a 'model' axis of {m} divides "
+                                      "no flattened projection")
+        return _TPHeads.plan(h, kh, d, m, shd.model_rank())
+
+    def _heads(self, y: torch.Tensor, gather: bool, lo: int, hi: int) -> torch.Tensor:
+        """[B, S, n x D] (a column piece, gathered whole first if
+        ``gather``) -> heads [lo, hi) of the model as [B, S, hi - lo, D];
+        a piece of whole heads is already [lo, hi)."""
+        b, s, _ = y.shape
+        if gather:
+            y = shd.gather_from_model(y, 2)
+            return y.reshape(b, s, -1, self.hd)[:, :, lo:hi]
+        return y.reshape(b, s, hi - lo, self.hd)
+
+    def _kv_index(self, t: _TPHeads) -> torch.Tensor | None:
+        """Where the rank's query heads do not fall into equal groups over
+        its KV heads, the KV head of each query head (K and V are expanded
+        to one a query head); else None."""
+        nq, nk, g = t.h1 - t.h0, t.k1 - t.k0, self.groups
+        idx = [(t.h0 + i) // g - t.k0 for i in range(nq)]
+        if nq % nk == 0 and idx == [i // (nq // nk) for i in range(nq)]:
+            return None
+        return torch.tensor(idx)
 
     def init(self, generator: torch.Generator):
         h, kh, d = self.heads, self.kv_heads, self.hd
@@ -101,17 +173,27 @@ class Attention:
 
     def specs(self):
         def proj(axis):
-            return QuantDense(self.dim, 1, use_bias=self.qkv_bias, out_axis=axis).specs()
+            return self._proj(1, axis).specs()
 
         return {"wq": proj("heads"), "wk": proj("kv_heads"), "wv": proj("kv_heads"),
                 "wo": {"w": ("heads", "embed")}}
 
-    def _qkv(self, p, x: torch.Tensor, policy: Policy, positions: torch.Tensor):
+    def _qkv(self, p, x: torch.Tensor, policy: Policy, positions: torch.Tensor, t: _TPHeads | None = None,
+             cache_heads: bool = False):
+        """q, k, v [B, S, heads, D] of x; under tensor parallelism ``t``
+        the rank's query heads and the KV heads they read, or with
+        ``cache_heads`` the KV heads the rank's decode cache holds."""
         b, s, _ = x.shape
         h, kh, d = self.heads, self.kv_heads, self.hd
-        q = self._proj(h * d).apply(p["wq"], x, policy).reshape(b, s, h, d)
-        k = self._proj(kh * d).apply(p["wk"], x, policy).reshape(b, s, kh, d)
-        v = self._proj(kh * d).apply(p["wv"], x, policy).reshape(b, s, kh, d)
+        q = self._proj(h * d).apply(p["wq"], x, policy)
+        k = self._proj(kh * d, "kv_heads").apply(p["wk"], x, policy)
+        v = self._proj(kh * d, "kv_heads").apply(p["wv"], x, policy)
+        if t is None:
+            q, k, v = (y.reshape(b, s, n, d) for y, n in ((q, h), (k, kh), (v, kh)))
+        else:
+            q = self._heads(q, t.gather_q, t.h0, t.h1)
+            k0, k1 = (0, kh) if cache_heads and t.gather_kv else (t.k0, t.k1)
+            k, v = (self._heads(y, t.gather_kv, k0, k1) for y in (k, v))
         if self.rope == "rope":
             q, k = rotary.apply_rope(q, k, positions, d, self.rope_theta)
         elif self.rope == "mrope":
@@ -139,17 +221,31 @@ class Attention:
             positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
             if self.rope == "mrope":
                 positions = positions[..., None].expand(b, s, 3)
+        t = self._tp()
         if kv is None:
-            q, k, v = self._qkv(p, x, policy, positions)
+            q, k, v = self._qkv(p, x, policy, positions, t)
             causal = self.causal
         else:
             if self.rope != "none":
                 raise ValueError("cross-attention takes no rotary embedding (rope='none')")
+            if t is not None:
+                shd.check_tp("audio")
             q = self._proj(self.heads * self.hd).apply(p["wq"], x, policy).reshape(b, s, self.heads, self.hd)
             k, v = self.kv_proj(p, kv, policy)
             causal = False
+        if t is not None and (idx := self._kv_index(t)) is not None:
+            k, v = k[:, :, idx.to(k.device)], v[:, :, idx.to(v.device)]
         out = kd.flash_attention(q, k, v, causal=causal, window=self.window, prefix=prefix)
-        return self._out().apply(p["wo"], out.reshape(b, s, self.heads * self.hd), policy)
+        return self._out().apply(p["wo"], self._columns(out, t), policy)
+
+    def _columns(self, out: torch.Tensor, t: _TPHeads | None) -> torch.Tensor:
+        """[B, S, heads, D] -> [B, S, heads x D]; under tensor parallelism
+        the rank's columns of it (wo's rows)."""
+        b, s = out.shape[:2]
+        out = out.reshape(b, s, -1)
+        if t is not None and (t.c0 or out.shape[-1] != t.cols):
+            out = out[..., t.c0:t.c0 + t.cols]
+        return out
 
     def decode(self, p, x: torch.Tensor, cache: KVCache, policy: Policy):
         """One-token decode: x [B, 1, dim] -> (out [B, 1, dim], new cache).
@@ -160,23 +256,34 @@ class Attention:
         s_max = cache.k.shape[1]
         pos = cache.pos
         rp = pos.expand(b, 1, 3) if self.rope == "mrope" else pos.expand(b, 1)
-        q, k, v = self._qkv(p, x, policy, rp)
+        t = self._tp()
+        if t is not None and t.gather_kv and self.kv_heads % shd.model_size() == 0:
+            raise NotImplementedError(f"decode over {self.heads}:{self.kv_heads} heads on a 'model' axis of "
+                                      f"{shd.model_size()}: the cache's KV heads are not the ones its query heads read")
+        q, k, v = self._qkv(p, x, policy, rp, t, cache_heads=True)
         slot = (pos % s_max).reshape(1).long()  # the ring buffer's slot, when windowed
         ck = cache.k.index_copy(1, slot, k.to(cache.k.dtype))
         cv = cache.v.index_copy(1, slot, v.to(cache.v.dtype))
+        rk, rv = ck, cv  # the KV heads the rank's query heads read
+        if t is not None:
+            if t.gather_kv:
+                rk, rv = ck[:, :, t.k0:t.k1], cv[:, :, t.k0:t.k1]
+            if (idx := self._kv_index(t)) is not None:
+                rk, rv = rk[:, :, idx.to(rk.device)], rv[:, :, idx.to(rv.device)]
         # slot i holds absolute position a iff a % s_max == i and a <= pos
         idx = torch.arange(s_max, dtype=torch.int32, device=x.device)
         abs_pos = (pos // s_max - (idx > slot).to(torch.int32)) * s_max + idx  # < 0: never written
         valid = (abs_pos >= 0) & (abs_pos <= pos)
         if self.window is not None:
             valid &= pos - abs_pos < self.window
-        qg = q.reshape(b, 1, self.kv_heads, self.groups, self.hd).to(torch.float32)
+        nk = rk.shape[2]
+        qg = q.reshape(b, 1, nk, q.shape[2] // nk, self.hd).to(torch.float32)
         with no_tf32():
-            sc = torch.einsum("bqkgd,bckd->bkgqc", qg * softmax_scale(self.hd), ck.to(torch.float32))
+            sc = torch.einsum("bqkgd,bckd->bkgqc", qg * softmax_scale(self.hd), rk.to(torch.float32))
             sc = torch.where(valid, sc, NEG_INF)
             w = torch.softmax(sc, dim=-1)
-            out = torch.einsum("bkgqc,bckd->bqkgd", w, cv.to(torch.float32))
-        out = out.to(x.dtype).reshape(b, 1, self.heads * self.hd)
+            out = torch.einsum("bkgqc,bckd->bqkgd", w, rv.to(torch.float32))
+        out = self._columns(out.to(x.dtype).reshape(b, 1, q.shape[2], self.hd), t)
         return self._out().apply(p["wo"], out, policy), KVCache(ck, cv, pos + 1)
 
     def cross_decode(self, p, x: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,

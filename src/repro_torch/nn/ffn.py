@@ -5,7 +5,10 @@ two) ``QuantDense`` weight sites. GELU is the tanh approximation, as
 ``jax.nn.gelu`` computes it by default. With ``quant_silu`` and a policy
 whose ``sigmoid_quant`` is set, SwiGLU's sigmoid is the paper's two-region
 FloatSD8 sigmoid through ``dispatch.qsigmoid`` (its kernel on the card);
-the dense ``CausalLM`` leaves it off, as the reference does."""
+the dense ``CausalLM`` leaves it off, as the reference does. Under tensor
+parallelism wi and wg are column pieces and wo a row piece
+(``QuantDense.tp``): the gate and the GELU run on the rank's columns of
+the hidden layer."""
 from __future__ import annotations
 
 import dataclasses

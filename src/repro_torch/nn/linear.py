@@ -10,6 +10,19 @@ in f32. When the policy quantizes gradients, a dense weight site emits its
 dW through bf16 (the reference's gradient-compression point): XLA on the
 CPU computes that product in f32 and rounds once to bf16, and so does this
 port.
+
+Under tensor parallelism (a "model" axis above one, ``distributed.sharding``)
+a ``QuantDense`` whose output dim the rules put on "model" holds a column
+piece of w (and of b) and computes its columns: its input's gradient,
+which is then a partial sum, is summed over "model" in f32 before the FP8
+backward cast of the activation quantizer it reaches. One whose input dim
+is on "model" holds a row piece and takes the matching columns of x: its
+f32 partial products are summed over "model" before the cast to the
+compute dtype and the bias. A quantized piece takes the FloatSD8 bias of
+the whole weight (max|w| reduced by max over "model"). The embedding is
+vocab-parallel: each rank looks up the rows it holds, the sum over "model"
+gives every token its row, and the tied head computes the rank's vocab
+columns. At a "model" axis of one nothing of this runs.
 """
 from __future__ import annotations
 
@@ -31,15 +44,21 @@ __all__ = [
 ]
 
 
-def quant_weight(w, policy: Policy):
+def quant_weight(w, policy: Policy, piece: bool = False):
     """The policy's weight quantizer, then a cast to the compute dtype; the
     gradient reaches the master (an fp16 one too) through the cast and the
     straight-through quantizer. Packed weights (either format) pass
-    through: the codes are the quantized weights."""
+    through: the codes are the quantized weights. A ``piece`` of a weight
+    split over "model" is quantized at the whole weight's bias."""
     if kd.is_any_packed(w):
+        if piece:
+            raise NotImplementedError("tensor parallelism over packed weights is not ported")
         return w
     if policy.weight_quant == "floatsd8":
-        w = floatsd.quantize_ste(w, floatsd.fit_bias(w.detach()))
+        amax = w.detach()
+        if piece:
+            amax = shd.all_reduce(torch.max(torch.abs(amax.to(torch.float32))), ("model",), op="max")
+        w = floatsd.quantize_ste(w, floatsd.fit_bias(amax))
     return w.to(policy.cdt() or w.dtype)
 
 
@@ -52,9 +71,14 @@ def quant_act(x: torch.Tensor, policy: Policy, site: str = "hidden") -> torch.Te
     return act_quant(x, fwd, bwd)
 
 
-def _einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor, col: bool = False) -> torch.Tensor:
+    """The product in f32; ``col``: a column piece's, a's gradient summed
+    over "model" in f32."""
+    af = a.to(torch.float32)
+    if col:
+        af = shd.copy_to_model(af)
     with no_tf32():
-        return torch.einsum(eq, a.to(torch.float32), b.to(torch.float32))
+        return torch.einsum(eq, af, b.to(torch.float32))
 
 
 class _EinsumGC(torch.autograd.Function):
@@ -67,11 +91,12 @@ class _EinsumGC(torch.autograd.Function):
     the global rows' one product, rounded once; the batch's first rank
     returns it and every other rank zeros, so the train step's sum of the
     ranks' shares is that dW exactly (the reference reduces before it
-    quantizes)."""
+    quantizes). At a column piece (``col``) dx is a partial sum over
+    "model", summed in f32 before its cast; dW is the piece's own."""
 
     @staticmethod
-    def forward(ctx, eq, x, w):
-        ctx.eq = eq
+    def forward(ctx, eq, x, w, col):
+        ctx.eq, ctx.col = eq, col
         ctx.mesh = shd.active_mesh()  # the backward may run on autograd's device thread
         ctx.save_for_backward(x, w)
         return _einsum_f32(eq, x, w)
@@ -81,37 +106,47 @@ class _EinsumGC(torch.autograd.Function):
         x, w = ctx.saved_tensors
         ins, out = ctx.eq.split("->")
         in1, in2 = ins.split(",")
-        dx = _einsum_f32(f"{in2},{out}->{in1}", w, g).to(x.dtype)
+        dx = _einsum_f32(f"{in2},{out}->{in1}", w, g)
+        if ctx.col:
+            dx = shd.all_reduce(dx, ("model",), ctx.mesh)
+        dx = dx.to(x.dtype)
         xs, gs = x, g
         if ctx.mesh is not None:
             axes = shd.batch_axes(ctx.mesh)
             xs, gs = shd.all_gather(x, 0, axes, ctx.mesh), shd.all_gather(g, 0, axes, ctx.mesh)
             if shd.batch_rank(ctx.mesh):
-                return None, dx, torch.zeros_like(w)
+                return None, dx, torch.zeros_like(w), None
         dw = _einsum_f32(f"{in1},{out}->{in2}", xs, gs).to(torch.bfloat16).to(w.dtype)
-        return None, dx, dw
+        return None, dx, dw, None
 
 
-def policy_einsum(eq: str, x: torch.Tensor, w, policy: Policy) -> torch.Tensor:
+def policy_einsum(eq: str, x: torch.Tensor, w, policy: Policy, col: bool = False) -> torch.Tensor:
     """The bare matmul all weight sites share: f32 accumulation, bf16 dW
     emission when the policy quantizes gradients. Operands must already be
     quantized and cast. Packed weights (either format) go to the kernel
-    dispatch layer."""
+    dispatch layer. ``col``: w is a column piece (``_EinsumGC``)."""
     if kd.is_any_packed(w):
         return kd.packed_einsum(eq, x, w)
     if policy.grad_quant != "none":
-        return _EinsumGC.apply(eq.replace(" ", ""), x, w)
-    return _einsum_f32(eq, x, w)
+        return _EinsumGC.apply(eq.replace(" ", ""), x, w, col)
+    return _einsum_f32(eq, x, w, col)
 
 
-def quant_einsum(eq: str, x: torch.Tensor, w, policy: Policy, site: str = "hidden"):
-    """einsum with both operands quantized per policy; f32 accumulation."""
+def quant_einsum(eq: str, x: torch.Tensor, w, policy: Policy, site: str = "hidden", tp: str | None = None):
+    """einsum with both operands quantized per policy; f32 accumulation.
+    ``tp``: w is a "col" or "row" piece of a weight split over "model"
+    (module docstring)."""
     xq = quant_act(x, policy, site)
     cdt = policy.cdt() or x.dtype
     if kd.is_any_packed(w):
+        if tp is not None:
+            raise NotImplementedError("tensor parallelism over packed weights is not ported")
         y = kd.packed_einsum(eq, xq.to(cdt), w)
     else:
-        y = policy_einsum(eq, xq.to(cdt), quant_weight(w, policy).to(cdt), policy)
+        y = policy_einsum(eq, xq.to(cdt), quant_weight(w, policy, tp is not None).to(cdt), policy,
+                          tp == "col")
+    if tp == "row":
+        y = shd.reduce_from_model(y)
     return y.to(cdt)
 
 
@@ -140,8 +175,20 @@ class QuantDense:
             s["b"] = (self.out_axis,)
         return s
 
+    def tp(self) -> str | None:
+        """"col" where the rules put w's output dim on a "model" axis above
+        one, "row" where they put its input dim there, else None."""
+        if shd.model_size() == 1:
+            return None
+        shd.check_tp()
+        if shd.tp_pieces(self.out_axis, self.out_dim) > 1:
+            return "col"
+        if shd.tp_pieces(self.in_axis, self.in_dim) > 1:
+            return "row"
+        return None
+
     def apply(self, p, x: torch.Tensor, policy: Policy, site: str = "hidden") -> torch.Tensor:
-        y = quant_einsum("...d,df->...f", x, p["w"], policy, site)
+        y = quant_einsum("...d,df->...f", x, p["w"], policy, site, self.tp())
         if self.use_bias:
             y = y + p["b"].to(y.dtype)
         return y
@@ -185,6 +232,8 @@ class QuantEmbedding:
         packed table gathers the codes (a FloatSD4 one its nibbles and
         group exponents), then decodes only those rows."""
         table = p["table"]
+        if self.tp():
+            return quant_act(self._lookup_piece(table, tokens, policy), policy, site="first")
         if kd.is_packed4(table):
             y = floatsd4.gather_decode(table.codes, table.exps, tokens,
                                        dtype=policy.cdt() or torch.float32)
@@ -195,6 +244,27 @@ class QuantEmbedding:
             y = _GatherRows.apply(quant_weight(table, policy), tokens)
         return quant_act(y, policy, site="first")
 
+    def tp(self) -> bool:
+        """Whether the rules split the vocab over a "model" axis above one:
+        the table is then this rank's rows."""
+        if shd.model_size() == 1:
+            return False
+        shd.check_tp()
+        return shd.tp_pieces("vocab", self.vocab) > 1
+
+    def _lookup_piece(self, table, tokens: torch.Tensor, policy: Policy) -> torch.Tensor:
+        """The rows of the tokens this rank's table piece holds, zeros for
+        the others, summed over "model" in f32 (one rank holds each row)."""
+        wq = quant_weight(table, policy, piece=True)
+        n = wq.shape[0]
+        local = tokens - shd.model_rank() * n
+        inside = (local >= 0) & (local < n)
+        y = _GatherRows.apply(wq, torch.where(inside, local, 0))
+        y = torch.where(inside[..., None], y.to(torch.float32), 0.0)
+        return shd.reduce_from_model(y).to(wq.dtype)
+
     def attend(self, p, x: torch.Tensor, policy: Policy) -> torch.Tensor:
-        """Tied-weight logits head x @ table^T (the 'last layer' site)."""
-        return quant_einsum("...d,vd->...v", x, p["table"], policy, site="last")
+        """Tied-weight logits head x @ table^T (the 'last layer' site);
+        under tensor parallelism this rank's vocab columns."""
+        return quant_einsum("...d,vd->...v", x, p["table"], policy, site="last",
+                            tp="col" if self.tp() else None)

@@ -11,6 +11,10 @@ leading layer axis (``stack_init``), as the reference's ``Stack`` has them.
 structure as ``init``'s, a tuple of logical names per leaf, one a dim
 (``distributed.sharding`` maps them to mesh axes); ``stack_specs`` puts
 the layer axis in front of every leaf.
+
+``init(SHAPES_ONLY)`` builds every leaf on the meta device and draws
+nothing: the shapes and dtypes alone, the counterpart of the reference's
+``jax.eval_shape`` of ``init``.
 """
 from __future__ import annotations
 
@@ -21,7 +25,17 @@ import torch
 
 from .._tree import tree_map
 
-__all__ = ["truncated_normal_init", "uniform_init", "stack_init", "stack_specs"]
+__all__ = ["truncated_normal_init", "uniform_init", "stack_init", "stack_specs", "SHAPES_ONLY"]
+
+
+class _ShapesOnly:
+    """Stands in for the ``torch.Generator`` an ``init`` takes: its device
+    is meta, and the initialisers below draw nothing on it."""
+
+    device = torch.device("meta")
+
+
+SHAPES_ONLY = _ShapesOnly()
 
 
 def truncated_normal_init(generator: torch.Generator, shape, stddev: float | None = None) -> torch.Tensor:
@@ -30,6 +44,8 @@ def truncated_normal_init(generator: torch.Generator, shape, stddev: float | Non
     if stddev is None:
         stddev = 1.0 / float(np.sqrt(shape[0] if len(shape) > 1 else shape[-1]))
     t = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    if t.is_meta:
+        return t
     return torch.nn.init.trunc_normal_(
         t, std=stddev, a=-2.0 * stddev, b=2.0 * stddev, generator=generator
     )
@@ -38,7 +54,7 @@ def truncated_normal_init(generator: torch.Generator, shape, stddev: float | Non
 def uniform_init(generator: torch.Generator, shape, scale: float) -> torch.Tensor:
     """U(-scale, scale), on the generator's device."""
     t = torch.empty(shape, dtype=torch.float32, device=generator.device)
-    return t.uniform_(-scale, scale, generator=generator)
+    return t if t.is_meta else t.uniform_(-scale, scale, generator=generator)
 
 
 def stack_init(layer_init: Callable, n: int) -> Callable:

@@ -35,6 +35,15 @@ rank (so every rank skips together and the loss scale stays equal), and
 the optimizer and the master add on this rank's pieces. At a world of one
 rank every collective is an identity and the step equals the unsharded
 one bit for bit.
+
+With a "model" axis above one (tensor parallelism, ``distributed.sharding``)
+the masters are gathered over the batch axes only (FSDP): each rank keeps
+its "model" pieces, the model runs its share of the heads, the MLP and the
+vocab, and a piece's gradient is summed over the batch axes only. The
+finite flag is reduced over "model" (every rank skips together), the clip
+norm sums the pieces' squares over "model" and counts a leaf that is whole
+on every "model" rank once, and telemetry reads the gradients and masters
+gathered whole.
 """
 from __future__ import annotations
 
@@ -120,6 +129,24 @@ def _sum_shares(loss: torch.Tensor, grads, mesh):
     return loss, tree_map(lambda _: next(summed), grads)
 
 
+def _model_whole(tree, psh):
+    """Every leaf of ``tree`` (cut along "model" only) gathered whole."""
+    return shd.gather_tree(tree, shd.model_only(psh))
+
+
+def _square_sum(grads, split, mesh) -> torch.Tensor:
+    """The global sum of the gradients' squares in f32: under tensor
+    parallelism (``split``: per leaf, cut along "model") the pieces' sums
+    reduced over "model", plus each whole leaf's once."""
+    if split is None:
+        return sum(torch.sum(torch.square(g.to(torch.float32))) for g in tree_leaves(grads))
+    sq = [torch.sum(torch.square(g.to(torch.float32))) for g in tree_leaves(grads)]
+    cut = [s for s, c in zip(sq, tree_leaves(split)) if c]
+    rest = [s for s, c in zip(sq, tree_leaves(split)) if not c]
+    total = shd.all_reduce(sum(cut), ("model",), mesh) if cut else 0.0
+    return total + sum(rest)
+
+
 def batch_to_device(batch: dict, device) -> dict:
     """A numpy batch of token ids -> int64 tensors on ``device``."""
     return {k: torch.from_numpy(np.asarray(v, np.int64)).to(device) for k, v in batch.items()}
@@ -147,19 +174,25 @@ def make_train_step(loss_fn, opt: Optimizer, policy: Policy, lr: float = 1e-3,
     state sharded by them (module docstring); telemetry then describes the
     global step, its update statistics read from the gathered masters."""
     mesh = psh = None
+    keep = ()  # the mesh axes a rank keeps its pieces along (tensor parallelism: "model")
+    split = None  # per leaf: whether it is cut along "model"
     if shardings is not None:
         psh = shardings.params
         mesh = shardings.step.mesh
         if opt.name == "adafactor" and shd.batch_ranks(mesh) > 1:
             raise NotImplementedError("adafactor's factored moments span the sharded dims: "
                                       "shard its state on no mesh of more than one batch rank")
+        if shd.model_size(mesh) > 1:
+            keep = ("model",)
+            split = tree_map(lambda s: any("model" in shd._names(ax) for ax in s.spec), psh,
+                             is_leaf=lambda s: isinstance(s, shd.NamedSharding))
     if fused is None:
         fused = policy.grad_quant == "fp8"
     run_policy = (policy.replace(grad_quant="fp8_kernel")
                   if fused and policy.grad_quant == "fp8" else policy)
 
     def step(state: TrainState, batch):
-        full = state.params if psh is None else shd.gather_tree(state.params, psh)
+        full = state.params if psh is None else shd.gather_tree(state.params, psh, keep)
         params = tree_map(lambda p: p.detach().requires_grad_(), full)
         with shd.use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
             raw_loss = loss_fn(params, batch, run_policy)
@@ -170,20 +203,22 @@ def make_train_step(loss_fn, opt: Optimizer, policy: Policy, lr: float = 1e-3,
         grads = tree_map(lambda g, p: torch.zeros_like(p) if g is None else g, grads, params)
         if mesh is not None:
             raw_loss, grads = _sum_shares(raw_loss, grads, mesh)
+        whole = (lambda t: t) if not keep else (lambda t: _model_whole(t, psh))
         # the loss-scaled values the FP8 quantizer is about to see
-        tel = obs_telemetry.fp8_grad_stats(grads) if telemetry else None
+        tel = obs_telemetry.fp8_grad_stats(whole(grads)) if telemetry else None
         if run_policy.grad_quant in ("fp8", "fp8_kernel"):
             grads = grad_quant(grads)
         grads, finite = ls.unscale_and_check(grads, state.scale)
+        if keep:
+            finite = shd.all_reduce(finite.to(torch.float32), keep, mesh, op="min") > 0
         if telemetry:
-            tel["grad_norm"] = obs_telemetry.layer_grad_norms(grads)
+            tel["grad_norm"] = obs_telemetry.layer_grad_norms(whole(grads))
         if grad_clip is not None:
-            gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                                   for g in tree_leaves(grads)))
+            gnorm = torch.sqrt(_square_sum(grads, split, mesh))
             coef = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
             grads = tree_map(lambda g: g * coef.to(g.dtype), grads)
         if psh is not None:
-            grads = shd.shard_tree(grads, psh)
+            grads = shd.shard_tree(grads, psh, keep)
         updates, new_opt = opt.update(grads, state.opt_state, state.params, lr)
         # FP16 master + update: an f32 add, stored back in the master dtype
         new_params = tree_map(lambda p, u: (p.to(torch.float32) + u.to(torch.float32)).to(p.dtype),
@@ -196,7 +231,7 @@ def make_train_step(loss_fn, opt: Optimizer, policy: Policy, lr: float = 1e-3,
                    "loss_scale": new_scale.scale}
         if telemetry:
             new_full = new_params if psh is None else shd.gather_tree(new_params, psh)
-            tel.update(obs_telemetry.floatsd_update_stats(full, new_full))
+            tel.update(obs_telemetry.floatsd_update_stats(whole(full), new_full))
             metrics["tel"] = tel
         return TrainState(state.step + 1, new_params, new_opt, new_scale), metrics
 
